@@ -1,16 +1,26 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch/CUDA port's main path.
+"""On-card check of the PyTorch/CUDA port's main paths.
 
     python3 chip_smoke.py
 
 Needs one NVIDIA GPU (sm_90a) with the CUDA toolkit; exits non-zero without
 printing a result when there is none or when the port's package is missing.
-It builds the CUDA kernel from the checkout, holds it against its plain
-torch version on the card (six cases at 320x180, and one frame at the main
-path's 1920x1080), drives RenderSession at 1920x1080 over the 64-primitive
-benchmark scene with 8 bounces (the JAX package's headline render,
-bench.py), and prints timings beside the card's name and power limit.  The last line is {"ok": true, "device": {...}} on success; any
-failed check raises.  Imports nothing of JAX.
+It builds the CUDA kernels from the checkout and, for each kernel, holds it
+against its plain torch version on the card (at 320x180 over scenes and
+modes, and one frame at its main path's 1920x1080), then drives its main
+path through RenderSession at 1920x1080 over the 64-primitive benchmark
+scene with 8 bounces (the JAX package's bench.py rows):
+
+* K1, megakernel_analytic: the full-analytic bounce
+  (``geometry="baked", analytic_all=True``);
+* K2, megakernel_march: the sphere march (``geometry="baked", t_cull=True``,
+  bench.py's marching row); its checks cover faithful and baked geometry,
+  subtraction, smooth union, refraction, the first-shape clobber and debug
+  0-3.
+
+It prints timings beside the card's name and power limit, a kernels JSON
+line, and {"ok": true, "device": {...}} last; any failed check raises.
+Imports nothing of JAX.
 """
 
 import json
@@ -18,12 +28,16 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 CHECK_W, CHECK_H = 320, 180      # kernel-vs-plain phase
 MAIN_W, MAIN_H, BOUNCES = 1920, 1080, 8
 N_PRIMS = 64
 TIMED_FRAMES = 8
 DIFF_TOL = 1e-2                  # a pixel differs when max-channel |diff| > this
+SHARE_LIMIT = 5e-3               # ... and a check fails above this share
+ANALYTIC = dict(geometry="baked", analytic_all=True)
+MARCH = dict(geometry="baked", t_cull=True)
 
 
 def _gpu_line() -> str:
@@ -36,7 +50,7 @@ def _gpu_line() -> str:
 def _clobber_scene():
     """A guarded first shape beside a child union: while its AABB check
     passes it clobbers the child union's shapes (the reference's first-shape
-    assign), which the kernel evaluates as ancestor guards."""
+    assign), which K1 evaluates as ancestor guards and K2 as a fold."""
     from compute_path_tracer_tpu_torch.scene import KIND_SPHERE, Scene, Shape, Union
 
     root = Union(name="R")
@@ -69,6 +83,100 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _compare(name, kernel_img, plain_img, limit=SHARE_LIMIT):
+    """Share of pixels off by > DIFF_TOL and the max |diff|; raises on a
+    breach or on non-finite values."""
+    import torch
+
+    if not (torch.isfinite(kernel_img).all() and torch.isfinite(plain_img).all()):
+        raise AssertionError(f"{name}: non-finite values")
+    d = (kernel_img - plain_img).abs().amax(dim=-1)
+    share, err = float((d > DIFF_TOL).float().mean()), float(d.max())
+    print(f"check {name}: share of pixels off by > {DIFF_TOL}: {share:.6f} "
+          f"(limit {limit}), max abs diff {err:.3e}, "
+          f"mean {float(kernel_img.mean()):.5f}")
+    if share > limit:
+        raise AssertionError(f"{name}: {share} of pixels differ (> {limit})")
+    return share, err
+
+
+def _check_cases(mk, key, cases):
+    """Kernel against plain at CHECK_W x CHECK_H; each case must launch
+    kernel ``key`` once.  Returns the max |diff| over the cases."""
+    import torch
+
+    max_err = 0.0
+    for name, (spec, params), kw, acc, limit in cases:
+        before = mk.LAUNCHES[key]
+        k = mk.render_frame_megakernel(
+            spec, params, None if acc is None else acc.clone(),
+            width=CHECK_W, height=CHECK_H, **kw)
+        p = mk.render_frame_megakernel_plain(
+            spec, params, None if acc is None else acc.clone(),
+            width=CHECK_W, height=CHECK_H, **kw)
+        torch.cuda.synchronize()
+        if mk.LAUNCHES[key] - before != 1:
+            raise AssertionError(f"{name}: {key} was not launched once")
+        max_err = max(max_err, _compare(name, k, p, limit)[1])
+    return max_err
+
+
+def _drive_session(mk, key, sess, label, gpu):
+    """The main path: one warm-up frame and TIMED_FRAMES timed frames, with
+    every kernel count set to 0 just before and read just after; each frame
+    must launch kernel ``key`` once and no other kernel."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.app.perf import rays_per_second
+
+    for k in mk.LAUNCHES:
+        mk.LAUNCHES[k] = 0
+    sess.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_FRAMES):
+        sess.step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(mk.LAUNCHES)
+    expect = {k: (TIMED_FRAMES + 1 if k == key else 0) for k in counts}
+    if counts != expect:
+        raise AssertionError(f"{label}: kernel launches {counts}, expected "
+                             f"{expect}")
+    accum = sess.accum
+    if tuple(accum.shape) != (MAIN_H, MAIN_W, 3):
+        raise AssertionError(f"{label}: accumulator shape {tuple(accum.shape)}")
+    if not bool(torch.isfinite(accum).all()) or float(accum.mean()) <= 0.0:
+        raise AssertionError(f"{label}: accumulator is not finite and positive")
+    frame_ms = dt / TIMED_FRAMES * 1e3
+    rays = rays_per_second(MAIN_W, MAIN_H, TIMED_FRAMES, dt, bounces=BOUNCES)
+    print(f"main path {label}: {TIMED_FRAMES} frames {MAIN_W}x{MAIN_H}, "
+          f"{N_PRIMS} prims, {BOUNCES} bounces: {frame_ms:.3f} ms/frame, "
+          f"{rays:.4e} rays/s, mean {float(accum.mean()):.5f} [{gpu}]")
+    return counts[key]
+
+
+def _main_shape_check(mk, key, spec, params, mode):
+    """The kernel against the plain version at the main path's own shape
+    (frame 0, fresh accumulator); returns (share, max |diff|, plain ms)."""
+    import torch
+
+    kw = dict(width=MAIN_W, height=MAIN_H, bounces=BOUNCES, **mode)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = mk.render_frame_megakernel_plain(spec, params, None, 0, 0, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    before = mk.LAUNCHES[key]
+    kernel = mk.render_frame_megakernel(spec, params, None, 0, 0, **kw)
+    torch.cuda.synchronize()
+    if mk.LAUNCHES[key] - before != 1:
+        raise AssertionError(f"the {MAIN_W}x{MAIN_H} check did not launch {key}")
+    share, err = _compare(f"{key} {MAIN_W}x{MAIN_H}, bounces {BOUNCES} frame 0",
+                          kernel, plain)
+    return share, err, plain_ms
+
+
 def main() -> int:
     import torch
 
@@ -78,16 +186,18 @@ def main() -> int:
         return 1
 
     from compute_path_tracer_tpu_torch.app.config import Settings
-    from compute_path_tracer_tpu_torch.app.perf import rays_per_second
     from compute_path_tracer_tpu_torch.io.png import load_png_rgba
     from compute_path_tracer_tpu_torch.kernels import build
     from compute_path_tracer_tpu_torch.kernels import megakernel as mk
     from compute_path_tracer_tpu_torch.render.baked import bake
+    from compute_path_tracer_tpu_torch.render.program import (
+        build_program, program_table)
     from compute_path_tracer_tpu_torch.render.session import RenderSession
     from compute_path_tracer_tpu_torch.render.soa import (
         build_soa_smem_layout, pack_soa_smem)
     from compute_path_tracer_tpu_torch.scene import (
-        benchmark_scene, compile_scene, glass_demo, params_from_numpy)
+        benchmark_scene, blend_demo, compile_scene, csg_demo, glass_demo,
+        params_from_numpy)
 
     gpu = _gpu_line()
     dev = torch.device("cuda")
@@ -101,80 +211,59 @@ def main() -> int:
     mk.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path}")
 
-    # -- kernel against its plain version, on the card ----------------------
     def compiled(scene):
         cs = compile_scene(scene)
         return cs.spec, params_from_numpy(cs.params, cs.spec, dev)
 
     bench = compiled(benchmark_scene(N_PRIMS))
     spec = bench[0]
+    glass, clobber = compiled(glass_demo()), compiled(_clobber_scene())
     gen = torch.Generator(device="cpu").manual_seed(0)
     prior = torch.rand((CHECK_H, CHECK_W, 3), generator=gen).to(dev)
-    b8 = dict(bounces=BOUNCES, frame=0)
-    cases = (
-        ("bounces 8 frame 0", bench, b8, None, 5e-3),
-        ("bounces 8 frame 3, running mean", bench,
-         dict(bounces=BOUNCES, frame=3, last_clear=3), prior, 5e-3),
-        ("bounces 0", bench, dict(bounces=0, frame=0), None, 1e-3),
-        ("debug 3", bench, dict(b8, debug=3), None, 5e-3),
+
+    # -- K1 against its plain version, on the card --------------------------
+    b8 = dict(ANALYTIC, bounces=BOUNCES, frame=0)
+    k1_err = _check_cases(mk, "megakernel_analytic", (
+        ("K1 bounces 8 frame 0", bench, b8, None, 5e-3),
+        ("K1 bounces 8 frame 3, running mean", bench,
+         dict(b8, frame=3, last_clear=3), prior, 5e-3),
+        ("K1 bounces 0", bench, dict(b8, bounces=0), None, 1e-3),
+        ("K1 debug 3", bench, dict(b8, debug=3), None, 5e-3),
         # Paths the benchmark scene does not take: refraction and the
         # first-shape clobber's ancestor guards.
-        ("glass_demo, refraction", compiled(glass_demo()), b8, None, 5e-3),
-        ("clobber scene, ancestor guards", compiled(_clobber_scene()), b8,
-         None, 5e-3),
-    )
-    launches0 = mk.LAUNCHES
-    max_abs_err = 0.0
-    for name, (c_spec, c_params), kw, acc, limit in cases:
-        k = mk.render_frame_megakernel(
-            c_spec, c_params, None if acc is None else acc.clone(),
-            width=CHECK_W, height=CHECK_H, **kw)
-        p = mk.render_frame_megakernel_plain(
-            c_spec, c_params, None if acc is None else acc.clone(),
-            width=CHECK_W, height=CHECK_H, **kw)
-        torch.cuda.synchronize()
-        if not (torch.isfinite(k).all() and torch.isfinite(p).all()):
-            raise AssertionError(f"{name}: non-finite values")
-        d = (k - p).abs().amax(dim=-1)
-        frac = float((d > DIFF_TOL).float().mean())
-        err = float(d.max())
-        max_abs_err = max(max_abs_err, err)
-        print(f"check {name}: share of pixels off by > {DIFF_TOL}: {frac:.6f} "
-              f"(limit {limit}), max abs diff {err:.3e}, mean {float(k.mean()):.5f}")
-        if frac > limit:
-            raise AssertionError(f"{name}: {frac} of pixels differ (> {limit})")
-    if mk.LAUNCHES - launches0 != len(cases):
-        raise AssertionError(f"{mk.LAUNCHES - launches0} launches for "
-                             f"{len(cases)} kernel calls")
+        ("K1 glass_demo, refraction", glass, b8, None, 5e-3),
+        ("K1 clobber scene, ancestor guards", clobber, b8, None, 5e-3),
+    ))
 
-    # -- main path: RenderSession at 1080p, 64 prims, 8 bounces -------------
+    # -- K2 against its plain version, on the card --------------------------
+    csg, blend = compiled(csg_demo()), compiled(blend_demo())
+    k2_cases = []
+    for name, scene, mode in (
+            ("csg_demo faithful", csg, dict(geometry="faithful")),
+            ("csg_demo baked", csg, dict(geometry="baked")),
+            ("blend_demo baked", blend, dict(geometry="baked")),
+            ("glass_demo baked, refraction", glass, dict(geometry="baked")),
+            ("clobber scene baked", clobber, dict(geometry="baked")),
+            (f"benchmark_scene({N_PRIMS}) baked t_cull", bench, MARCH)):
+        for debug in (0, 1, 2, 3):
+            k2_cases.append((f"K2 {name} debug {debug}", scene,
+                             dict(mode, bounces=BOUNCES, debug=debug), None,
+                             SHARE_LIMIT))
+    k2_cases.append(("K2 csg_demo faithful t_cull frame 3, running mean", csg,
+                     dict(geometry="faithful", t_cull=True, bounces=BOUNCES,
+                          frame=3, last_clear=3), prior, SHARE_LIMIT))
+    k2_err = _check_cases(mk, "megakernel_march", k2_cases)
+
+    # -- K1 main path: RenderSession at 1080p, full-analytic ---------------
     sess = RenderSession(benchmark_scene(N_PRIMS), MAIN_W, MAIN_H,
-                         Settings(debug=0, bounces=BOUNCES), device=dev)
-    mk.LAUNCHES = 0
-    sess.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TIMED_FRAMES):
-        sess.step()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = mk.LAUNCHES
-    if launches != TIMED_FRAMES + 1:
-        raise AssertionError(f"main path made {launches} kernel launches, "
-                             f"expected {TIMED_FRAMES + 1}")
-    accum = sess.accum
-    if tuple(accum.shape) != (MAIN_H, MAIN_W, 3):
-        raise AssertionError(f"accumulator shape {tuple(accum.shape)}")
-    if not bool(torch.isfinite(accum).all()) or float(accum.mean()) <= 0.0:
-        raise AssertionError("main-path accumulator is not finite and positive")
-    frame_ms = dt / TIMED_FRAMES * 1e3
-    rays = rays_per_second(MAIN_W, MAIN_H, TIMED_FRAMES, dt, bounces=BOUNCES)
-    print(f"main path: {TIMED_FRAMES} frames {MAIN_W}x{MAIN_H}, {N_PRIMS} prims, "
-          f"{BOUNCES} bounces: {frame_ms:.3f} ms/frame, {rays:.4e} rays/s, "
-          f"mean {float(accum.mean()):.5f} [{gpu}]")
+                         Settings(debug=0, bounces=BOUNCES),
+                         frame_fn=partial(mk.render_frame_megakernel, **ANALYTIC),
+                         device=dev)
+    k1_launches = _drive_session(mk, "megakernel_analytic", sess, "K1 analytic",
+                                 gpu)
 
     # Layer times at the main-path shape: bake + pack alone, the kernel
-    # alone on packed tables, and one frame of the plain version.
+    # alone on packed tables, and the kernel against one plain frame.
     layout = build_soa_smem_layout(spec)
     sp = sess.params
 
@@ -184,46 +273,21 @@ def main() -> int:
     with torch.no_grad():
         bake_ms = _cuda_ms(bake_pack, 20)
         soa_f, soa_i = bake_pack()
-    scratch = accum.clone()
-    kernel_ms = _cuda_ms(lambda: mk.launch_megakernel(
+    scratch = sess.accum.clone()
+    k1_ms = _cuda_ms(lambda: mk.launch_megakernel(
         layout, soa_f, soa_i, scratch, frame=1, last_clear=1, bounces=BOUNCES,
         fov=sess.settings.fov, aspect=sess.aspect, debug=0), 5)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain = mk.render_frame_megakernel_plain(
-        spec, sp, None, 0, 0, width=MAIN_W, height=MAIN_H, bounces=BOUNCES)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-
-    # The kernel against the plain version at the main path's own shape:
-    # its RNG seeds and the ragged edge of the 16x16 block grid.
-    before = mk.LAUNCHES
-    kernel_frame = mk.render_frame_megakernel(
-        spec, sp, None, 0, 0, width=MAIN_W, height=MAIN_H, bounces=BOUNCES)
-    torch.cuda.synchronize()
-    if mk.LAUNCHES - before != 1:
-        raise AssertionError("the 1080p check frame did not launch the kernel")
-    if not (torch.isfinite(kernel_frame).all() and torch.isfinite(plain).all()):
-        raise AssertionError("1080p check frame: non-finite values")
-    d = (kernel_frame - plain).abs().amax(dim=-1)
-    main_share = float((d > DIFF_TOL).float().mean())
-    main_err = float(d.max())
-    max_abs_err = max(max_abs_err, main_err)
-    del plain, kernel_frame, d
-    print(f"check {MAIN_W}x{MAIN_H}, bounces {BOUNCES} frame 0: share of "
-          f"pixels off by > {DIFF_TOL}: {main_share:.6f} (limit 5e-3), "
-          f"max abs diff {main_err:.3e}")
-    if main_share > 5e-3:
-        raise AssertionError(f"1080p: {main_share} of pixels differ (> 5e-3)")
-    print(f"layers at {MAIN_W}x{MAIN_H}: bake+pack {bake_ms:.3f} ms, kernel "
-          f"{kernel_ms:.3f} ms, plain torch frame {plain_ms:.3f} ms [{gpu}]")
+    k1_share, k1_main_err, k1_plain_ms = _main_shape_check(
+        mk, "megakernel_analytic", spec, sp, ANALYTIC)
+    k1_err = max(k1_err, k1_main_err)
+    print(f"K1 layers at {MAIN_W}x{MAIN_H}: bake+pack {bake_ms:.3f} ms, kernel "
+          f"{k1_ms:.3f} ms, plain torch frame {k1_plain_ms:.3f} ms [{gpu}]")
 
     # -- a value edit: same spec object, changed image ----------------------
     spec_before = sess.compiled.spec
-    frame_no = sess.frame
     unedited = mk.render_frame_megakernel(
-        spec_before, sess.params, None, frame_no, 0, width=MAIN_W,
-        height=MAIN_H, bounces=BOUNCES, aspect=sess.aspect)
+        spec_before, sess.params, None, sess.frame, 0, width=MAIN_W,
+        height=MAIN_H, bounces=BOUNCES, aspect=sess.aspect, **ANALYTIC)
     ground = next(s for s in sess.scene.roots[0].children_shapes
                   if s.name == "Ground")
     ground.transform.position.y.set(ground.transform.position.y.val + 0.5)
@@ -246,20 +310,45 @@ def main() -> int:
         raise AssertionError(f"PNG read back as {rgba.shape}, "
                              f"max {int(rgba.max())}")
     print(f"png: {rgba.shape} read back")
+    del sess, scratch, edited, unedited
 
-    report = {"kernels": [{
-        "name": "megakernel_analytic",
-        "route": "cuda",
-        "source": "compute_path_tracer_tpu_torch/kernels/csrc/"
-                  "megakernel_analytic.cu",
-        "replaces": "compute_path_tracer_tpu/kernels/megakernel.py:1546",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "main_shape_share_off": main_share,
-        "main_shape_max_abs_err": main_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}
+    # -- K2 main path: RenderSession at 1080p, baked t-culled march --------
+    sess = RenderSession(benchmark_scene(N_PRIMS), MAIN_W, MAIN_H,
+                         Settings(debug=0, bounces=BOUNCES),
+                         frame_fn=partial(mk.render_frame_megakernel, **MARCH),
+                         device=dev)
+    k2_launches = _drive_session(mk, "megakernel_march", sess,
+                                 "K2 march (baked, t_cull)", gpu)
+    sp = sess.params
+    prog = build_program(spec, "baked")
+    with torch.no_grad():
+        table_ms = _cuda_ms(lambda: program_table(prog, sp, True), 20)
+        table = program_table(prog, sp, True)
+    scratch = sess.accum.clone()
+    k2_ms = _cuda_ms(lambda: mk.launch_march(
+        prog, table, scratch, frame=1, last_clear=1, bounces=BOUNCES,
+        fov=sess.settings.fov, aspect=sess.aspect, debug=0, t_cull=True), 5)
+    k2_share, k2_main_err, k2_plain_ms = _main_shape_check(
+        mk, "megakernel_march", spec, sp, MARCH)
+    k2_err = max(k2_err, k2_main_err)
+    print(f"K2 layers at {MAIN_W}x{MAIN_H}: program table {table_ms:.3f} ms, "
+          f"kernel {k2_ms:.3f} ms, plain torch frame {k2_plain_ms:.3f} ms "
+          f"[{gpu}]")
+
+    csrc = "compute_path_tracer_tpu_torch/kernels/csrc/"
+    replaces = "compute_path_tracer_tpu/kernels/megakernel.py:1546"
+    report = {"kernels": [
+        {"name": "megakernel_analytic", "route": "cuda",
+         "source": csrc + "megakernel_analytic.cu", "replaces": replaces,
+         "launches": k1_launches, "max_abs_err": k1_err,
+         "main_shape_share_off": k1_share, "ms": k1_ms,
+         "plain_ms": k1_plain_ms},
+        {"name": "megakernel_march", "route": "cuda",
+         "source": csrc + "megakernel_march.cu", "replaces": replaces,
+         "launches": k2_launches, "max_abs_err": k2_err,
+         "main_shape_share_off": k2_share, "ms": k2_ms,
+         "plain_ms": k2_plain_ms},
+    ]}
     print(gpu)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

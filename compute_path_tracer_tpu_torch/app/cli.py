@@ -1,13 +1,16 @@
 """Command-line interface: headless progressive render to PNG (JAX package:
 ``app/cli.py``).
 
-Only ``render`` with the full-analytic mode is ported so far:
+Only ``render`` is ported so far, in the three modes of the JAX CLI's
+Pallas backend: ``faithful`` (the sphere march over the faithful
+geometry), ``tcull`` (baked geometry, t-interval-culled march) and
+``analytic`` (the full-analytic bounce, union-only scenes):
 
-  python -m compute_path_tracer_tpu_torch render --scene benchmark_scene \
+  python -m compute_path_tracer_tpu_torch render --scene csg_demo \
       --width 1920 --height 1080 --frames 16 --out out.png
 
-The other subcommands of the JAX package are listed and raise
-``NotImplementedError``.
+``--device cpu`` runs the kernels' plain torch versions.  The other
+subcommands of the JAX package are listed and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,19 +37,28 @@ def _load_scene(name: str):
     return make()
 
 
+# --mode -> render_frame_megakernel options (JAX package: app/cli.py:50-65).
+MODES = {
+    "faithful": {},
+    "tcull": dict(geometry="baked", t_cull=True),
+    "analytic": dict(geometry="baked", analytic_all=True),
+}
+
+
 def cmd_render(args) -> int:
+    from functools import partial
+
     from ..app.config import Settings
+    from ..kernels.megakernel import render_frame_megakernel
     from ..render.session import RenderSession
 
-    if args.mode != "analytic":
-        raise NotImplementedError(
-            f"--mode {args.mode} marches the scene; it is not ported yet "
-            "(ROADMAP queue 1, item 6)")
     scene = _load_scene(args.scene)
     settings = Settings(
         debug=args.debug, bounces=args.bounces, scale=args.scale, fov=args.fov
     ).validate()
     sess = RenderSession(scene, args.width, args.height, settings,
+                         frame_fn=partial(render_frame_megakernel,
+                                          **MODES[args.mode]),
                          device=args.device)
 
     t0 = time.perf_counter()
@@ -76,18 +88,17 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     r = sub.add_parser("render", help="headless progressive render to PNG")
-    r.add_argument("--scene", default="benchmark_scene",
-                   help="builtin name or JSON path (union-only trees)")
+    r.add_argument("--scene", default="csg_demo", help="builtin name or JSON path")
     r.add_argument("--width", type=int, default=512)
     r.add_argument("--height", type=int, default=512)
     r.add_argument("--frames", type=int, default=16)
     r.add_argument("--bounces", type=int, default=8)
-    r.add_argument("--debug", type=int, default=0, choices=(0, 3))
+    r.add_argument("--debug", type=int, default=0, choices=(0, 1, 2, 3))
     r.add_argument("--fov", type=float, default=1.0)
     r.add_argument("--scale", type=float, default=1.0)
-    r.add_argument("--mode", default="analytic",
-                   choices=("faithful", "tcull", "analytic"),
-                   help="only the full-analytic bounce is ported")
+    r.add_argument("--mode", default="faithful", choices=tuple(MODES),
+                   help="faithful march, t-interval-culled march, or the "
+                        "full-analytic bounce (union-only scenes; fastest)")
     r.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernel's plain version")
     r.add_argument("--out", default="image.png")

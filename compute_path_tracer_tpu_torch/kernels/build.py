@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``kernels/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``; no PyTorch
-headers are compiled, so a cold build takes seconds.  The library lands in
+Every ``kernels/csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a``,
+all started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``; no PyTorch headers are
+compiled, so a cold build takes seconds.  The library lands in
 ``build/kernels/<hash>/libcpt_kernels.so`` under the repository root, keyed
 by a hash of the sources and flags, and is written through a temporary file
 and a rename so that concurrent first uses do not clash.
@@ -32,7 +33,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3",
     "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
     "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 
@@ -69,21 +70,29 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[str(s) for s in _sources() if s.suffix == ".cu"]]
-        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = os.path.join(tmp, src.stem + ".o")
+            jobs.append((src.name, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs = [(name, proc.communicate()[0], proc.returncode)
+                for name, _, proc in jobs]
+        failed = [f"{name} ({rc}):\n{log}" for name, log, rc in logs if rc]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         if verbose:
-            print(res.stdout + res.stderr, end="")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            print("".join(log for _, log, _ in logs), end="")
+        lib = os.path.join(tmp, LIB_NAME)
+        res = subprocess.run([nvcc, "-shared", "-o", lib,
+                              *[obj for _, obj, _ in jobs]],
+                             capture_output=True, text=True, check=False)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        os.replace(lib, out)
     return out
 
 
@@ -94,5 +103,8 @@ def load_library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.cpt_megakernel_analytic
     fn.argtypes = [p, p, p, i, p, i, p, i, i, i, i, i, f, f, i, p]
+    fn.restype = ctypes.c_int
+    fn = lib.cpt_megakernel_march
+    fn.argtypes = [p, i, p, i, i, i, i, i, p, i, i, i, i, i, f, f, i, p]
     fn.restype = ctypes.c_int
     return lib

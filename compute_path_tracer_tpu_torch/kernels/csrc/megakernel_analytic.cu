@@ -55,22 +55,11 @@
 // * Each thread stops its loop when its ray dies (path_trace's per-lane
 //   semantics); the TPU kernel's whole-tile exit changes no live pixel.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr float kFar = 100.0f;          // constants.FP
-constexpr float kBig = 4.0f * kFar;     // closed-form "no hit"
-constexpr float kOffset = 0.03f;        // constants.OFFSET
-constexpr float kPi2 = 6.283185307179586f;
 constexpr int kSidNone = 1 << 30;
-
-constexpr int KIND_SPHERE = 0;
-constexpr int KIND_CUBE = 1;
-constexpr int KIND_PLANE = 2;
-constexpr int KIND_OCTAHEDRON = 3;
 
 // kmeta record: kind, n, w, a, f_geom, f_aabb, f_anc, i_sid, i_guard,
 // i_anc_valid (render/soa.py:SmemKind).  Only the n real rows of a kind are
@@ -80,93 +69,6 @@ constexpr int KM_FIELDS = 10;
 
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 16;
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 v3(float x, float y, float z) { return {x, y, z}; }
-__device__ __forceinline__ V3 operator+(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
-__device__ __forceinline__ V3 operator-(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
-__device__ __forceinline__ V3 operator-(V3 a) { return {-a.x, -a.y, -a.z}; }
-__device__ __forceinline__ V3 operator*(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
-__device__ __forceinline__ V3 operator*(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
-__device__ __forceinline__ V3 operator/(V3 a, float s) { return {a.x / s, a.y / s, a.z / s}; }
-__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ V3 sel(bool c, V3 a, V3 b) { return c ? a : b; }
-
-__device__ __forceinline__ V3 normalize_safe(V3 v) {
-  float l2 = dot(v, v);
-  float inv = l2 > 0.0f ? 1.0f / sqrtf(l2) : 0.0f;
-  return v * inv;
-}
-
-// GLSL mix(a, b, t) = a*(1-t) + b*t.
-__device__ __forceinline__ V3 vmix(V3 a, V3 b, float t) {
-  float u = 1.0f - t;
-  return {a.x * u + b.x * t, a.y * u + b.y * t, a.z * u + b.z * t};
-}
-
-// GLSL reflect(I, N) = I - N * (2 * dot(N, I)).
-__device__ __forceinline__ V3 reflect(V3 i, V3 n) { return i - n * (2.0f * dot(n, i)); }
-
-// NaN-propagating min/max (jnp.minimum / torch.minimum semantics).
-__device__ __forceinline__ float nan_min(float a, float b) { return (a < b || a != a) ? a : b; }
-__device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a != a) ? a : b; }
-
-__device__ __forceinline__ float sign_of(float v) {
-  return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : v);
-}
-
-// -- RNG (ops/rng.py, rng.glsl:1-36) ------------------------------------------
-
-__device__ __forceinline__ uint32_t wang_hash(uint32_t s) {
-  s = (s ^ 61u) ^ (s >> 16);
-  s = s * 9u;
-  s = s ^ (s >> 4);
-  s = s * 0x27D4EB2Du;
-  s = s ^ (s >> 15);
-  return s;
-}
-
-__device__ __forceinline__ float random_float01(uint32_t& s) {
-  s = wang_hash(s);
-  return __uint2float_rn(s) * 0x1p-32f;
-}
-
-__device__ __forceinline__ V3 random_unit_vector(uint32_t& s) {
-  float r1 = random_float01(s);
-  float r2 = random_float01(s);
-  float z = r1 * 2.0f - 1.0f;
-  float a = r2 * kPi2;
-  float r = sqrtf(1.0f - z * z);
-  return {r * cosf(a), r * sinf(a), z};
-}
-
-__device__ __forceinline__ uint32_t gen_rng(int x, int y, int frame, int width, int height) {
-  float fx = ((float)x * 0.5f + 0.5f) * (float)width;
-  float fy = ((float)y * 0.5f + 0.5f) * (float)height;
-  uint32_t seed = (uint32_t)(int)fx * 1973u + (uint32_t)(int)fy * 9277u +
-                  (uint32_t)frame * 26699u;
-  return seed | 1u;
-}
-
-// -- membership ---------------------------------------------------------------
-
-// AABB check of box (lo3, hi3) (aabb.glsl:21-33, ops/aabb.py).
-__device__ __forceinline__ bool slab_box(const float* __restrict__ box, V3 ro, V3 rd) {
-  float o[3] = {ro.x, ro.y, ro.z};
-  float d[3] = {rd.x, rd.y, rd.z};
-  float tn = -INFINITY, tf = INFINITY;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    float ta = (box[k] - o[k]) / d[k];
-    float tb = (box[3 + k] - o[k]) / d[k];
-    tn = nan_max(tn, nan_min(ta, tb));
-    tf = nan_min(tf, nan_max(ta, tb));
-  }
-  return tn < tf && tf > 0.0f;
-}
 
 // -- closed-form hits (megakernel.py:_leaf_analytic_t_slots) ------------------
 
@@ -349,15 +251,9 @@ megakernel_analytic(const float* __restrict__ F, const int* __restrict__ I,
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   if (x >= width || y >= height) return;
 
-  // Per-pixel RNG + AA jitter + camera (test_compute.glsl:218-235).
-  uint32_t rng = gen_rng(x, y, frame, width, height);
-  float jx = random_float01(rng);
-  float jy = random_float01(rng);
-  float u = ((((float)x + (jx - 0.5f)) / (float)width) * 2.0f - 1.0f) * aspect;
-  float v = (((float)y + (jy - 0.5f)) / (float)height) * 2.0f - 1.0f;
-  V3 ro = v3(0.0f, 0.0f, -3.0f);
-  V3 rd = v3(u, v, fov);
-  rd = rd / sqrtf(dot(rd, rd));
+  uint32_t rng;
+  V3 ro, rd;
+  primary_ray(x, y, frame, width, height, fov, aspect, rng, ro, rd);
 
   V3 ret = v3(0.0f, 0.0f, 0.0f);
   V3 thr = v3(1.0f, 1.0f, 1.0f);
@@ -372,75 +268,15 @@ megakernel_analytic(const float* __restrict__ F, const int* __restrict__ I,
     }
     V3 hit = ro + rd * t;
     V3 n = leaf_normal(sid_lut[2 * idx], F + sid_lut[2 * idx + 1], hit);
-    const float* mt = F + f_mat + 18 * idx;
-    V3 m_col = v3(mt[0], mt[1], mt[2]);
-    float m_brightness = mt[3];
-    V3 m_light = v3(mt[4], mt[5], mt[6]);
-    float m_spec = mt[7];
-    V3 m_spec_col = v3(mt[8], mt[9], mt[10]);
-    float m_rough = mt[11];
-    float m_ior = mt[12];
-    float m_refr = mt[13];
-    float m_refr_rough = mt[14];
-    V3 m_refr_col = v3(mt[15], mt[16], mt[17]);
-
-    // shade_bounce (render/reference.py, test_compute.glsl:118-149 plus the
-    // refraction extension).
-    float r_branch = random_float01(rng);
-    bool do_spec = r_branch < m_spec;
-    bool do_refr = !do_spec && r_branch < m_spec + m_refr;
-    float ray_prob = do_spec ? m_spec : (do_refr ? m_refr : 1.0f - m_spec - m_refr);
-    ray_prob = nan_max(ray_prob, 1e-4f);
-    V3 ruv = random_unit_vector(rng);
-    V3 diffuse_dir = normalize_safe(n + ruv);
-    V3 spec_dir = normalize_safe(vmix(reflect(rd, n), diffuse_dir, m_rough * m_rough));
-    bool entering = dot(rd, n) < 0.0f;
-    V3 n_eff = sel(entering, n, -n);
-    float idx_ref = 1.0f + m_ior;
-    float eta = entering ? 1.0f / idx_ref : idx_ref;
-    // refract_dir: zero vector on total internal reflection.
-    float cosi = dot(n_eff, rd);
-    float kk = 1.0f - eta * eta * (1.0f - cosi * cosi);
-    float root = kk > 0.0f ? sqrtf(kk) : 0.0f;
-    V3 refr = kk >= 0.0f ? rd * eta - n_eff * (eta * cosi + root) : reflect(rd, n_eff);
-    V3 trans_diffuse = normalize_safe(-n_eff + ruv);
-    refr = normalize_safe(vmix(refr, trans_diffuse, m_refr_rough * m_refr_rough));
-    V3 new_rd = do_spec ? spec_dir : (do_refr ? refr : diffuse_dir);
-    V3 offset_n = do_refr ? -n_eff : n;
-    ro = hit + offset_n * kOffset;
-    V3 emit = normalize_safe(m_light) * m_brightness;
-    V3 thr_factor = do_spec ? m_spec_col : (do_refr ? m_refr_col : m_col);
-    rd = new_rd;
-    ret = ret + emit * thr;
-    V3 new_thr = (thr * thr_factor) / ray_prob;
-
-    // Russian roulette on the max throughput channel
-    // (test_compute.glsl:153-159).
-    float p_rr = nan_max(new_thr.x, nan_max(new_thr.y, new_thr.z));
-    float r_rr = random_float01(rng);
-    if (r_rr > p_rr) {
+    if (!scatter(rng, ro, rd, ret, thr, hit, n, F + f_mat + kMatSize * idx)) {
       i_exit = i;
       break;
     }
-    thr = new_thr * (p_rr > 0.0f ? 1.0f / p_rr : 0.0f);
   }
   if (i_exit < 0) i_exit = bounces + 1;
-
-  float* out = accum + 3 * ((size_t)y * width + x);
-  if (debug == 3) {
-    // Bounce heatmap (test_compute.glsl:163); debug modes do not accumulate.
-    float h = (float)i_exit / (float)bounces;
-    out[0] = h;
-    out[1] = h;
-    out[2] = h;
-  } else {
-    // Progressive running mean (test_compute.glsl:242-245).
-    float w = 1.0f / ((float)last_clear + 1.0f);
-    float keep = 1.0f - w;
-    out[0] = out[0] * keep + ret.x * w;
-    out[1] = out[1] * keep + ret.y * w;
-    out[2] = out[2] * keep + ret.z * w;
-  }
+  // debug 3: the bounce heatmap (test_compute.glsl:163).
+  V3 col = debug == 3 ? splat((float)i_exit / (float)bounces) : ret;
+  write_pixel(accum, x, y, width, col, last_clear, debug);
 }
 
 }  // namespace

@@ -1,8 +1,9 @@
 """Leaf-baked scene coefficients: fold transform chains out of the render.
 
 Port of the JAX package's ``render/baked.py`` (``baked_layout``, ``bake``,
-``analytic_all_plan``).  Every node transform ``q' = R((q - pos)/s)`` along
-a leaf's chain composes into one affine map, and because every SDF is
+``analytic_all_plan``, the leaf distances and the baked map and bounds).
+Every node transform ``q' = R((q - pos)/s)`` along a leaf's chain composes
+into one affine map, and because every SDF is
 positively homogeneous and every CSG combine commutes with positive scaling,
 the chain folds into world-space leaf coefficients ``bv``: sphere centre and
 radius, plane normal and offset, cube/octahedron frame and half-sizes, the
@@ -27,6 +28,8 @@ import numpy as np
 import torch
 
 from ..constants import MAX_DIST
+from ..ops.aabb import aabb_hit, intersect_aabb
+from ..ops.sdf import combine, sd_cube, sd_octahedron
 from ..scene.compile import (
     OP_SMOOTH_UNION,
     OP_SUBTRACTION,
@@ -37,6 +40,7 @@ from ..scene.compile import (
 )
 from ..scene.model import KIND_CUBE, KIND_OCTAHEDRON, KIND_PLANE, KIND_SPHERE
 from ..scene.params import SENTINEL
+from ..vecmath import Vec3
 
 # -- static layout ------------------------------------------------------------
 
@@ -398,3 +402,100 @@ def bake(spec: SceneSpec, pv: torch.Tensor) -> torch.Tensor:
         c = pt_all[node_b]
         values.append(torch.cat([c - half, c + half], dim=1).reshape(-1))
     return torch.cat(values)[perm]
+
+
+# -- baked map / bounds -------------------------------------------------------
+
+
+def leaf_distance(kind: int, p: Vec3, g):
+    """World-space leaf SDF from its baked slots ``g[0..]`` (scalars or
+    per-lane tensors): sphere centre and radius, plane row, or the cube /
+    octahedron frame rows, offset and half-size."""
+    if kind == KIND_SPHERE:
+        return Vec3(p.x - g[0], p.y - g[1], p.z - g[2]).length_safe() - g[3]
+    if kind == KIND_PLANE:
+        return g[0] * p.x + g[1] * p.y + g[2] * p.z + g[3]
+    q = Vec3(
+        g[0] * p.x + g[1] * p.y + g[2] * p.z + g[9],
+        g[3] * p.x + g[4] * p.y + g[5] * p.z + g[10],
+        g[6] * p.x + g[7] * p.y + g[8] * p.z + g[11],
+    )
+    if kind == KIND_CUBE:
+        return sd_cube(q, Vec3(g[12], g[13], g[14]))
+    return sd_octahedron(q, g[12])
+
+
+def _eval_union_baked(bu: BakedUnion, p: Vec3, bv, checks):
+    acc_d = p.x * 0.0 + bv[bu.init_off]
+    acc_i = torch.full_like(p.x, -1, dtype=torch.int32)
+    k = bv[bu.k_off] if bu.k_off >= 0 else None
+    for cu in bu.children_unions:
+        cd, ci = _eval_union_baked(cu, p, bv, checks)
+        acc_d, acc_i = combine(bu.op, acc_d, acc_i, cd, ci, 1, k)
+    for si, bs in enumerate(bu.children_shapes):
+        d = leaf_distance(bs.kind, p, bv[bs.off:bs.off + GEOM_SLOTS[bs.kind]])
+        i = torch.full_like(acc_i, bs.shape_id)
+        cd, ci = combine(bu.op, acc_d, acc_i, d, i, si, k)
+        if bs.aabb:
+            g = checks[bs.shape_id]
+            cd, ci = torch.where(g, cd, acc_d), torch.where(g, ci, acc_i)
+        acc_d, acc_i = cd, ci
+    return acc_d, acc_i
+
+
+def make_map_baked(spec: SceneSpec):
+    """``map(p, bv, checks) -> (d, idx)`` over baked geometry: the faithful
+    map's fold (render/scenegen.py) with world-space leaves, equal to it up
+    to float rounding.  The JAX version's ``anyhit`` tile skips are left
+    out: they are bit-identical to the per-lane guards."""
+    layout = baked_layout(spec)
+
+    def map_fn(p: Vec3, bv, checks):
+        d = torch.full_like(p.x, MAX_DIST)
+        i = torch.full_like(p.x, -1, dtype=torch.int32)
+        for broot in layout.roots:
+            rd_, ri_ = _eval_union_baked(broot, p, bv, checks)
+            d, i = combine(OP_UNION, d, i, rd_, ri_, 1)
+        return d, i
+
+    return map_fn
+
+
+def boxed_shapes(spec: SceneSpec) -> Tuple[BakedShape, ...]:
+    """The shapes with an AABB guard, in the map's walk order (child unions
+    first, then shapes)."""
+    def shapes_of(bu):
+        for cu in bu.children_unions:
+            yield from shapes_of(cu)
+        yield from bu.children_shapes
+
+    return tuple(bs for broot in baked_layout(spec).roots
+                 for bs in shapes_of(broot) if bs.aabb)
+
+
+def make_bounds_baked(spec: SceneSpec, with_t: bool = False):
+    """``bounds(ro, rd, bv) -> (checks, debug)`` reading the baked
+    world-space boxes; the semantics of scenegen.make_bounds, including its
+    ``with_t=True`` form."""
+    boxed = boxed_shapes(spec)
+    n = spec.n_shapes
+
+    def bounds_fn(ro: Vec3, rd: Vec3, bv):
+        checks: list = [None] * n
+        tns: list = [None] * n
+        tfs: list = [None] * n
+        dbg = torch.zeros_like(ro.x)
+        for bs in boxed:
+            o = bs.aabb_off
+            tn, tf = intersect_aabb(ro, rd, Vec3(bv[o], bv[o + 1], bv[o + 2]),
+                                    Vec3(bv[o + 3], bv[o + 4], bv[o + 5]))
+            hit = aabb_hit(tn, tf)
+            checks[bs.shape_id] = hit
+            tns[bs.shape_id] = tn
+            tfs[bs.shape_id] = tf
+            dbg = dbg + 0.1 * hit.to(dbg.dtype)
+        if with_t:
+            return tuple(checks), tuple(tns), tuple(tfs), dbg
+        return tuple(checks), dbg
+
+    return bounds_fn

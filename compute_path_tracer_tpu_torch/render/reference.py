@@ -1,23 +1,34 @@
-"""Plain torch shading and bounce loop (JAX package: ``render/reference.py``).
+"""The torch oracle renderer: sphere march, normals, shading, bounce loop,
+debug modes (JAX package: ``render/reference.py``).
 
 ``shade_bounce`` and ``path_trace`` are the reference kernel's hit shading,
 Monte-Carlo bounce loop and Russian roulette (test_compute.glsl:91-166) with
-the refraction extension, over whole tensors of rays with per-lane alive
-masks standing in for the GLSL ``break``s.  The nearest hit and the surface
-normal come in through ``cast_fn`` / ``normal_fn``; the plain full-analytic
-versions are in render/soa.py.  The 80-step sphere march (``cast_ray``) and
-the central-difference normal arrive with the marching kernel.
+the refraction extension; ``cast_ray`` is its 80-step sphere march and
+``calc_normal`` the 6-tap central difference.  They work on flat (n,)
+tensors of rays and evaluate, at each step and bounce, only the rays still
+running: a lane's result is the JAX version's, whose fixed-trip loops mask
+finished lanes instead.
+
+The scene comes in as functions, so the same loop serves the oracle
+(``render_pixels`` / ``render_frame`` over the per-spec map closures of
+render/scenegen.py and render/baked.py), the plain full-analytic frame
+(render/soa.py) and the plain marching frame (render/program.py).
 """
 
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
-from ..constants import FP, OFFSET
-from ..ops.rng import random_float01, random_unit_vector
+from ..constants import DEFAULT_BOUNCES, DEFAULT_FOV, FP, MHD, OFFSET, STEPS
+from ..ops.camera import calc_uv, primary_ray
+from ..ops.rng import gen_rng, random_float01, random_unit_vector
+from ..scene.compile import SceneSpec
 from ..vecmath import Vec3, reflect, sqrt_rn, vmix, vwhere
+from .baked import bake, make_bounds_baked, make_map_baked
+from .scenegen import make_bounds, make_map, material_slot_matrix
 
 
 class Mat(NamedTuple):
@@ -124,56 +135,230 @@ def shade_bounce(rng, rd: Vec3, hit_pos: Vec3, n: Vec3, mat: Mat):
     return rng, new_ro, new_rd, emit, thr_factor, ray_prob
 
 
-def path_trace(cast_fn, normal_fn, gather_mat, ro: Vec3, rd: Vec3, rng,
-               bounces: int):
-    """Monte-Carlo bounce loop (test_compute.glsl:91-166): ``bounces + 1``
-    iterations with per-lane alive masks.
 
-    ``cast_fn(ro, rd) -> (t, idx)`` is the nearest hit (a miss has t > FP),
-    ``normal_fn(p, idx) -> Vec3`` the surface normal there and
-    ``gather_mat(idx) -> Mat`` the material.  Returns ``(radiance Vec3,
-    i_exit int32)``: ``i_exit`` is the GLSL loop variable at exit, feeding
-    the bounce-heatmap debug mode (test_compute.glsl:163).
-    """
+
+def take_lanes(checks, sel):
+    """The lanes ``sel`` of a bounce's guard state: a tuple of per-lane
+    tensors (or None for an unguarded shape), indexed along dim 0."""
+    return tuple(None if c is None else c[sel] for c in checks)
+
+
+def cast_ray(map_fn, ro: Vec3, rd: Vec3, checks):
+    """The 80-step sphere march of (n,) rays (test_compute.glsl:74-89, JAX
+    package ``render/reference.py:cast_ray``): ``t += |d|``, a hit at ``|d|
+    < MHD``, far once ``t > FP``.  Returns ``(t, idx)``, ``idx`` the id of
+    the last map tap (-1 when far).  ``map_fn(p, checks) -> (d, idx)``.
+
+    Each step evaluates only the rays still marching, so a lane's result is
+    that of the JAX version's masked fixed-trip loop."""
+    t = torch.zeros_like(ro.x)
+    idx = torch.full_like(ro.x, -1, dtype=torch.int32)
+    live = torch.arange(t.shape[0], device=t.device)
+    lt = t
+    for _ in range(STEPS):
+        if live.numel() == 0:
+            break
+        d, mi = map_fn(ro + rd * lt, checks)
+        ad = torch.abs(d)
+        nt = lt + ad
+        far = nt > FP
+        t[live] = nt
+        idx[live] = torch.where(far, torch.full_like(mi, -1), mi)
+        keep = ~((ad < MHD) | far)
+        live, ro, rd, lt = live[keep], _sel(ro, keep), _sel(rd, keep), nt[keep]
+        checks = take_lanes(checks, keep)
+    return t, idx
+
+
+def _sel(v: Vec3, mask) -> Vec3:
+    return Vec3(v.x[mask], v.y[mask], v.z[mask])
+
+
+_NORMAL_EPS = 1e-4
+_TAPS = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1))
+
+
+def calc_normal(map_fn, p: Vec3, checks) -> Vec3:
+    """Central-difference SDF gradient, 6 map taps, eps 1e-4
+    (funcs.glsl:21-35), evaluated as one map call over the 6 offset
+    copies of the points."""
+    e = _NORMAL_EPS
+    pts = Vec3(*(torch.cat([c + e * tap[k] for tap in _TAPS])
+                 for k, c in enumerate(p)))
+    d, _ = map_fn(pts, tuple(None if c is None else c.repeat(6, *[1] * (c.dim() - 1))
+                             for c in checks))
+    d = d.view(6, -1)
+    return Vec3(d[0] - d[1], d[2] - d[3], d[4] - d[5]).normalize_safe()
+
+
+def path_trace(bounds_fn, cast_fn, normal_fn, gather_mat, ro: Vec3, rd: Vec3,
+               rng, bounces: int):
+    """Monte-Carlo bounce loop (test_compute.glsl:91-166) over (n,) rays.
+
+    Per bounce ``bounds_fn(ro, rd) -> checks`` is computed once and handed to
+    both ``cast_fn(ro, rd, checks) -> (t, idx)`` (a miss has t > FP) and
+    ``normal_fn(p, idx, checks) -> Vec3``; ``gather_mat(idx) -> Mat``.
+    Returns ``(radiance Vec3, i_exit int32)``, ``i_exit`` the GLSL loop
+    variable at exit (the bounce heatmap, test_compute.glsl:163).
+
+    Each bounce runs on the paths still alive only, which is what the JAX
+    version's alive masks give for every lane."""
+    n = ro.x.shape[0]
     zero = torch.zeros_like(ro.x)
-    one = torch.ones_like(ro.x)
-    ret = Vec3(zero, zero, zero)
-    thr = Vec3(one, one, one)
-    alive = torch.ones_like(ro.x, dtype=torch.bool)
-    i_exit = torch.full_like(ro.x, -1, dtype=torch.int32)
+    ret = Vec3(zero, zero.clone(), zero.clone())
+    i_exit = torch.full_like(ro.x, bounces + 1, dtype=torch.int32)
+    lanes = torch.arange(n, device=ro.x.device)
+    thr = Vec3.splat(torch.ones_like(ro.x))
 
     for i in range(bounces + 1):
-        t, idx = cast_fn(ro, rd)
+        if lanes.numel() == 0:
+            break
+        checks = bounds_fn(ro, rd)
+        t, idx = cast_fn(ro, rd, checks)
         miss = t > FP
-        i_exit = torch.where(alive & miss, i, i_exit)
-        act = alive & ~miss
+        i_exit[lanes[miss]] = i
+        hit = ~miss
+        lanes, ro, rd, thr, rng = (lanes[hit], _sel(ro, hit), _sel(rd, hit),
+                                   _sel(thr, hit), rng[hit])
+        t, idx, checks = t[hit], idx[hit], take_lanes(checks, hit)
 
         hit_pos = ro + rd * t
-        n = normal_fn(hit_pos, idx)
+        n_ = normal_fn(hit_pos, idx, checks)
         mat = gather_mat(idx)
-
-        rng, new_ro, new_rd, emit, thr_factor, ray_prob = shade_bounce(
-            rng, rd, hit_pos, n, mat)
-        ro = vwhere(act, new_ro, ro)
-        rd = vwhere(act, new_rd, rd)
-        ret = vwhere(act, ret + emit * thr, ret)
+        rng, ro, rd, emit, thr_factor, ray_prob = shade_bounce(
+            rng, rd, hit_pos, n_, mat)
+        for acc, e in zip(ret, emit * thr):
+            acc[lanes] = acc[lanes] + e
         new_thr = thr * thr_factor / ray_prob
 
         # Russian roulette on the max throughput channel
         # (test_compute.glsl:153-159).
         p_rr = new_thr.max_component()
         rng, r_rr = random_float01(rng)
-        rr_dead = act & (r_rr > p_rr)
-        i_exit = torch.where(rr_dead, i, i_exit)
-        surv = act & ~rr_dead
+        dead = r_rr > p_rr
+        i_exit[lanes[dead]] = i
         p_pos = p_rr > 0.0
-        inv_p = torch.where(p_pos, 1.0 / torch.where(p_pos, p_rr, one), zero)
-        thr = vwhere(surv, new_thr * inv_p, vwhere(act, new_thr, thr))
-        alive = surv
-        # Dead lanes change nothing in later iterations.
-        if not bool(alive.any()):
-            break
-
-    # Natural loop exit leaves i == bounces + 1 in the GLSL.
-    i_exit = torch.where(i_exit < 0, bounces + 1, i_exit)
+        inv_p = torch.where(p_pos, 1.0 / torch.where(p_pos, p_rr,
+                                                     torch.ones_like(p_rr)),
+                            torch.zeros_like(p_rr))
+        surv = ~dead
+        lanes, ro, rd, rng = lanes[surv], _sel(ro, surv), _sel(rd, surv), rng[surv]
+        thr = _sel(new_thr * inv_p, surv)
     return ret, i_exit
+
+
+def normals_debug(bounds_fn, cast_fn, normal_fn, ro, rd) -> Vec3:
+    """Debug mode 1: surface normals + AABB-hit tint
+    (test_compute.glsl:170-179).  ``bounds_fn`` returns ``(checks, dbg)``."""
+    checks, dbg = bounds_fn(ro, rd)
+    t, idx = cast_fn(ro, rd, checks)
+    n = normal_fn(ro + rd * t, idx, checks)
+    shaded = (n.normalize_safe() * 0.5 + 0.5) * 0.2 + Vec3.splat(dbg)
+    return vwhere(t > FP, Vec3.splat(dbg), shaded)
+
+
+def colors_debug(bounds_fn, cast_fn, gather_mat, ro, rd) -> Vec3:
+    """Debug mode 2: first-hit albedo (test_compute.glsl:183-195)."""
+    checks, _dbg = bounds_fn(ro, rd)
+    _t, idx = cast_fn(ro, rd, checks)
+    return gather_mat(idx).col
+
+
+def trace_pixels(bounds_fn, cast_fn, normal_fn, gather_mat, xs, ys, frame,
+                 bounces: int, fov: float, aspect: float, *, width: int,
+                 height: int, debug: int) -> Vec3:
+    """One sample of the pixels ``(xs, ys)`` (int32, any shape; ``width`` /
+    ``height`` are the full image's, seeding the RNG and the NDC mapping)
+    through the given scene functions, in debug mode 0-3.
+    ``bounds_fn(ro, rd) -> (checks, dbg)``."""
+    shape = xs.shape
+    xs, ys = xs.reshape(-1), ys.reshape(-1)
+    # Per-pixel RNG + subpixel AA jitter (test_compute.glsl:224-229).
+    rng = gen_rng(xs, ys, frame, width, height)
+    rng, jx = random_float01(rng)
+    rng, jy = random_float01(rng)
+    u, v = calc_uv(xs.to(torch.float32) + (jx - 0.5),
+                   ys.to(torch.float32) + (jy - 0.5), width, height, aspect)
+    ro, rd = primary_ray(u, v, fov)
+    if debug in (0, 3):
+        col, i_exit = path_trace(lambda o, d: bounds_fn(o, d)[0], cast_fn,
+                                 normal_fn, gather_mat, ro, rd, rng, bounces)
+        if debug == 3:
+            col = Vec3.splat(i_exit.to(torch.float32) / float(bounces))
+    elif debug == 1:
+        col = normals_debug(bounds_fn, cast_fn, normal_fn, ro, rd)
+    elif debug == 2:
+        col = colors_debug(bounds_fn, cast_fn, gather_mat, ro, rd)
+    else:
+        raise ValueError(f"debug must be 0..3, not {debug}")
+    return Vec3(*(c.reshape(shape) for c in col))
+
+
+def render_pixels(spec: SceneSpec, params, xs, ys, frame, bounces: int,
+                  fov: float, aspect: float, *, width: int, height: int,
+                  debug: int, geometry: str = "faithful") -> Vec3:
+    """The oracle renderer over a block of pixels (JAX package:
+    ``render_pixels``): the per-spec map closures of render/scenegen.py
+    (``geometry="faithful"``) or over the baked coefficients
+    (``"baked"``), the exact march and the 6-tap normal."""
+    if geometry == "baked":
+        bv = bake(spec, params)
+        bmap, bbounds = make_map_baked(spec), make_bounds_baked(spec)
+
+        def map_fn(p, checks):
+            return bmap(p, bv, checks)
+
+        def bounds_fn(ro, rd):
+            return bbounds(ro, rd, bv)
+    elif geometry == "faithful":
+        smap, sbounds = make_map(spec), make_bounds(spec)
+
+        def map_fn(p, checks):
+            return smap(p, params, checks)
+
+        def bounds_fn(ro, rd):
+            return sbounds(ro, rd, params)
+    else:
+        raise ValueError("geometry must be 'faithful' or 'baked'")
+    mats = params[torch.as_tensor(material_slot_matrix(spec),
+                                  dtype=torch.int64, device=params.device)]
+    return trace_pixels(
+        bounds_fn,
+        lambda ro, rd, c: cast_ray(map_fn, ro, rd, c),
+        lambda p, _idx, c: calc_normal(map_fn, p, c),
+        lambda idx: gather_material(mats, idx),
+        xs, ys, frame, bounces, fov, aspect, width=width, height=height,
+        debug=debug)
+
+
+def running_mean(accum, img, last_clear: int):
+    """accum*(1-w) + img*w with w = 1/(last_clear+1) in float32
+    (test_compute.glsl:242-245)."""
+    w = np.float32(1.0) / np.float32(last_clear + 1)
+    return accum * float(np.float32(1.0) - w) + img * float(w)
+
+
+def render_frame(spec: SceneSpec, params, accum=None, frame: int = 0,
+                 last_clear: int = 0, *, width: int = 256, height: int = 256,
+                 debug: int = 0, bounces: int = DEFAULT_BOUNCES,
+                 fov: float = DEFAULT_FOV, aspect: float = None,
+                 geometry: str = "faithful") -> torch.Tensor:
+    """One oracle frame on ``params``' device (JAX package:
+    ``render_frame``); returns the (H, W, 3) image, or the running mean
+    with ``accum`` in debug 0.  ``debug``: 0 path trace, 1 normals + AABB,
+    2 albedo, 3 bounce heatmap (path_tracer.rs:159)."""
+    if aspect is None:
+        aspect = width / height
+    device = params.device
+    ys, xs = torch.meshgrid(torch.arange(height, dtype=torch.int32, device=device),
+                            torch.arange(width, dtype=torch.int32, device=device),
+                            indexing="ij")
+    with torch.no_grad():
+        img = render_pixels(spec, params, xs, ys, frame, bounces, fov, aspect,
+                            width=width, height=height, debug=debug,
+                            geometry=geometry).stack()
+    if debug != 0:
+        return img  # debug modes bypass accumulation (test_compute.glsl:240)
+    if accum is None:
+        accum = torch.zeros_like(img)
+    return running_mean(accum, img, last_clear)

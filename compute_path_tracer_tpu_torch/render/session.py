@@ -45,7 +45,8 @@ class RenderSession:
         self.window_height = height
         self.settings = (settings or Settings()).validate()
         self.device = torch.device(device)
-        # Pluggable per-frame renderer with render_frame_pallas's signature.
+        # Pluggable per-frame renderer with render_frame_pallas's signature;
+        # the default marches the faithful geometry, so any scene renders.
         self.frame_fn = frame_fn or render_frame_megakernel
 
         self.compiled = compile_scene(scene)

@@ -62,6 +62,17 @@ class Vec3(NamedTuple):
     def length(self):
         return sqrt_rn(self.dot(self))
 
+    def length_safe(self):
+        """Length that is 0 at the 0-vector (the JAX version's
+        gradient-safe form; the forward value is the plain length)."""
+        l2 = self.dot(self)
+        pos = l2 > 0.0
+        return torch.where(pos, sqrt_rn(torch.where(pos, l2, torch.ones_like(l2))),
+                           torch.zeros_like(l2))
+
+    def abs(self):
+        return Vec3(torch.abs(self.x), torch.abs(self.y), torch.abs(self.z))
+
     def normalize(self):
         """GLSL ``normalize``: divides by the length (0-vector -> nan/inf)."""
         return self / self.length()

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Where the port's main-path frame time goes, on one NVIDIA GPU.
 
-    python3 profile_main.py
+    python3 profile_main.py [--mode analytic|march]
 
 Drives RenderSession at 1920x1080 over the 64-primitive benchmark scene with
-8 bounces (the path chip_smoke.py checks) and prints:
+8 bounces, in one of chip_smoke.py's two main paths: ``analytic`` (the
+default: K1, the full-analytic bounce) or ``march`` (K2, the baked
+t-culled sphere march), and prints:
 
 * the host-clock ms/frame of REPEATS untraced runs of FRAMES frames;
 * from one run of FRAMES frames under torch.profiler: the traced ms/frame
   (tracing adds host time to every op, so it exceeds the untraced figure),
-  the device ops per frame, the megakernel's and the other device ops' time
-  per frame, and the device busy share: the union of device-op intervals
+  the device ops per frame, the path's megakernel's and the other device
+  ops' time per frame, and the device busy share: the union of device-op intervals
   over the traced window (from the start of the first frame to the later
   of the final synchronize and the last device op's end).
 
@@ -24,12 +26,18 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 MAIN_W, MAIN_H, BOUNCES, N_PRIMS = 1920, 1080, 8, 64
 FRAMES = 8
 REPEATS = 5
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-KERNEL_NAME = "megakernel_analytic"
+# --mode -> (frame_fn options, the kernel's name in the trace)
+MODES = {
+    "analytic": (dict(geometry="baked", analytic_all=True),
+                 "megakernel_analytic"),
+    "march": (dict(geometry="baked", t_cull=True), "megakernel_march"),
+}
 
 
 def _gpu_line() -> str:
@@ -50,7 +58,14 @@ def _union_length(intervals) -> float:
 
 
 def main() -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", default="analytic", choices=tuple(MODES))
+    args = ap.parse_args()
+    mode, kernel_name = MODES[args.mode]
 
     if not torch.cuda.is_available():
         print("profile_main: no CUDA device; run this on an NVIDIA GPU",
@@ -60,13 +75,16 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from compute_path_tracer_tpu_torch.app.config import Settings
+    from compute_path_tracer_tpu_torch.kernels import render_frame_megakernel
     from compute_path_tracer_tpu_torch.render.session import RenderSession
     from compute_path_tracer_tpu_torch.scene import benchmark_scene
 
     gpu = _gpu_line()
-    print(f"gpu: {gpu}")
+    print(f"gpu: {gpu}, mode: {args.mode}")
     sess = RenderSession(benchmark_scene(N_PRIMS), MAIN_W, MAIN_H,
-                         Settings(debug=0, bounces=BOUNCES), device="cuda")
+                         Settings(debug=0, bounces=BOUNCES),
+                         frame_fn=partial(render_frame_megakernel, **mode),
+                         device="cuda")
     sess.step()  # builds the kernel and fills the per-layout caches
     torch.cuda.synchronize()
 
@@ -98,7 +116,7 @@ def main() -> int:
     if not device or len(region) != 1:
         raise RuntimeError(f"the trace holds {len(device)} device ops and "
                            f"{len(region)} 'frames' regions")
-    mega = [e for e in device if KERNEL_NAME in e["name"]]
+    mega = [e for e in device if kernel_name in e["name"]]
     if len(mega) != FRAMES:
         raise RuntimeError(f"{len(mega)} megakernel launches traced for "
                            f"{FRAMES} frames")
@@ -109,6 +127,7 @@ def main() -> int:
     all_us = sum(float(e["dur"]) for e in device)
     summary = {
         "gpu": gpu,
+        "mode": args.mode,
         "frames": FRAMES,
         "untraced_ms_per_frame": untraced,
         "traced_ms_per_frame": float(region[0]["dur"]) / FRAMES / 1e3,

@@ -2,7 +2,8 @@
 the JAX package.
 
 On the CPU ``render_frame_megakernel`` runs its plain torch version, so
-these tests hold that version to JAX ``render_frame_soa`` (plain XLA with
+these tests hold that version, in its ``geometry="baked",
+analytic_all=True`` mode, to JAX ``render_frame_soa`` (plain XLA with
 analytic_all semantics) under the contract of
 tests/test_analytic_all.py:166-191: at most 0.5% of pixels off by more than
 1e-2, and 0.1% at bounces=0.  The CUDA kernel is held to the plain version
@@ -37,6 +38,7 @@ from compute_path_tracer_tpu_torch.vecmath import Vec3 as TVec3
 
 W, H, BOUNCES = 128, 64, 3
 DIFF_TOL = 1e-2
+ANALYTIC = dict(geometry="baked", analytic_all=True)
 
 
 def _pair(scene):
@@ -139,10 +141,10 @@ def _share_off(a, b):
 
 
 def _port_frame(tc, **kw):
-    before = mk.LAUNCHES
+    before = dict(mk.LAUNCHES)
     out = mk.render_frame_megakernel(tc.spec, torch.from_numpy(tc.params),
-                                     width=W, height=H, **kw)
-    assert mk.LAUNCHES == before  # CPU tensors never reach the kernel
+                                     width=W, height=H, **ANALYTIC, **kw)
+    assert mk.LAUNCHES == before  # CPU tensors never reach the kernels
     assert out.dtype == torch.float32 and out.shape == (H, W, 3)
     return out.numpy()
 
@@ -212,7 +214,7 @@ def test_empty_scene_renders_black():
     _, tc = _pair(JScene())
     assert tc.spec.n_shapes == 0
     out = mk.render_frame_megakernel(tc.spec, torch.from_numpy(tc.params),
-                                     width=16, height=8, bounces=2)
+                                     width=16, height=8, bounces=2, **ANALYTIC)
     assert out.shape == (8, 16, 3) and not out.any()
 
 
@@ -220,12 +222,12 @@ def test_rejects_non_union_tree():
     _, tc = _pair(j_lib.csg_demo())
     with pytest.raises(ValueError):
         mk.render_frame_megakernel(tc.spec, torch.from_numpy(tc.params),
-                                   width=16, height=8, bounces=0)
+                                   width=16, height=8, bounces=0, **ANALYTIC)
 
 
-@pytest.mark.parametrize("kw", [dict(geometry="faithful"),
-                                dict(analytic_all=False), dict(debug=1),
-                                dict(debug=2)], ids=str)
+@pytest.mark.parametrize("kw", [dict(debug=4), dict(analytic_unboxed=True),
+                                dict(omega=1.5), dict(dist_grid=True)],
+                         ids=str)
 def test_unported_modes_raise(bench16, kw):
     _, tc = bench16
     with pytest.raises(NotImplementedError):

@@ -4,6 +4,7 @@ and the rule that the port never imports JAX."""
 import os
 import subprocess
 import sys
+from functools import partial
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +15,7 @@ from compute_path_tracer_tpu.render.soa import render_frame_soa
 from compute_path_tracer_tpu.scene import compile_scene as j_compile
 from compute_path_tracer_tpu.scene import library as j_lib
 from compute_path_tracer_tpu_torch.app.config import Settings
+from compute_path_tracer_tpu_torch.kernels import render_frame_megakernel
 from compute_path_tracer_tpu_torch.render.session import RenderSession
 from compute_path_tracer_tpu_torch.scene import convert_scene
 
@@ -21,10 +23,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H, BOUNCES = 64, 32, 3
 
 
-def _session(scene, **kw):
+def _session(scene):
+    """A session in the full-analytic mode, which JAX render_frame_soa
+    renders too."""
     return RenderSession(convert_scene(scene), W, H,
                          Settings(debug=0, bounces=BOUNCES), device="cpu",
-                         **kw)
+                         frame_fn=partial(render_frame_megakernel,
+                                          geometry="baked", analytic_all=True))
 
 
 def test_session_accumulates_like_jax():
