@@ -18,16 +18,30 @@ scene with 8 bounces (the JAX package's bench.py rows):
   subtraction, smooth union, refraction, the first-shape clobber and debug
   0-3.
 
+and the training path through the ray march K3 (march_rays): K3 against its
+plain version on scattered rays over three scenes and every mode, and on the
+1080p primary rays; the gradient of ``make_loss`` through K3 against the same
+with K3's plain version and against the plain march at 320x180, and the
+implicit backward on a loss of the hit distance (checked, and timed at
+1080p); three timed
+training steps (``make_loss(..., geometry="baked", march="kernel",
+normals="kernel")``, backward, Adam) at 1920x1080 with 8 bounces (bench.py's
+fast-gradient row); ``optimize_to_target`` on a small scene and the CLI's
+``optimize``.
+
 It prints timings beside the card's name and power limit, a kernels JSON
-line, and {"ok": true, "device": {...}} last; any failed check raises.
-Imports nothing of JAX.
+line with each kernel's time, its plain version's and its bound, and
+{"ok": true, "device": {...}} last; any failed check raises.  Imports
+nothing of JAX.
 """
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 from functools import partial
 
 CHECK_W, CHECK_H = 320, 180      # kernel-vs-plain phase
@@ -38,13 +52,70 @@ DIFF_TOL = 1e-2                  # a pixel differs when max-channel |diff| > thi
 SHARE_LIMIT = 5e-3               # ... and a check fails above this share
 ANALYTIC = dict(geometry="baked", analytic_all=True)
 MARCH = dict(geometry="baked", t_cull=True)
+# The training path: bench.py's fast-gradient row (bench.py:406).
+TRAIN = dict(geometry="baked", march="kernel", normals="kernel")
+TIMED_STEPS = 3
+K3_RAYS = CHECK_W * CHECK_H      # scattered rays per K3 check
+T_TOL = 1e-3                     # a K3 ray differs when its id or its hit t does
+GRAD_BOUNCES = 2
+# Gradient through K3 against the same with K3's plain version: K3 matches
+# it bit for bit, so only summation order may differ.
+GRAD_LOSS_REL, GRAD_TOP_REL, GRAD_COS = 1e-5, 1e-4, 1e-6
+# Against the plain (exact, uncut) march: t_cull moves hits inside the MHD
+# shell, and on a silhouette a few pixels (16 of 57,600 on the benchmark
+# scene) see another shape, lamps included, which dominate the loss; the
+# gradient's direction must hold.
+EXACT_COS = 1e-2
+
+# The bound: the larger of the bytes each
+# kernel must move over HBM3's rate and the FP32 operations its inputs need
+# over the card's FP32 peak (132 SMs x 128 lanes x 2 x the max SM clock).
+# Operations per executed item, counted from the kernels' sources (each add,
+# sub, mul, div, sqrt, min, max, abs and compare one): the slab test of one
+# AABB per ray segment, one map tap (the point, the step, its tests), one
+# baked leaf with its fold, by kind (sphere, cube, plane, octahedron), and
+# K1's closed-form test of a leaf without a box.  Integer guard bookkeeping,
+# loads and K1's tests of the boxed leaves a ray enters are not counted, so
+# the bound is a lower one.
+HBM_BYTES_PER_S = 3.35e12
+SLAB_OPS = 26
+TAP_OPS = 11
+LEAF_OPS = {0: 12, 1: 39, 2: 7, 3: 32}
+ANALYTIC_LEAF_OPS = {0: 22, 1: 70, 2: 16, 3: 113}
 
 
-def _gpu_line() -> str:
+def _gpu_line(query="name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def _fp32_peak() -> float:
+    """FP32 operations per second at the card's max SM clock."""
+    mhz = float(_gpu_line("clocks.max.sm").split()[0])
+    return 132 * 128 * 2 * mhz * 1e6
+
+
+def _bound_ms(n_bytes, ops, peak):
+    """(bound ms, what sets it)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _march_ops(count, prog) -> float:
+    """FP32 operations of the march work in ``count`` (make_map_program's
+    tally, with "segments")."""
+    return (count["segments"] * prog.n_boxed * SLAB_OPS
+            + count["taps"] * TAP_OPS
+            + sum(int(count.get(k, 0)) * v for k, v in LEAF_OPS.items()))
+
+
+def _analytic_ops(segments, prog) -> float:
+    free = [op[1] for op in prog.ops.tolist() if op[0] == 1 and op[3] < 0]
+    return segments * (prog.n_boxed * SLAB_OPS
+                       + sum(ANALYTIC_LEAF_OPS[k] for k in free))
 
 
 def _clobber_scene():
@@ -177,6 +248,219 @@ def _main_shape_check(mk, key, spec, params, mode):
     return share, err, plain_ms
 
 
+def _sphere_and_plane():
+    """tests/test_diff.py's inverse-rendering scene: an emissive ball over a
+    guard-less ground plane."""
+    from compute_path_tracer_tpu_torch.scene import (
+        KIND_PLANE, KIND_SPHERE, Scene, Shape, Union)
+
+    root = Union(name="Root")
+    ball = root.add_shape(Shape(KIND_SPHERE, name="Ball"))
+    ball.size.set(1.0)
+    ball.material.color.set(0.8, 0.4, 0.2)
+    ball.material.brightness.set(0.5)
+    ground = root.add_shape(Shape(KIND_PLANE, name="Ground"))
+    ground.transform.position.set(0.0, -1.2, 0.0)
+    ground.transform.aabb = False
+    return Scene([root])
+
+
+def _scattered_rays(n, seed, dev):
+    """``n`` rays with origins uniform in [-4, 4]^3 and directions uniform on
+    the sphere, drawn with numpy."""
+    import numpy as np
+    import torch
+
+    from compute_path_tracer_tpu_torch.vecmath import Vec3
+
+    r = np.random.default_rng(seed)
+    ro = r.uniform(-4.0, 4.0, (3, n)).astype(np.float32)
+    d = r.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    return (Vec3(*(torch.from_numpy(c).to(dev) for c in ro)),
+            Vec3(*(torch.from_numpy(c).to(dev) for c in d)))
+
+
+def _k3_check(km, name, prog, table, ro, rd, t_cull, with_normal):
+    """K3 against its plain version on the same rays: the share of rays
+    whose id differs or whose hit t moves by more than T_TOL (limit
+    SHARE_LIMIT), and the max |diff| of t and of the normal on the rays that
+    agree.  Returns (share, max |diff|, kernel ms, plain ms)."""
+    import torch
+
+    mode = dict(t_cull=t_cull, with_normal=with_normal)
+    before = km.LAUNCHES["march_rays"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k = km.march_rays(prog, table, ro, rd, **mode)
+    torch.cuda.synchronize()
+    k_ms = (time.perf_counter() - t0) * 1e3
+    if km.LAUNCHES["march_rays"] - before != 1:
+        raise AssertionError(f"{name}: march_rays was not launched once")
+    t0 = time.perf_counter()
+    p = km.march_rays_plain(prog, table, ro, rd, **mode)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    hit = ~(k[0] > 100.0) | ~(p[0] > 100.0)
+    dt = (k[0] - p[0]).abs()
+    off = (k[1] != p[1]) | (hit & ~(dt <= T_TOL))
+    share = float(off.float().mean())
+    agree = hit & ~off
+    err = float(dt[agree].max()) if bool(agree.any()) else 0.0
+    if with_normal:
+        err = max([err] + [float((a - b).abs()[agree].max())
+                           for a, b in zip(k[2], p[2]) if bool(agree.any())])
+    print(f"check {name}: share of rays off {share:.6f} (limit "
+          f"{SHARE_LIMIT}), max abs diff {err:.3e}, hits "
+          f"{float(hit.float().mean()):.4f}")
+    if share > SHARE_LIMIT or not bool(torch.isfinite(k[0]).all()):
+        raise AssertionError(f"{name}: {share} of rays differ (> {SHARE_LIMIT})")
+    return share, err, k_ms, p_ms
+
+
+@contextmanager
+def _k3_swapped(km, fn):
+    """Route every K3 call of the training path (kernels/march.py resolves
+    ``march_rays`` at call time) through ``fn(orig, *args, **kw)``."""
+    orig = km.march_rays
+    km.march_rays = lambda *a, **kw: fn(orig, *a, **kw)
+    try:
+        yield
+    finally:
+        km.march_rays = orig
+
+
+def _grad(spec, params, target, **kw):
+    """The loss of make_loss at 320x180 and its gradient in the params."""
+    from compute_path_tracer_tpu_torch.diff import make_loss
+
+    p = params.clone().requires_grad_()
+    loss = make_loss(spec, target, width=CHECK_W, height=CHECK_H,
+                     bounces=GRAD_BOUNCES, **kw)(p)
+    loss.backward()
+    return float(loss.detach()), p.grad.detach()
+
+
+def _hit_t_grad(km, spec, params, ro, rd):
+    """sum(w * t) over the hits of the K3 cast (the training path's, with
+    its implicit backward) and its gradient in the params and the six ray
+    components, concatenated; w is 1 + the ray's index mod 3.  Returns
+    ((loss, gradient), backward ms)."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.render.baked import bake
+    from compute_path_tracer_tpu_torch.vecmath import Vec3
+
+    p = params.clone().requires_grad_()
+    rays = [c.clone().requires_grad_() for c in (*ro, *rd)]
+    gv = bake(spec, p)
+    t, _ = km.make_kernel_cast(spec, p, gv)(Vec3(*rays[:3]), Vec3(*rays[3:]),
+                                            None)
+    w = 1.0 + (torch.arange(t.shape[0], device=t.device) % 3).to(t.dtype)
+    loss = (torch.where(t > 100.0, torch.zeros_like(t), t) * w).sum()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    grad = torch.cat([p.grad] + [r.grad for r in rays])
+    return (float(loss.detach()), grad), ms
+
+
+def _grad_compare(name, a, b, loss_rel, top_rel, cos_tol):
+    """Loss relative difference, the max relative error over the 20
+    largest-magnitude slots of ``b`` and the cosine of the two gradients."""
+    import torch
+
+    (la, ga), (lb, gb) = a, b
+    if not (bool(torch.isfinite(ga).all()) and bool(torch.isfinite(gb).all())):
+        raise AssertionError(f"{name}: non-finite gradient")
+    top = torch.argsort(gb.abs(), descending=True)[:20]
+    rel_top = float(((ga[top] - gb[top]).abs() / gb[top].abs()).max())
+    cos = float(ga @ gb / (ga.norm() * gb.norm()))
+    rel_loss = abs(la - lb) / abs(lb)
+    print(f"check {name}: loss {la:.8f} vs {lb:.8f} (rel {rel_loss:.3e}, limit "
+          f"{loss_rel}), top-20 rel err {rel_top:.3e} (limit {top_rel}), "
+          f"cosine {cos:.8f} (limit 1 - {cos_tol})")
+    if rel_loss > loss_rel or rel_top > top_rel or cos < 1.0 - cos_tol:
+        raise AssertionError(f"{name}: gradients disagree")
+
+
+def _drive_training(km, mk, spec, params, gpu):
+    """The training path's main path: one warm-up step and TIMED_STEPS timed
+    steps of make_loss(TRAIN) at 1080p, backward and an Adam step, with every
+    kernel count set to 0 just before and read just after; each step must
+    launch K3 (at most once per bounce) and no other kernel.  Returns (K3
+    launches, K3 ms per step, the inputs of one more step's K3 launches)."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.diff import make_loss
+
+    loss_fn = make_loss(spec, torch.zeros((MAIN_H, MAIN_W, 3), device=params.device),
+                        width=MAIN_W, height=MAIN_H, bounces=BOUNCES, **TRAIN)
+    p = params.clone().requires_grad_()
+    opt = torch.optim.Adam([p], lr=2e-2, betas=(0.9, 0.999), eps=1e-8)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(p)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    events = []
+
+    def timed(orig, *a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    for counts in (mk.LAUNCHES, km.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    losses = [step()]
+    torch.cuda.synchronize()
+    with _k3_swapped(km, timed):
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            losses.append(step())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = km.LAUNCHES["march_rays"]
+    if any(mk.LAUNCHES.values()) or not 0 < launches <= (TIMED_STEPS + 1) * (BOUNCES + 1):
+        raise AssertionError(f"training steps launched {dict(km.LAUNCHES)} "
+                             f"and {dict(mk.LAUNCHES)}")
+    finite = bool(torch.isfinite(p.grad).all()) and bool(torch.isfinite(p).all())
+    if not finite:
+        raise AssertionError("the training step's gradient is not finite")
+    k3_ms = sum(a.elapsed_time(b) for a, b in events) / TIMED_STEPS
+    step_ms = dt / TIMED_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"main path training step: {MAIN_W}x{MAIN_H}, {N_PRIMS} prims, "
+          f"{BOUNCES} bounces, {TRAIN}: {step_ms:.3f} ms/step, "
+          f"{MAIN_W * MAIN_H * (BOUNCES + 1) / (dt / TIMED_STEPS):.4e} rays/s, "
+          f"K3 {launches / (TIMED_STEPS + 1):.2f} launches/step, "
+          f"{k3_ms:.3f} ms/step, peak memory {peak / 2**30:.3f} GiB, "
+          f"losses {[float(x) for x in losses]}, gradient finite [{gpu}]")
+
+    kept = []
+
+    def keep(orig, prog, table, ro, rd, **kw):
+        kept.append((prog, table.clone(), type(ro)(*(c.clone() for c in ro)),
+                     type(rd)(*(c.clone() for c in rd)), kw))
+        return orig(prog, table, ro, rd, **kw)
+
+    with _k3_swapped(km, keep):
+        step()
+    torch.cuda.synchronize()
+    return launches, k3_ms, kept
+
+
 def main() -> int:
     import torch
 
@@ -185,10 +469,16 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    import numpy as np
+
     from compute_path_tracer_tpu_torch.app.config import Settings
+    from compute_path_tracer_tpu_torch.diff import (
+        optimize_to_target, render_image_diff)
     from compute_path_tracer_tpu_torch.io.png import load_png_rgba
     from compute_path_tracer_tpu_torch.kernels import build
+    from compute_path_tracer_tpu_torch.kernels import march as km
     from compute_path_tracer_tpu_torch.kernels import megakernel as mk
+    from compute_path_tracer_tpu_torch.render.reference import camera_rays
     from compute_path_tracer_tpu_torch.render.baked import bake
     from compute_path_tracer_tpu_torch.render.program import (
         build_program, program_table)
@@ -335,6 +625,175 @@ def main() -> int:
           f"kernel {k2_ms:.3f} ms, plain torch frame {k2_plain_ms:.3f} ms "
           f"[{gpu}]")
 
+    # -- work counts and bounds of K1 and K2 per main-path frame -----------
+    peak = _fp32_peak()
+    frame_bytes = MAIN_H * MAIN_W * 3 * 4 * 2  # the accumulator, read and written
+    k1_count, k2_count = {}, {}
+    mk.render_frame_megakernel_plain(spec, sp, None, 0, 0, width=MAIN_W,
+                                     height=MAIN_H, bounces=BOUNCES,
+                                     count=k1_count, **ANALYTIC)
+    mk.render_frame_megakernel_plain(spec, sp, None, 0, 0, width=MAIN_W,
+                                     height=MAIN_H, bounces=BOUNCES,
+                                     count=k2_count, **MARCH)
+    k1_bound, k1_by = _bound_ms(frame_bytes + 4 * layout.f_len,
+                                _analytic_ops(k1_count["segments"], prog), peak)
+    k2_bound, k2_by = _bound_ms(frame_bytes + 4 * prog.f_len,
+                                _march_ops(k2_count, prog), peak)
+    print(f"work per {MAIN_W}x{MAIN_H} frame: K1 {k1_count['segments']} ray "
+          f"segments, bound {k1_bound:.4f} ms ({k1_by}); K2 "
+          f"{k2_count['segments']} segments, {k2_count['taps']} map taps, "
+          f"leaves by kind { {k: int(v) for k, v in k2_count.items() if isinstance(k, int)} }, "
+          f"bound {k2_bound:.4f} ms ({k2_by}); FP32 peak {peak / 1e12:.2f} "
+          f"TFLOP/s [{gpu}]")
+    del sess, scratch
+
+    # -- K3 against its plain version, on the card --------------------------
+    ro, rd = _scattered_rays(K3_RAYS, 1, dev)
+    k3_err = 0.0
+    for sname, (sspec, sparams) in ((f"benchmark_scene({N_PRIMS})", bench),
+                                    ("csg_demo", csg), ("blend_demo", blend)):
+        for geometry in ("baked", "faithful"):
+            sprog = build_program(sspec, geometry)
+            for t_cull in (False, True):
+                stable = program_table(sprog, sparams, t_cull)
+                for with_normal in (False, True):
+                    k3_err = max(k3_err, _k3_check(
+                        km, f"K3 {sname} {geometry} t_cull={t_cull} "
+                        f"normal={with_normal}, {K3_RAYS} scattered rays",
+                        sprog, stable, ro, rd, t_cull, with_normal)[1])
+    with torch.no_grad():
+        ys, xs = torch.meshgrid(
+            torch.arange(MAIN_H, dtype=torch.int32, device=dev),
+            torch.arange(MAIN_W, dtype=torch.int32, device=dev), indexing="ij")
+        _, pro, prd = camera_rays(xs, ys, 0, 1.0, MAIN_W / MAIN_H,
+                                  width=MAIN_W, height=MAIN_H)
+        table = program_table(prog, sp, True)
+    k3_share, k3_main_err, k3_primary_ms, k3_primary_plain_ms = _k3_check(
+        km, f"K3 {MAIN_W}x{MAIN_H} primary rays, baked t_cull normal", prog,
+        table, pro, prd, True, True)
+    k3_err = max(k3_err, k3_main_err)
+    print(f"K3 on the {MAIN_W * MAIN_H} primary rays: kernel "
+          f"{k3_primary_ms:.3f} ms, plain {k3_primary_plain_ms:.3f} ms "
+          f"(host clock, one call each) [{gpu}]")
+    del pro, prd, ro, rd
+
+    # -- gradients through K3 ------------------------------------------------
+    gkw = dict(geometry="baked")
+    with torch.no_grad():
+        target = render_image_diff(spec, sp, width=CHECK_W, height=CHECK_H,
+                                   bounces=GRAD_BOUNCES, march="kernel",
+                                   normals="detached", **gkw) * 0.9
+
+    def plain_k3(orig, *a, **kw):
+        return km.march_rays_plain(*a, **kw)
+
+    for normals in ("detached", "kernel"):
+        kernel = _grad(spec, sp, target, march="kernel",
+                       normals=normals, **gkw)
+        with _k3_swapped(km, plain_k3):
+            plain = _grad(spec, sp, target, march="kernel",
+                          normals=normals, **gkw)
+        _grad_compare(f"gradient through K3 vs its plain version, normals="
+                      f"{normals}, {CHECK_W}x{CHECK_H}, bounces "
+                      f"{GRAD_BOUNCES}", kernel, plain, GRAD_LOSS_REL,
+                      GRAD_TOP_REL, GRAD_COS)
+    exact = _grad(spec, sp, target, march="plain",
+                  normals="detached", **gkw)
+    kernel = _grad(spec, sp, target, march="kernel",
+                   normals="detached", **gkw)
+    _grad_compare(f"gradient march=kernel vs march=plain (exact), normals="
+                  f"detached, {CHECK_W}x{CHECK_H}", kernel, exact,
+                  float("inf"), float("inf"), EXACT_COS)
+    with torch.no_grad():
+        img_k = render_image_diff(spec, sp, width=CHECK_W, height=CHECK_H,
+                                  bounces=GRAD_BOUNCES, march="kernel", **gkw)
+        img_p = render_image_diff(spec, sp, width=CHECK_W, height=CHECK_H,
+                                  bounces=GRAD_BOUNCES, march="plain", **gkw)
+    _compare("render_image_diff march=kernel vs march=plain (exact)", img_k,
+             img_p)
+    # The renderer's loss never reads the hit distance (its radiance is a
+    # product of material constants), so autograd prunes the implicit
+    # backward from the training step; a loss on t exercises it.
+    with torch.no_grad():
+        ys, xs = torch.meshgrid(
+            torch.arange(CHECK_H, dtype=torch.int32, device=dev),
+            torch.arange(CHECK_W, dtype=torch.int32, device=dev), indexing="ij")
+        _, cro, crd = camera_rays(xs, ys, 0, 1.0, CHECK_W / CHECK_H,
+                                  width=CHECK_W, height=CHECK_H)
+    kernel, _ = _hit_t_grad(km, spec, sp, cro, crd)
+    with _k3_swapped(km, plain_k3):
+        plain, _ = _hit_t_grad(km, spec, sp, cro, crd)
+    _grad_compare(f"implicit gradient of sum(w t) through K3 vs its plain "
+                  f"version, {CHECK_W}x{CHECK_H} primary rays", kernel, plain,
+                  GRAD_LOSS_REL, GRAD_TOP_REL, GRAD_COS)
+    with torch.no_grad():
+        ys, xs = torch.meshgrid(
+            torch.arange(MAIN_H, dtype=torch.int32, device=dev),
+            torch.arange(MAIN_W, dtype=torch.int32, device=dev), indexing="ij")
+        _, pro, prd = camera_rays(xs, ys, 0, 1.0, MAIN_W / MAIN_H,
+                                  width=MAIN_W, height=MAIN_H)
+    torch.cuda.reset_peak_memory_stats()
+    _hit_t_grad(km, spec, sp, pro, prd)
+    (_, g), bwd_ms = _hit_t_grad(km, spec, sp, pro, prd)
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("the implicit gradient at 1080p is not finite")
+    print(f"implicit backward (one map vjp) on the {MAIN_W * MAIN_H} primary "
+          f"rays: {bwd_ms:.3f} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{gpu}]")
+    del pro, prd, g
+
+    # -- K3 main path: three training steps at 1080p ------------------------
+    k3_launches, k3_ms, kept = _drive_training(km, mk, spec, sp, gpu)
+    k3_plain_ms, k3_ops, k3_bytes = 0.0, 0.0, 0
+    for kprog, ktable, kro, krd, kw in kept:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        km.march_rays_plain(kprog, ktable, kro, krd, **kw)
+        torch.cuda.synchronize()
+        k3_plain_ms += (time.perf_counter() - t0) * 1e3
+        count = {"segments": kro.x.shape[0]}
+        km.march_rays_plain(kprog, ktable, kro, krd, count=count, **kw)
+        k3_ops += _march_ops(count, kprog)
+        k3_bytes += kro.x.shape[0] * (24 + 8 + (12 if kw["with_normal"] else 0))
+    k3_bound, k3_by = _bound_ms(k3_bytes, k3_ops, peak)
+    print(f"K3 per training step: kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.3f} "
+          f"ms over the same {len(kept)} launches' rays, bound {k3_bound:.4f} "
+          f"ms ({k3_by}: {k3_ops:.4e} FP32 ops, {k3_bytes} bytes) [{gpu}]")
+    del kept
+
+    # -- the entry points: optimize_to_target and the CLI ------------------
+    sp_scene = compile_scene(_sphere_and_plane())
+    p_true = params_from_numpy(sp_scene.params, sp_scene.spec, dev)
+    with torch.no_grad():
+        target = render_image_diff(sp_scene.spec, p_true, width=24, height=24,
+                                   bounces=0)
+    slot = sp_scene.spec.roots[0].children_shapes[0].material[3]
+    init = p_true.clone()
+    init[slot] += float(np.random.default_rng(0).uniform(0.15, 0.3))
+    mask = torch.zeros_like(init)
+    mask[slot] = 1.0
+    before = km.LAUNCHES["march_rays"]
+    result = optimize_to_target(sp_scene.spec, init, target, width=24,
+                                height=24, bounces=0, steps=40,
+                                learning_rate=5e-2, param_mask=mask,
+                                geometry="baked", march="kernel")
+    losses = result.losses.tolist()
+    print(f"optimize_to_target (24x24, 40 steps, march=kernel): loss "
+          f"{losses[0]:.6e} -> {losses[-1]:.6e}, brightness "
+          f"{float(result.params[slot]):.4f} (true "
+          f"{float(p_true[slot]):.4f}), K3 launches "
+          f"{km.LAUNCHES['march_rays'] - before}")
+    if not losses[-1] < 0.2 * losses[0] or km.LAUNCHES["march_rays"] == before:
+        raise AssertionError("optimize_to_target did not converge through K3")
+    cli = subprocess.run(
+        [sys.executable, "-m", "compute_path_tracer_tpu_torch", "optimize",
+         "--steps", "10"], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=300)
+    print("cli optimize --steps 10: " + " | ".join(cli.stdout.strip().splitlines()[-2:]))
+    if cli.returncode != 0 or "final loss" not in cli.stdout:
+        raise AssertionError(f"cli optimize failed ({cli.returncode}): "
+                             f"{cli.stderr[-2000:]}")
+
     csrc = "compute_path_tracer_tpu_torch/kernels/csrc/"
     replaces = "compute_path_tracer_tpu/kernels/megakernel.py:1546"
     report = {"kernels": [
@@ -342,12 +801,21 @@ def main() -> int:
          "source": csrc + "megakernel_analytic.cu", "replaces": replaces,
          "launches": k1_launches, "max_abs_err": k1_err,
          "main_shape_share_off": k1_share, "ms": k1_ms,
-         "plain_ms": k1_plain_ms},
+         "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
+         "library_ms": None},
         {"name": "megakernel_march", "route": "cuda",
          "source": csrc + "megakernel_march.cu", "replaces": replaces,
          "launches": k2_launches, "max_abs_err": k2_err,
          "main_shape_share_off": k2_share, "ms": k2_ms,
-         "plain_ms": k2_plain_ms},
+         "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
+         "library_ms": None},
+        {"name": "march_rays", "route": "cuda",
+         "source": csrc + "march_rays.cu",
+         "replaces": "compute_path_tracer_tpu/kernels/march.py:123",
+         "launches": k3_launches, "max_abs_err": k3_err,
+         "main_shape_share_off": k3_share, "ms": k3_ms,
+         "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
+         "library_ms": None},
     ]}
     print(gpu)
     print(json.dumps(report))

@@ -1,16 +1,23 @@
 """Command-line interface: headless progressive render to PNG (JAX package:
 ``app/cli.py``).
 
-Only ``render`` is ported so far, in the three modes of the JAX CLI's
-Pallas backend: ``faithful`` (the sphere march over the faithful
-geometry), ``tcull`` (baked geometry, t-interval-culled march) and
-``analytic`` (the full-analytic bounce, union-only scenes):
+``render`` runs in the three modes of the JAX CLI's Pallas backend:
+``faithful`` (the sphere march over the faithful geometry), ``tcull``
+(baked geometry, t-interval-culled march) and ``analytic`` (the
+full-analytic bounce, union-only scenes):
 
   python -m compute_path_tracer_tpu_torch render --scene csg_demo \
       --width 1920 --height 1080 --frames 16 --out out.png
 
-``--device cpu`` runs the kernels' plain torch versions.  The other
-subcommands of the JAX package are listed and raise ``NotImplementedError``.
+``optimize`` is inverse rendering to a target image (by default the
+self-target demo: perturb the params, recover the scene), with the smooth
+gradient of diff/:
+
+  python -m compute_path_tracer_tpu_torch optimize --steps 50
+
+``--device cpu`` runs the kernels' plain torch versions.  ``demo`` and
+``info``, and the options of ``optimize`` that need unported parts, raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -75,6 +82,71 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_optimize(args) -> int:
+    import numpy as np
+    import torch
+
+    from ..diff import optimize_to_target, render_image_diff
+    from ..scene import compile_scene, params_from_numpy
+
+    if args.fused:
+        raise NotImplementedError("--fused needs the fused train kernel K4, "
+                                  "which is not ported (ROADMAP queue 1, "
+                                  "item 9)")
+    if args.edge_grad or args.edge_secondary:
+        raise NotImplementedError("--edge-grad / --edge-secondary (the "
+                                  "silhouette estimators) are not ported "
+                                  "(ROADMAP queue 1, item 8)")
+    scene = _load_scene(args.scene)
+    cs = compile_scene(scene)
+    device = torch.device(args.device)
+
+    if args.target:
+        from ..io.png import load_png_rgba
+
+        rgba = load_png_rgba(args.target).astype(np.float32) / 255.0
+        target = torch.from_numpy(rgba[..., :3] ** 2.2).to(device)  # undo export gamma
+    else:
+        # Self-target demo: perturb params, recover the original scene.
+        with torch.no_grad():
+            target = render_image_diff(
+                cs.spec, params_from_numpy(cs.params, cs.spec, device),
+                width=args.width, height=args.height, bounces=args.bounces,
+                spp=args.spp)
+
+    rng = np.random.default_rng(0)
+    init = np.asarray(cs.params, np.float32)
+    mask = None
+    pos_slot = None
+    if args.perturb_what == "position":
+        # Silhouette-recovery demo: offset one shape's x-position and
+        # optimize only that slot back (smooth gradients of a position are
+        # near zero; the JAX package pairs this with --edge-grad).
+        pos_slot = cs.spec.roots[0].children_shapes[0].transform.pos[0]
+        init[pos_slot] += args.perturb
+        mask = np.zeros_like(init)
+        mask[pos_slot] = 1.0
+        print(f"perturbed position slot {pos_slot} by {args.perturb:+.3f}")
+    else:
+        init = init + rng.normal(0, args.perturb, init.shape).astype(np.float32)
+
+    result = optimize_to_target(
+        cs.spec, init, target, width=args.width, height=args.height,
+        bounces=args.bounces, spp=args.spp, steps=args.steps,
+        learning_rate=args.lr, param_mask=mask, device=device,
+        callback=lambda i, l: print(f"step {i:4d} loss {l:.6f}")
+        if i % max(1, args.steps // 10) == 0 else None,
+    )
+    losses = result.losses.tolist()
+    print(f"final loss {losses[-1]:.6f} (from {losses[0]:.6f})")
+    if pos_slot is not None:
+        true_x = float(cs.params[pos_slot])
+        got_x = float(result.params[pos_slot])
+        print(f"position slot {pos_slot}: true {true_x:+.4f} "
+              f"recovered {got_x:+.4f} (started {init[pos_slot]:+.4f})")
+    return 0
+
+
 def _not_ported(name):
     def run(args):
         raise NotImplementedError(
@@ -105,8 +177,32 @@ def main(argv=None) -> int:
     r.add_argument("--tonemap", default="gamma", choices=("gamma", "aces"))
     r.set_defaults(fn=cmd_render)
 
-    for name, text in (("optimize", "inverse rendering to a target image"),
-                       ("demo", "watch a scene JSON; re-render on save"),
+    o = sub.add_parser("optimize", help="inverse rendering to a target image")
+    o.add_argument("--scene", default="sphere_and_plane")
+    o.add_argument("--target", default=None,
+                   help="PNG target (default: self-target demo)")
+    o.add_argument("--width", type=int, default=64)
+    o.add_argument("--height", type=int, default=64)
+    o.add_argument("--bounces", type=int, default=2)
+    o.add_argument("--spp", type=int, default=1,
+                   help="samples (frame RNG streams) per optimizer step")
+    o.add_argument("--steps", type=int, default=50)
+    o.add_argument("--lr", type=float, default=2e-2)
+    o.add_argument("--perturb", type=float, default=0.05)
+    o.add_argument("--fused", action="store_true",
+                   help="the fused train kernel (not ported yet)")
+    o.add_argument("--perturb-what", default="all", choices=("all", "position"),
+                   help="'position': offset one shape's x and recover it")
+    o.add_argument("--edge-grad", action="store_true",
+                   help="silhouette gradients (not ported yet)")
+    o.add_argument("--edge-secondary", action="store_true",
+                   help="secondary-bounce silhouette gradients (not ported "
+                        "yet)")
+    o.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the kernels' plain versions")
+    o.set_defaults(fn=cmd_optimize)
+
+    for name, text in (("demo", "watch a scene JSON; re-render on save"),
                        ("info", "device / topology info")):
         sub.add_parser(name, help=f"{text} (not ported yet)").set_defaults(
             fn=_not_ported(name))

@@ -2,6 +2,8 @@
 torch wrappers.  Each wrapper counts its launches in its module's
 ``LAUNCHES``."""
 
+from .march import march_rays, march_rays_plain
 from .megakernel import render_frame_megakernel, render_frame_megakernel_plain
 
-__all__ = ["render_frame_megakernel", "render_frame_megakernel_plain"]
+__all__ = ["march_rays", "march_rays_plain", "render_frame_megakernel",
+           "render_frame_megakernel_plain"]

@@ -107,4 +107,7 @@ def load_library() -> ctypes.CDLL:
     fn = lib.cpt_megakernel_march
     fn.argtypes = [p, i, p, i, i, i, i, i, p, i, i, i, i, i, f, f, i, p]
     fn.restype = ctypes.c_int
+    fn = lib.cpt_march_rays
+    fn.argtypes = [p, i, p, i, i, i, i, i, i] + [p] * 12
+    fn.restype = ctypes.c_int
     return lib

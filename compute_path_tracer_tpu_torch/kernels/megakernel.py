@@ -121,14 +121,29 @@ def _pixels(height: int, width: int, device):
     return xs, ys
 
 
-def _analytic_plain(spec, params, xs, ys, frame, bounces, fov, aspect, **kw):
-    """K1's frame: closed-form hits over the packed tables."""
+def _count_segments(count, bounds):
+    """``bounds`` that adds the rays it is called on to ``count["segments"]``
+    (the ray segments of a frame: one per live path per bounce)."""
+    if count is None:
+        return bounds
+
+    def counted(ro, rd):
+        count["segments"] = count.get("segments", 0) + ro.x.shape[0]
+        return bounds(ro, rd)
+
+    return counted
+
+
+def _analytic_plain(spec, params, xs, ys, frame, bounces, fov, aspect,
+                    count=None, **kw):
+    """K1's frame: closed-form hits over the packed tables.  ``count``
+    accumulates its ray segments."""
     layout = _layout_for(spec)
     soa_f, soa_i = pack_soa_smem(layout, bake(spec, params), params)
     cast, normal = make_cast_soa(layout), make_normal_soa(layout)
     mats = material_table(layout, soa_f)
     return trace_pixels(
-        lambda ro, rd: ((), None),
+        _count_segments(count, lambda ro, rd: ((), None)),
         lambda ro, rd, _c: cast(ro, rd, soa_f, soa_i),
         lambda p, idx, _c: normal(p, idx, soa_f, soa_i),
         lambda idx: gather_material(mats, idx),
@@ -136,10 +151,12 @@ def _analytic_plain(spec, params, xs, ys, frame, bounces, fov, aspect, **kw):
 
 
 def _march_plain(prog: Program, table, t_cull, xs, ys, frame, bounces, fov,
-                 aspect, **kw):
+                 aspect, count=None, **kw):
     """K2's frame: the CSG program interpreted per tap, the exact or the
-    per-thread t-culled march, 6-tap normals under the bounce's guards."""
-    map_fn = make_map_program(prog, table.tolist())
+    per-thread t-culled march, 6-tap normals under the bounce's guards.
+    ``count`` accumulates its ray segments and map work
+    (``make_map_program``)."""
+    map_fn = make_map_program(prog, table.tolist(), count)
 
     def map_checked(p, checks):
         return map_fn(p, checks[0])
@@ -152,7 +169,8 @@ def _march_plain(prog: Program, table, t_cull, xs, ys, frame, bounces, fov,
             return cast_ray(map_checked, ro, rd, c)
     mats = table[prog.f_mat:].view(prog.n_shapes, MAT_SIZE)
     return trace_pixels(
-        lambda ro, rd: program_bounds(prog, table, ro, rd, t_cull),
+        _count_segments(count,
+                        lambda ro, rd: program_bounds(prog, table, ro, rd, t_cull)),
         cast,
         lambda p, _idx, c: calc_normal(map_checked, p, c[:1]),
         lambda idx: gather_material(mats, idx),
@@ -181,8 +199,12 @@ def render_frame_megakernel_plain(
     dist_grid: bool = False,
     analytic_all: bool = False,
     analytic_soa: bool = False,
+    count: dict = None,
 ) -> torch.Tensor:
-    """The kernels' frame in vectorized torch, on ``params``' device."""
+    """The kernels' frame in vectorized torch, on ``params``' device.
+    ``count``, a dict, accumulates the work the kernel does for the frame:
+    its ``"segments"`` (ray segments, one per live path per bounce) and, for
+    the march, its map work (``render/program.py:make_map_program``)."""
     kernel = _kernel_for(geometry, debug, normals, t_cull, omega,
                          analytic_unboxed, refresh_every, dist_grid,
                          analytic_all, analytic_soa)
@@ -195,12 +217,12 @@ def render_frame_megakernel_plain(
     with torch.no_grad():
         if kernel == "analytic":
             col = _analytic_plain(spec, params, xs, ys, frame, bounces, fov,
-                                  aspect, **kw)
+                                  aspect, count, **kw)
         else:
             prog = build_program(spec, geometry)
             col = _march_plain(prog, program_table(prog, params, t_cull),
                                t_cull, xs, ys, frame, bounces, fov, aspect,
-                               **kw)
+                               count, **kw)
         img = col.stack()
         if debug != 0:
             return accum.copy_(img)

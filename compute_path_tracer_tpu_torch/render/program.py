@@ -290,14 +290,31 @@ def _xform(p: Vec3, r) -> Vec3:
     return rot3d_cs(q, *r[5:11])
 
 
-def make_map_program(prog: Program, vals):
+def make_map_program(prog: Program, vals, count=None):
     """``map(p, guard) -> (d, idx)``: the kernel's interpreter over the op
     list in vectorized torch.  ``vals`` is the table as Python floats (exact:
-    they come from float32); ``guard`` is an (n, n_boxed) bool tensor."""
+    they come from float32); ``guard`` is an (n, n_boxed) bool tensor.
+
+    ``count``, a dict, accumulates the work the kernel does for these taps:
+    ``"taps"`` (points mapped) and, per leaf kind, the leaf evaluations
+    whose guard passes (device tensors, so counting does not synchronise)."""
     ops = prog.ops.tolist()
     baked = prog.geometry == "baked"
+    shapes = [op for op in ops if op[0] == OPC_SHAPE]
+    kinds = sorted({op[1] for op in shapes})
+    boxes = {k: [op[3] for op in shapes if op[1] == k and op[3] >= 0]
+             for k in kinds}
+    free = {k: sum(op[1] == k and op[3] < 0 for op in shapes) for k in kinds}
+
+    def tally(n, guard):
+        count["taps"] = count.get("taps", 0) + n
+        for k in kinds:
+            done = guard[:, boxes[k]].sum() if boxes[k] else 0
+            count[k] = count.get(k, 0) + done + n * free[k]
 
     def map_fn(p: Vec3, guard):
+        if count is not None:
+            tally(p.x.shape[0], guard)
         stack = []
         acc_d = torch.full_like(p.x, MAX_DIST)
         acc_i = torch.full_like(p.x, -1, dtype=torch.int32)

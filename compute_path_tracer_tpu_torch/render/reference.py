@@ -21,6 +21,7 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..constants import DEFAULT_BOUNCES, DEFAULT_FOV, FP, MHD, OFFSET, STEPS
 from ..ops.camera import calc_uv, primary_ray
@@ -53,7 +54,11 @@ def gather_material(mat_table, idx) -> Mat:
     if mat_table.shape[0] == 0:
         mat_table = mat_table.new_zeros((1, mat_table.shape[1]))
     valid = idx >= 0
-    rows = mat_table[torch.clamp(idx, min=0).to(torch.int64)]
+    # index_select, not indexing: the indexing backward sums each row's
+    # millions of duplicate ids serially (32 ms per 1080p bounce on an H100,
+    # profile_main.py --mode train); index_select's is an index_add, whose
+    # atomics on CUDA sum in no fixed order (the last bits vary by run).
+    rows = mat_table.index_select(0, torch.clamp(idx, min=0).to(torch.int64))
 
     def chan(c):
         return torch.where(valid, rows[..., c], torch.zeros_like(rows[..., c]))
@@ -150,7 +155,9 @@ def cast_ray(map_fn, ro: Vec3, rd: Vec3, checks):
     the last map tap (-1 when far).  ``map_fn(p, checks) -> (d, idx)``.
 
     Each step evaluates only the rays still marching, so a lane's result is
-    that of the JAX version's masked fixed-trip loop."""
+    that of the JAX version's masked fixed-trip loop.  ``t`` is updated out
+    of place, so autograd can differentiate the march (``implicit=False``
+    in diff/vjp.py)."""
     t = torch.zeros_like(ro.x)
     idx = torch.full_like(ro.x, -1, dtype=torch.int32)
     live = torch.arange(t.shape[0], device=t.device)
@@ -162,7 +169,7 @@ def cast_ray(map_fn, ro: Vec3, rd: Vec3, checks):
         ad = torch.abs(d)
         nt = lt + ad
         far = nt > FP
-        t[live] = nt
+        t = t.index_put((live,), nt)
         idx[live] = torch.where(far, torch.full_like(mi, -1), mi)
         keep = ~((ad < MHD) | far)
         live, ro, rd, lt = live[keep], _sel(ro, keep), _sel(rd, keep), nt[keep]
@@ -191,44 +198,68 @@ def calc_normal(map_fn, p: Vec3, checks) -> Vec3:
     return Vec3(d[0] - d[1], d[2] - d[3], d[4] - d[5]).normalize_safe()
 
 
+def calc_normal_autodiff(map_fn, p: Vec3, checks) -> Vec3:
+    """The exact SDF gradient by reverse-mode autodiff of one map tap (JAX
+    package: ``calc_normal_autodiff``): exact for every fold the map
+    performs, where the 6-tap central difference is an eps=1e-4 estimate.
+    Under an enabled autograd the result stays differentiable (the second
+    order term flows through ``p`` and the map's parameters); otherwise it
+    is a plain value."""
+    outer = torch.is_grad_enabled()
+    with torch.enable_grad():
+        pts = [c if outer and c.requires_grad else c.detach().requires_grad_()
+               for c in p]
+        d, _ = map_fn(Vec3(*pts), checks)
+        g = torch.autograd.grad(d, pts, torch.ones_like(d), create_graph=outer,
+                                allow_unused=True)
+    return Vec3(*(torch.zeros_like(c) if gc is None else gc
+                  for c, gc in zip(p, g))).normalize_safe()
+
+
 def path_trace(bounds_fn, cast_fn, normal_fn, gather_mat, ro: Vec3, rd: Vec3,
-               rng, bounces: int):
+               rng, bounces: int, remat: bool = False):
     """Monte-Carlo bounce loop (test_compute.glsl:91-166) over (n,) rays.
 
     Per bounce ``bounds_fn(ro, rd) -> checks`` is computed once and handed to
     both ``cast_fn(ro, rd, checks) -> (t, idx)`` (a miss has t > FP) and
-    ``normal_fn(p, idx, checks) -> Vec3``; ``gather_mat(idx) -> Mat``.
-    Returns ``(radiance Vec3, i_exit int32)``, ``i_exit`` the GLSL loop
-    variable at exit (the bounce heatmap, test_compute.glsl:163).
+    ``normal_fn(p, idx, checks) -> Vec3``; ``gather_mat(idx) -> Mat``.  A
+    cast that computes the normal itself returns ``(t, idx, n)``, and
+    ``normal_fn`` is not called.  Returns ``(radiance Vec3, i_exit int32)``,
+    ``i_exit`` the GLSL loop variable at exit (the bounce heatmap,
+    test_compute.glsl:163).
 
     Each bounce runs on the paths still alive only, which is what the JAX
-    version's alive masks give for every lane."""
+    version's alive masks give for every lane.  Every update of the state
+    is out of place, so autograd differentiates the loop; ``remat=True``
+    checkpoints each bounce (``torch.utils.checkpoint``, JAX's
+    ``jax.checkpoint`` of the bounce body): its forward is recomputed in the
+    backward instead of taped, exactly, since the hash RNG is
+    deterministic."""
     n = ro.x.shape[0]
     zero = torch.zeros_like(ro.x)
-    ret = Vec3(zero, zero.clone(), zero.clone())
+    ret = Vec3(zero, zero, zero)
     i_exit = torch.full_like(ro.x, bounces + 1, dtype=torch.int32)
     lanes = torch.arange(n, device=ro.x.device)
     thr = Vec3.splat(torch.ones_like(ro.x))
 
-    for i in range(bounces + 1):
-        if lanes.numel() == 0:
-            break
+    def bounce(lanes, ro, rd, thr, rng):
+        """One bounce of the live paths: returns the lanes that missed, the
+        lanes that hit with their emission times throughput, the lanes the
+        roulette killed, and the survivors' state."""
         checks = bounds_fn(ro, rd)
-        t, idx = cast_fn(ro, rd, checks)
-        miss = t > FP
-        i_exit[lanes[miss]] = i
-        hit = ~miss
+        t, idx, *cast_n = cast_fn(ro, rd, checks)
+        hit = ~(t > FP)
+        missed = lanes[~hit]
         lanes, ro, rd, thr, rng = (lanes[hit], _sel(ro, hit), _sel(rd, hit),
                                    _sel(thr, hit), rng[hit])
         t, idx, checks = t[hit], idx[hit], take_lanes(checks, hit)
 
         hit_pos = ro + rd * t
-        n_ = normal_fn(hit_pos, idx, checks)
+        n_ = _sel(cast_n[0], hit) if cast_n else normal_fn(hit_pos, idx, checks)
         mat = gather_mat(idx)
         rng, ro, rd, emit, thr_factor, ray_prob = shade_bounce(
             rng, rd, hit_pos, n_, mat)
-        for acc, e in zip(ret, emit * thr):
-            acc[lanes] = acc[lanes] + e
+        gain = emit * thr
         new_thr = thr * thr_factor / ray_prob
 
         # Russian roulette on the max throughput channel
@@ -236,14 +267,24 @@ def path_trace(bounds_fn, cast_fn, normal_fn, gather_mat, ro: Vec3, rd: Vec3,
         p_rr = new_thr.max_component()
         rng, r_rr = random_float01(rng)
         dead = r_rr > p_rr
-        i_exit[lanes[dead]] = i
         p_pos = p_rr > 0.0
         inv_p = torch.where(p_pos, 1.0 / torch.where(p_pos, p_rr,
                                                      torch.ones_like(p_rr)),
                             torch.zeros_like(p_rr))
         surv = ~dead
-        lanes, ro, rd, rng = lanes[surv], _sel(ro, surv), _sel(rd, surv), rng[surv]
-        thr = _sel(new_thr * inv_p, surv)
+        return (missed, lanes, gain, lanes[dead], lanes[surv], _sel(ro, surv),
+                _sel(rd, surv), rng[surv], _sel(new_thr * inv_p, surv))
+
+    for i in range(bounces + 1):
+        if lanes.numel() == 0:
+            break
+        state = (lanes, ro, rd, thr, rng)
+        out = (checkpoint(bounce, *state, use_reentrant=False) if remat
+               else bounce(*state))
+        missed, hit_lanes, gain, dead, lanes, ro, rd, rng, thr = out
+        i_exit[missed] = i
+        ret = Vec3(*(acc.index_add(0, hit_lanes, g) for acc, g in zip(ret, gain)))
+        i_exit[dead] = i
     return ret, i_exit
 
 
@@ -251,7 +292,7 @@ def normals_debug(bounds_fn, cast_fn, normal_fn, ro, rd) -> Vec3:
     """Debug mode 1: surface normals + AABB-hit tint
     (test_compute.glsl:170-179).  ``bounds_fn`` returns ``(checks, dbg)``."""
     checks, dbg = bounds_fn(ro, rd)
-    t, idx = cast_fn(ro, rd, checks)
+    t, idx = cast_fn(ro, rd, checks)[:2]
     n = normal_fn(ro + rd * t, idx, checks)
     shaded = (n.normalize_safe() * 0.5 + 0.5) * 0.2 + Vec3.splat(dbg)
     return vwhere(t > FP, Vec3.splat(dbg), shaded)
@@ -260,8 +301,23 @@ def normals_debug(bounds_fn, cast_fn, normal_fn, ro, rd) -> Vec3:
 def colors_debug(bounds_fn, cast_fn, gather_mat, ro, rd) -> Vec3:
     """Debug mode 2: first-hit albedo (test_compute.glsl:183-195)."""
     checks, _dbg = bounds_fn(ro, rd)
-    _t, idx = cast_fn(ro, rd, checks)
+    _t, idx = cast_fn(ro, rd, checks)[:2]
     return gather_mat(idx).col
+
+
+def camera_rays(xs, ys, frame, fov: float, aspect: float, *, width: int,
+                height: int):
+    """The per-pixel RNG state and the jittered primary rays of the pixels
+    ``(xs, ys)``, flattened to (n,) (test_compute.glsl:218-235)."""
+    xs, ys = xs.reshape(-1), ys.reshape(-1)
+    # Per-pixel RNG + subpixel AA jitter (test_compute.glsl:224-229).
+    rng = gen_rng(xs, ys, frame, width, height)
+    rng, jx = random_float01(rng)
+    rng, jy = random_float01(rng)
+    u, v = calc_uv(xs.to(torch.float32) + (jx - 0.5),
+                   ys.to(torch.float32) + (jy - 0.5), width, height, aspect)
+    ro, rd = primary_ray(u, v, fov)
+    return rng, ro, rd
 
 
 def trace_pixels(bounds_fn, cast_fn, normal_fn, gather_mat, xs, ys, frame,
@@ -272,14 +328,8 @@ def trace_pixels(bounds_fn, cast_fn, normal_fn, gather_mat, xs, ys, frame,
     through the given scene functions, in debug mode 0-3.
     ``bounds_fn(ro, rd) -> (checks, dbg)``."""
     shape = xs.shape
-    xs, ys = xs.reshape(-1), ys.reshape(-1)
-    # Per-pixel RNG + subpixel AA jitter (test_compute.glsl:224-229).
-    rng = gen_rng(xs, ys, frame, width, height)
-    rng, jx = random_float01(rng)
-    rng, jy = random_float01(rng)
-    u, v = calc_uv(xs.to(torch.float32) + (jx - 0.5),
-                   ys.to(torch.float32) + (jy - 0.5), width, height, aspect)
-    ro, rd = primary_ray(u, v, fov)
+    rng, ro, rd = camera_rays(xs, ys, frame, fov, aspect, width=width,
+                              height=height)
     if debug in (0, 3):
         col, i_exit = path_trace(lambda o, d: bounds_fn(o, d)[0], cast_fn,
                                  normal_fn, gather_mat, ro, rd, rng, bounces)
