@@ -27,7 +27,18 @@ implicit backward on a loss of the hit distance (checked, and timed at
 training steps (``make_loss(..., geometry="baked", march="kernel",
 normals="kernel")``, backward, Adam) at 1920x1080 with 8 bounces (bench.py's
 fast-gradient row); ``optimize_to_target`` on a small scene and the CLI's
-``optimize``.
+``optimize``;
+
+and the fused train step through K4 (train_fused): the whole step (loss,
+gradient, image) with K4 against the same with its plain version at
+320x180 in the winner and map-vjp modes, march and analytic_all phase 1,
+with and without the edge terms, spp 2 and bounces 0; K4's image against
+K1's and K2's frames; the main configuration (``analytic_all=True,
+edge_grad=True``, bench.py:462) at 1080p against its plain version, and
+whether K4's sums repeat bit for bit; three timed 1080p steps of each of
+the three configurations of bench.py:462, :424 and :433; the flat ball's
+position recovered by ``optimize_to_target(fused=True, edge_grad=True)``
+and the CLI's ``optimize --fused --edge-grad``.
 
 It prints timings beside the card's name and power limit, a kernels JSON
 line with each kernel's time, its plain version's and its bound, and
@@ -77,11 +88,41 @@ EXACT_COS = 1e-2
 # K1's closed-form test of a leaf without a box.  Integer guard bookkeeping,
 # loads and K1's tests of the boxed leaves a ray enters are not counted, so
 # the bound is a lower one.
+# K4's work beyond the map taps and leaves above, per item, read off
+# train_fused.cu (the same counting rules): one bounce's replay with its
+# adjoint (replay_adjoint), one leaf's slot partials by kind
+# (leaf_partials), one leaf of the secondary exclusion fold by kind, and the
+# per-pixel edge bookkeeping (slope, sigmoid, seed).
+REPLAY_OPS = 180
+PARTIAL_OPS = {0: 14, 1: 75, 2: 8, 3: 70}
+EXCL_OPS = {0: 11, 1: 38, 2: 6, 3: 31}
+EDGE_RAY_OPS = 40
 HBM_BYTES_PER_S = 3.35e12
 SLAB_OPS = 26
 TAP_OPS = 11
 LEAF_OPS = {0: 12, 1: 39, 2: 7, 3: 32}
 ANALYTIC_LEAF_OPS = {0: 22, 1: 70, 2: 16, 3: 113}
+# The fused train step K4: its three 1080p configurations (bench.py:462,
+# :424, :433; the first is the main one), its checks against its plain
+# version at CHECK_W x CHECK_H, and their gates: loss, the 20 largest
+# gradient slots and the cosine.  The slots' gate is 1e-2, not K3's 1e-4:
+# with the images bit-equal, the plain version sums with atomics in no
+# fixed order over slots with heavy cancellation, and the edge terms' slope
+# factors read 6-tap normals, which its torch ops may round otherwise (the
+# K2 debug-1 check above shows up to 5.7e-4); measured up to 1.9e-3 on a
+# slot while the cosine stays within 3e-7 of 1 (PERF.md).
+FUSED_MAIN = dict(analytic_all=True, edge_grad=True)
+FUSED_CONFIGS = (("analytic_all + edge_grad", FUSED_MAIN),
+                 ("march + edge_grad", dict(edge_grad=True)),
+                 ("march + edge_grad + edge_secondary",
+                  dict(edge_grad=True, edge_secondary=True)))
+FUSED_LOSS_REL, FUSED_TOP_REL, FUSED_COS = 1e-5, 1e-2, 1e-6
+# Where K4's image is not its plain version's bit for bit, a few pixels saw
+# another shape: K2's march flips a lamp's edge pixel against its plain
+# version (2 of 57,600 pixels on the benchmark scene, PERF.md), and one
+# bright pixel moves the loss by ~4e-4 and single slots by per cents.  Such
+# a case is held to the image share above and to these looser gates.
+FLIP_LOSS_REL, FLIP_COS = 1e-3, 1e-4
 
 
 def _gpu_line(query="name,power.limit") -> str:
@@ -376,6 +417,7 @@ def _grad_compare(name, a, b, loss_rel, top_rel, cos_tol):
     if not (bool(torch.isfinite(ga).all()) and bool(torch.isfinite(gb).all())):
         raise AssertionError(f"{name}: non-finite gradient")
     top = torch.argsort(gb.abs(), descending=True)[:20]
+    top = top[gb[top] != 0]  # a zero slot has no relative error
     rel_top = float(((ga[top] - gb[top]).abs() / gb[top].abs()).max())
     cos = float(ga @ gb / (ga.norm() * gb.norm()))
     rel_loss = abs(la - lb) / abs(lb)
@@ -461,6 +503,208 @@ def _drive_training(km, mk, spec, params, gpu):
     return launches, k3_ms, kept
 
 
+def _flat_ball():
+    """tests/test_train_fused.py:246's black, uniformly emissive ball: only
+    the edge term moves its position."""
+    from compute_path_tracer_tpu_torch.scene import KIND_SPHERE, Scene, Shape, Union
+
+    root = Union(name="Root")
+    ball = root.add_shape(Shape(KIND_SPHERE, name="Ball"))
+    ball.size.set(0.8)
+    ball.material.color.set(0.0, 0.0, 0.0)
+    ball.material.brightness.set(2.0)
+    ball.material.light_col.set(1.0, 1.0, 1.0)
+    return Scene([root])
+
+
+@contextmanager
+def _k4_swapped(tm, fn):
+    """Route every K4 launch of the fused step (kernels/train.py resolves
+    ``launch_train_fused`` at call time) through ``fn(orig, *args, **kw)``."""
+    orig = tm.launch_train_fused
+    tm.launch_train_fused = lambda *a, **kw: fn(orig, *a, **kw)
+    try:
+        yield
+    finally:
+        tm.launch_train_fused = orig
+
+
+def _k4_plain(tm, count=None):
+    """A K4 stand-in that runs its plain version on the same inputs."""
+    def run(orig, *a, **kw):
+        return tm.fused_planes_plain(*a, count=count, **kw)
+
+    return run
+
+
+def _fused_step(tm, spec, params, target, width, height, bounces, **kw):
+    """One fused step: (loss, gradient, image)."""
+    step = tm.make_fused_value_and_grad(spec, target, width=width,
+                                        height=height, bounces=bounces,
+                                        with_image=True, **kw)
+    loss, grad, img = step(params)
+    return float(loss), grad, img
+
+
+def _fused_ops(count, prog, analytic):
+    """FP32 operations of K4's work in ``count`` (fused_planes_plain's
+    tally)."""
+    seg = count.get("segments", 0)
+    ops = (_analytic_ops(seg, prog) if analytic
+           else seg * prog.n_boxed * SLAB_OPS)
+    ops += count.get("taps", 0) * TAP_OPS + sum(
+        int(count.get(k, 0)) * v for k, v in LEAF_OPS.items())
+    ops += count.get("edge_rays", 0) * (prog.n_boxed * SLAB_OPS + EDGE_RAY_OPS)
+    ops += count.get("replays", 0) * REPLAY_OPS
+    ops += sum(int(count.get(("partials", k), 0)) * v
+               for k, v in PARTIAL_OPS.items())
+    ops += sum(int(count.get(("excl", k), 0)) * v for k, v in EXCL_OPS.items())
+    return ops
+
+
+def _k4_checks(tm, cases, dev):
+    """K4 against its plain version through the whole step at CHECK_W x
+    CHECK_H; each case must launch K4 once per sample.  Returns the max
+    |gradient diff| over the cases."""
+    import numpy as np
+    import torch
+
+    target = torch.from_numpy(np.random.default_rng(3).random(
+        (CHECK_H, CHECK_W, 3)).astype(np.float32) * 0.3).to(dev)
+    max_err = 0.0
+    for name, (spec, params), kw, bounces in cases:
+        before = tm.LAUNCHES["train_fused"]
+        k = _fused_step(tm, spec, params, target, CHECK_W, CHECK_H, bounces,
+                        **kw)
+        torch.cuda.synchronize()
+        if tm.LAUNCHES["train_fused"] - before != kw.get("spp", 1):
+            raise AssertionError(f"{name}: train_fused was not launched once "
+                                 f"per sample")
+        with _k4_swapped(tm, _k4_plain(tm)):
+            p = _fused_step(tm, spec, params, target, CHECK_W, CHECK_H,
+                            bounces, **kw)
+        _compare(f"{name} image", k[2], p[2])
+        equal = bool(torch.equal(k[2], p[2]))
+        gates = ((FUSED_LOSS_REL, FUSED_TOP_REL, FUSED_COS) if equal
+                 else (FLIP_LOSS_REL, float("inf"), FLIP_COS))
+        _grad_compare(f"{name} gradient, {CHECK_W}x{CHECK_H}, bounces "
+                      f"{bounces}, image "
+                      f"{'bit-equal' if equal else 'not bit-equal'}",
+                      k[:2], p[:2], *gates)
+        max_err = max(max_err, float((k[1] - p[1]).abs().max()))
+    return max_err
+
+
+def _edge_cull_count(spec, params, dev):
+    """Primary rays at CHECK_W x CHECK_H whose closest approach (d_min,
+    t_min, i_min) differs between the exact march K4's edge term takes and
+    K2's per-thread t-culled march, with the plain versions.  Returns
+    (rays, differing, differing ids, near misses, differing near misses)."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.constants import BIG, FP, MHD, STEPS
+    from compute_path_tracer_tpu_torch.render.program import (
+        _on_device, build_program, make_map_program, program_bounds,
+        program_table)
+    from compute_path_tracer_tpu_torch.render.reference import (
+        camera_rays, cast_ray, take_lanes)
+    from compute_path_tracer_tpu_torch.vecmath import Vec3
+
+    prog = build_program(spec, "baked")
+    table = program_table(prog, params, True)
+    mf = make_map_program(prog, table.tolist())
+    ys, xs = torch.meshgrid(
+        torch.arange(CHECK_H, dtype=torch.int32, device=dev),
+        torch.arange(CHECK_W, dtype=torch.int32, device=dev), indexing="ij")
+    _, ro, rd = camera_rays(xs, ys, 0, 1.0, CHECK_W / CHECK_H, width=CHECK_W,
+                            height=CHECK_H)
+    checks, _ = program_bounds(prog, table, ro, rd, True)
+    _, _, da, ta = cast_ray(lambda q, c: mf(q, c[0]), ro, rd, checks[:1],
+                            closest=True)
+    cull = _on_device(prog, dev).cull
+    n = ro.x.shape[0]
+    db, tb = torch.full((n,), BIG, device=dev), torch.zeros(n, device=dev)
+    live, lt = torch.arange(n, device=dev), torch.zeros(n, device=dev)
+    r, d_, ck = ro, rd, checks
+    for _ in range(STEPS):
+        if live.numel() == 0:
+            break
+        chk, lo, hi = ck
+        tt = lt[:, None]
+        act = chk & (~cull | ((lo <= tt) & (hi >= tt)))
+        m = torch.where(chk & cull & (lo > tt), lo,
+                        torch.full_like(lo, BIG)).amin(1)
+        d, _ = mf(r + d_ * lt, act)
+        better = d < db[live]
+        db[live] = torch.where(better, d, db[live])
+        tb[live] = torch.where(better, lt, tb[live])
+        nt = lt + torch.minimum(d.abs(), torch.clamp(m - lt, min=MHD))
+        keep = ~((d.abs() < MHD) | (nt > FP))
+        live, lt = live[keep], nt[keep]
+        r, d_ = (Vec3(v.x[keep], v.y[keep], v.z[keep]) for v in (r, d_))
+        ck = take_lanes(ck, keep)
+    ia, ib = mf(ro + rd * ta, checks[0])[1], mf(ro + rd * tb, checks[0])[1]
+    ia = torch.where(da < 0.5 * BIG, ia, -1)
+    ib = torch.where(db < 0.5 * BIG, ib, -1)
+    diff = (da != db) | (ta != tb) | (ia != ib)
+    near = (da > MHD) & (da < 0.2)
+    return (n, int(diff.sum()), int((ia != ib).sum()), int(near.sum()),
+            int((diff & near).sum()))
+
+
+def _drive_fused(tm, others, spec, params, gpu, label, kw):
+    """A fused configuration at 1080p: one warm-up step and TIMED_STEPS
+    timed ones, every kernel count set to 0 just before and read just
+    after; each step must launch K4 once and no other kernel.  Returns (K4
+    launches, K4 ms per launch, ms per step, peak bytes)."""
+    import torch
+
+    step = tm.make_fused_value_and_grad(
+        spec, torch.zeros((MAIN_H, MAIN_W, 3), device=params.device),
+        width=MAIN_W, height=MAIN_H, bounces=BOUNCES, **kw)
+    events = []
+
+    def timed(orig, *a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*a, **k)
+        end.record()
+        events.append((start, end))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counts in (tm.LAUNCHES, *others):
+        for k in counts:
+            counts[k] = 0
+    losses = [float(step(params)[0])]
+    torch.cuda.synchronize()
+    with _k4_swapped(tm, timed):
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            loss, grad = step(params)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    losses.append(float(loss))
+    launches = tm.LAUNCHES["train_fused"]
+    if launches != TIMED_STEPS + 1 or any(v for c in others for v in c.values()):
+        raise AssertionError(f"fused steps launched {dict(tm.LAUNCHES)} and "
+                             f"{[dict(c) for c in others]}")
+    if not bool(torch.isfinite(grad).all()) or float(grad.abs().max()) == 0:
+        raise AssertionError(f"{label}: the gradient is not finite and non-zero")
+    k4_ms = sum(a.elapsed_time(b) for a, b in events) / TIMED_STEPS
+    step_ms = dt / TIMED_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"main path fused step, {label}: {MAIN_W}x{MAIN_H}, {N_PRIMS} prims, "
+          f"{BOUNCES} bounces: {step_ms:.3f} ms/step, "
+          f"{MAIN_W * MAIN_H * (BOUNCES + 1) / (dt / TIMED_STEPS):.4e} rays/s, "
+          f"K4 {launches / (TIMED_STEPS + 1):.2f} launches/step, "
+          f"{k4_ms:.3f} ms/launch, peak memory {peak / 2**30:.3f} GiB, "
+          f"losses {losses}, gradient finite [{gpu}]")
+    return launches, k4_ms, step_ms, peak
+
+
 def main() -> int:
     import torch
 
@@ -478,6 +722,7 @@ def main() -> int:
     from compute_path_tracer_tpu_torch.kernels import build
     from compute_path_tracer_tpu_torch.kernels import march as km
     from compute_path_tracer_tpu_torch.kernels import megakernel as mk
+    from compute_path_tracer_tpu_torch.kernels import train as tm
     from compute_path_tracer_tpu_torch.render.reference import camera_rays
     from compute_path_tracer_tpu_torch.render.baked import bake
     from compute_path_tracer_tpu_torch.render.program import (
@@ -486,8 +731,8 @@ def main() -> int:
     from compute_path_tracer_tpu_torch.render.soa import (
         build_soa_smem_layout, pack_soa_smem)
     from compute_path_tracer_tpu_torch.scene import (
-        benchmark_scene, blend_demo, compile_scene, csg_demo, glass_demo,
-        params_from_numpy)
+        benchmark_scene, blend_demo, compile_scene, csg_demo, edge_demo,
+        glass_demo, params_from_numpy, sphere_and_plane)
 
     gpu = _gpu_line()
     dev = torch.device("cuda")
@@ -761,6 +1006,109 @@ def main() -> int:
           f"ms ({k3_by}: {k3_ops:.4e} FP32 ops, {k3_bytes} bytes) [{gpu}]")
     del kept
 
+    # -- K4 against its plain version, on the card --------------------------
+    edge_sc = compiled(edge_demo())
+    sap = compiled(sphere_and_plane())
+    k4_err = _k4_checks(tm, (
+        ("K4 winner, march, sphere_and_plane", sap, {}, 2),
+        ("K4 winner, march + edge + secondary, sphere_and_plane", sap,
+         dict(edge_grad=True, edge_secondary=True), 2),
+        ("K4 winner, march", bench, {}, BOUNCES),
+        ("K4 winner, march + edge", bench, dict(edge_grad=True), BOUNCES),
+        ("K4 winner, march + edge + secondary", bench,
+         dict(edge_grad=True, edge_secondary=True), BOUNCES),
+        ("K4 winner, analytic_all + edge", bench, FUSED_MAIN, BOUNCES),
+        ("K4 winner, analytic_all + edge, spp 2", bench,
+         dict(FUSED_MAIN, spp=2), BOUNCES),
+        ("K4 map-vjp csg_demo, march", csg, {}, BOUNCES),
+        ("K4 map-vjp csg_demo, march + edge + secondary", csg,
+         dict(edge_grad=True, edge_secondary=True), BOUNCES),
+        ("K4 edge_demo, bounces 0 + edge", edge_sc, dict(edge_grad=True), 0),
+    ), dev)
+
+    n, nd, nid, nnear, ndnear = _edge_cull_count(spec, sp, dev)
+    print(f"K4 edge term, {CHECK_W}x{CHECK_H} primary rays: {nd} of {n} would "
+          f"track another (d_min, t_min, i_min) under K2's per-thread t-cull "
+          f"({nid} another shape; {ndnear} of the {nnear} near misses within "
+          f"0.2), so its marches do not cull")
+
+    # K4's image is K1's frame (analytic_all) and K2's baked t-culled frame.
+    zero_t = torch.zeros((CHECK_H, CHECK_W, 3), device=dev)
+    for name, fkw, rmode in (("K1 analytic_all", FUSED_MAIN, ANALYTIC),
+                             ("K2 baked t_cull", {}, MARCH)):
+        _, _, img = _fused_step(tm, spec, sp, zero_t, CHECK_W, CHECK_H,
+                                BOUNCES, **fkw)
+        frame = mk.render_frame_megakernel(spec, sp, None, 0, 0,
+                                           width=CHECK_W, height=CHECK_H,
+                                           bounces=BOUNCES, **rmode)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(img, frame))
+        print(f"check K4 image against the {name} frame, {CHECK_W}x{CHECK_H}: "
+              f"{'bit-equal' if equal else 'DIFFERENT'}")
+        if not equal:
+            raise AssertionError(f"K4's image is not the {name} frame")
+
+    # The main configuration at 1080p against its plain version (one step
+    # each), and the plain version's count of the work for the bound.
+    target0 = torch.zeros((MAIN_H, MAIN_W, 3), device=dev)
+    torch.cuda.synchronize()
+    k = _fused_step(tm, spec, sp, target0, MAIN_W, MAIN_H, BOUNCES, **FUSED_MAIN)
+    k4_count = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _k4_swapped(tm, _k4_plain(tm, k4_count)):
+        p = _fused_step(tm, spec, sp, target0, MAIN_W, MAIN_H, BOUNCES,
+                        **FUSED_MAIN)
+    torch.cuda.synchronize()
+    k4_plain_ms = (time.perf_counter() - t0) * 1e3
+    k4_share, _ = _compare(f"K4 {MAIN_W}x{MAIN_H} image, main configuration",
+                           k[2], p[2])
+    equal = bool(torch.equal(k[2], p[2]))
+    _grad_compare(f"K4 {MAIN_W}x{MAIN_H} gradient, main configuration, image "
+                  f"{'bit-equal' if equal else 'not bit-equal'}", k[:2],
+                  p[:2], *((FUSED_LOSS_REL, FUSED_TOP_REL, FUSED_COS) if equal
+                           else (FLIP_LOSS_REL, float("inf"), FLIP_COS)))
+    k4_err = max(k4_err, float((k[1] - p[1]).abs().max()))
+    print(f"K4 plain step at {MAIN_W}x{MAIN_H} (main configuration): "
+          f"{k4_plain_ms:.1f} ms, host clock [{gpu}]")
+    del k, p
+
+    # Do K4's in-kernel sums repeat bit for bit?  And the whole gradient?
+    mode = tm.FusedMode(BOUNCES, True, edge_grad=True, analytic_all=True)
+    tables = tm.fused_tables(spec, sp, True)
+    tplanes = target0.permute(2, 0, 1).contiguous()
+    runs = [tm.launch_train_fused(tables, tplanes, 0, 1.0, MAIN_W / MAIN_H, 0,
+                                  width=MAIN_W, height=MAIN_H, mode=mode)
+            for _ in range(2)]
+    grads = [_fused_step(tm, spec, sp, target0, MAIN_W, MAIN_H, BOUNCES,
+                         **FUSED_MAIN)[1] for _ in range(2)]
+    torch.cuda.synchronize()
+    sums_equal = all(torch.equal(getattr(runs[0], f), getattr(runs[1], f))
+                     for f in ("col", "mat_acc", "geom_acc"))
+    grad_equal = bool(torch.equal(grads[0], grads[1]))
+    print(f"K4 repeatability at {MAIN_W}x{MAIN_H}: image and (shape, channel) "
+          f"sums {'bit-equal' if sums_equal else 'DIFFERENT'} over two "
+          f"launches; the step's gradient "
+          f"{'bit-equal' if grad_equal else 'different'} over two steps")
+    if not sums_equal:
+        raise AssertionError("K4's sums do not repeat")
+    del runs, grads, tables
+
+    # -- K4 main path: three timed 1080p steps per configuration ------------
+    fused = {}
+    for label, fkw in FUSED_CONFIGS:
+        fused[label] = _drive_fused(tm, (mk.LAUNCHES, km.LAUNCHES), spec, sp,
+                                    gpu, label, fkw)
+    k4_launches, k4_ms = fused[FUSED_CONFIGS[0][0]][:2]
+    layout = build_soa_smem_layout(spec)
+    k4_bytes = MAIN_W * MAIN_H * 3 * 4 * 2 + 4 * (prog.f_len + layout.f_len)
+    k4_ops = _fused_ops(k4_count, prog, True)
+    k4_bound, k4_by = _bound_ms(k4_bytes, k4_ops, peak)
+    print(f"K4 per main-configuration step: kernel {k4_ms:.3f} ms, plain "
+          f"{k4_plain_ms:.1f} ms, bound {k4_bound:.4f} ms ({k4_by}: "
+          f"{k4_ops:.4e} FP32 ops, {k4_bytes} bytes; work "
+          f"{ {str(k): int(v) for k, v in k4_count.items()} }) [{gpu}]")
+
     # -- the entry points: optimize_to_target and the CLI ------------------
     sp_scene = compile_scene(_sphere_and_plane())
     p_true = params_from_numpy(sp_scene.params, sp_scene.spec, dev)
@@ -794,6 +1142,42 @@ def main() -> int:
         raise AssertionError(f"cli optimize failed ({cli.returncode}): "
                              f"{cli.stderr[-2000:]}")
 
+    # The fused step's entry points: the flat ball's position back through
+    # K4's edge term, and the CLI's optimize --fused --edge-grad.
+    fb = compile_scene(_flat_ball())
+    p_true = params_from_numpy(fb.params, fb.spec, dev)
+    with torch.no_grad():
+        target = render_image_diff(fb.spec, p_true, width=48, height=48,
+                                   bounces=0)
+    sx = fb.spec.roots[0].children_shapes[0].transform.pos[0]
+    init = p_true.clone()
+    init[sx] += 0.3
+    mask = torch.zeros_like(init)
+    mask[sx] = 1.0
+    before = tm.LAUNCHES["train_fused"]
+    result = optimize_to_target(fb.spec, init, target, width=48, height=48,
+                                bounces=0, steps=60, learning_rate=2e-2,
+                                param_mask=mask, fused=True, edge_grad=True)
+    err0, err1 = 0.3, abs(float(result.params[sx]) - float(p_true[sx]))
+    launched = tm.LAUNCHES["train_fused"] - before
+    print(f"optimize_to_target(fused=True, edge_grad=True), flat ball 48x48, "
+          f"60 steps: position error {err0:.4f} -> {err1:.4f}, K4 launches "
+          f"{launched}")
+    if not err1 < 0.25 * err0 or launched != 60:
+        raise AssertionError("the fused edge term did not recover the position")
+    cli = subprocess.run(
+        [sys.executable, "-m", "compute_path_tracer_tpu_torch", "optimize",
+         "--fused", "--edge-grad", "--perturb-what", "position", "--scene",
+         "edge_demo", "--bounces", "0", "--perturb", "0.3", "--steps", "40",
+         "--width", "48", "--height", "48"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=300)
+    print("cli optimize --fused --edge-grad --perturb-what position: "
+          + " | ".join(cli.stdout.strip().splitlines()[-2:]))
+    if cli.returncode != 0 or "recovered" not in cli.stdout:
+        raise AssertionError(f"cli optimize --fused failed ({cli.returncode}): "
+                             f"{cli.stderr[-2000:]}")
+
     csrc = "compute_path_tracer_tpu_torch/kernels/csrc/"
     replaces = "compute_path_tracer_tpu/kernels/megakernel.py:1546"
     report = {"kernels": [
@@ -815,6 +1199,13 @@ def main() -> int:
          "launches": k3_launches, "max_abs_err": k3_err,
          "main_shape_share_off": k3_share, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
+         "library_ms": None},
+        {"name": "train_fused", "route": "cuda",
+         "source": csrc + "train_fused.cu",
+         "replaces": "compute_path_tracer_tpu/kernels/train.py:1018",
+         "launches": k4_launches, "max_abs_err": k4_err,
+         "main_shape_share_off": k4_share, "ms": k4_ms,
+         "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
          "library_ms": None},
     ]}
     print(gpu)

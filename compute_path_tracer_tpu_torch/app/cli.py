@@ -11,13 +11,17 @@ full-analytic bounce, union-only scenes):
 
 ``optimize`` is inverse rendering to a target image (by default the
 self-target demo: perturb the params, recover the scene), with the smooth
-gradient of diff/:
+gradient of diff/, or with ``--fused`` the fused train step (``--edge-grad``
+and ``--edge-secondary`` add its silhouette terms; with ``--fused`` the
+refract_chance slots are not perturbed):
 
   python -m compute_path_tracer_tpu_torch optimize --steps 50
+  python -m compute_path_tracer_tpu_torch optimize --fused --edge-grad \
+      --perturb-what position
 
 ``--device cpu`` runs the kernels' plain torch versions.  ``demo`` and
-``info``, and the options of ``optimize`` that need unported parts, raise
-``NotImplementedError``.
+``info``, and ``--edge-grad`` / ``--edge-secondary`` without ``--fused``,
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -87,16 +91,14 @@ def cmd_optimize(args) -> int:
     import torch
 
     from ..diff import optimize_to_target, render_image_diff
+    from ..render.scenegen import material_slot_matrix
     from ..scene import compile_scene, params_from_numpy
 
-    if args.fused:
-        raise NotImplementedError("--fused needs the fused train kernel K4, "
-                                  "which is not ported (ROADMAP queue 1, "
-                                  "item 9)")
-    if args.edge_grad or args.edge_secondary:
-        raise NotImplementedError("--edge-grad / --edge-secondary (the "
-                                  "silhouette estimators) are not ported "
-                                  "(ROADMAP queue 1, item 8)")
+    if (args.edge_grad or args.edge_secondary) and not args.fused:
+        raise NotImplementedError("--edge-grad / --edge-secondary without "
+                                  "--fused need the XLA silhouette "
+                                  "estimators, which are not ported "
+                                  "(ROADMAP queue 1, item 8.1)")
     scene = _load_scene(args.scene)
     cs = compile_scene(scene)
     device = torch.device(args.device)
@@ -129,11 +131,18 @@ def cmd_optimize(args) -> int:
         print(f"perturbed position slot {pos_slot} by {args.perturb:+.3f}")
     else:
         init = init + rng.normal(0, args.perturb, init.shape).astype(np.float32)
+        if args.fused:
+            # The fused step trains scenes without refraction only: keep the
+            # refract_chance slots where the scene has them.
+            rc = material_slot_matrix(cs.spec)[:, 13]
+            init[rc] = np.asarray(cs.params, np.float32)[rc]
 
     result = optimize_to_target(
         cs.spec, init, target, width=args.width, height=args.height,
         bounces=args.bounces, spp=args.spp, steps=args.steps,
         learning_rate=args.lr, param_mask=mask, device=device,
+        fused=args.fused, edge_grad=args.edge_grad,
+        edge_secondary=args.edge_secondary,
         callback=lambda i, l: print(f"step {i:4d} loss {l:.6f}")
         if i % max(1, args.steps // 10) == 0 else None,
     )
@@ -190,14 +199,15 @@ def main(argv=None) -> int:
     o.add_argument("--lr", type=float, default=2e-2)
     o.add_argument("--perturb", type=float, default=0.05)
     o.add_argument("--fused", action="store_true",
-                   help="the fused train kernel (not ported yet)")
+                   help="the fused train step (kernels/train.py): forward "
+                        "and per-pixel backward in one kernel launch")
     o.add_argument("--perturb-what", default="all", choices=("all", "position"),
                    help="'position': offset one shape's x and recover it")
     o.add_argument("--edge-grad", action="store_true",
-                   help="silhouette gradients (not ported yet)")
+                   help="with --fused: the primary silhouette gradient term")
     o.add_argument("--edge-secondary", action="store_true",
-                   help="secondary-bounce silhouette gradients (not ported "
-                        "yet)")
+                   help="with --fused --edge-grad: the secondary-bounce "
+                        "silhouette term")
     o.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
     o.set_defaults(fn=cmd_optimize)

@@ -9,6 +9,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..kernels.train import check_no_refraction, make_fused_value_and_grad
+from ..render.scenegen import material_slot_matrix
 from ..scene.compile import SceneSpec
 from .vjp import check_smooth_only, make_loss
 
@@ -51,21 +53,21 @@ def optimize_to_target(
     entries: the gradient is multiplied by it before each update.
     ``optimizer`` makes the optimizer from the parameter list (default
     ``torch.optim.Adam(lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)``,
-    optax's ``adam`` defaults).  ``fused=True`` (the JAX package's fused
-    train kernel K4) and the edge estimators are not ported and raise
-    ``NotImplementedError``.
+    optax's ``adam`` defaults).
+
+    ``fused=True`` takes each step's loss and gradient from the fused train
+    step (kernels/train.py, one K4 launch per sample on the GPU): baked
+    geometry, the on-chip march and detached normals, so it rejects explicit
+    ``implicit``, ``geometry`` or ``march`` knobs, and scenes with a
+    non-zero refract_chance (``ValueError``); it pins the refract_chance
+    slots at their zero start.  ``edge_grad=True`` adds its silhouette term
+    (without it no position can move), ``edge_secondary`` the secondary
+    one.  The XLA edge estimators behind ``edge_grad`` with ``fused=False``
+    are not ported and raise ``NotImplementedError``.
     """
-    if fused:
-        raise NotImplementedError(
-            "fused=True needs the fused train kernel K4, which is not ported "
-            "(ROADMAP queue 1, item 9)")
-    check_smooth_only(edge_grad, edge_secondary)
     if device is None:
         device = (init_params.device if isinstance(init_params, torch.Tensor)
                   else "cuda")
-    loss_fn = make_loss(
-        spec, target, width=width, height=height, bounces=bounces, spp=spp,
-        implicit=implicit, geometry=geometry, march=march)
     params = torch.as_tensor(np.asarray(init_params, np.float32)
                              if not isinstance(init_params, torch.Tensor)
                              else init_params, dtype=torch.float32)
@@ -74,6 +76,30 @@ def optimize_to_target(
         np.asarray(param_mask, np.float32) if not isinstance(
             param_mask, torch.Tensor) else param_mask,
         dtype=torch.float32).to(device)
+    if fused:
+        if not implicit or geometry != "faithful" or march != "plain":
+            # The fused step has fixed semantics; a caller asking for a knob
+            # of the autograd path would silently get something else.
+            raise ValueError(
+                "fused=True ignores implicit/geometry/march (the fused step "
+                "is always baked geometry + on-chip march with detached "
+                "normals); leave them at their defaults or use fused=False")
+        check_no_refraction(spec, params)
+        vag = make_fused_value_and_grad(
+            spec, target, width=width, height=height, bounces=bounces,
+            edge_grad=edge_grad, edge_beta=edge_beta,
+            edge_secondary=edge_secondary, edge_beta2=edge_beta2, spp=spp)
+        # Pin refract_chance at its (checked) zero: the fused model shades it
+        # as zero, so a step off zero would train the wrong model.
+        rc = torch.ones_like(params.detach())
+        rc[torch.as_tensor(material_slot_matrix(spec)[:, 13],
+                           device=device)] = 0.0
+        mask = rc if mask is None else mask * rc
+    else:
+        check_smooth_only(edge_grad, edge_secondary)
+        loss_fn = make_loss(
+            spec, target, width=width, height=height, bounces=bounces,
+            spp=spp, implicit=implicit, geometry=geometry, march=march)
     # optax.adam updates by -lr * m_hat / (sqrt(v_hat) + eps) with m_hat =
     # m / (1 - b1^t) and v_hat = v / (1 - b2^t), the corrections in float32
     # (1 - 0.999 rounds to 0.0009999871, 1.3e-5 off); torch takes them in
@@ -85,8 +111,11 @@ def optimize_to_target(
     losses = []
     for i in range(steps):
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(params)
-        loss.backward()
+        if fused:
+            loss, params.grad = vag(params)
+        else:
+            loss = loss_fn(params)
+            loss.backward()
         if mask is not None:
             params.grad.mul_(mask)
         opt.step()

@@ -18,9 +18,10 @@ Two paths, as in the JAX package:
   evaluated at the hit point: one map vjp instead of an 80-step tape.
 
 Both capture the smooth shading and geometry terms only.  The JAX
-package's silhouette estimators (``edge_grad``, ``edge_secondary``,
+package's XLA silhouette estimators (``edge_grad``, ``edge_secondary``,
 ``make_closest_approach``, ``_march_closest``) are not ported yet: passing
-them raises ``NotImplementedError`` (ROADMAP queue 1, item 8).
+them raises ``NotImplementedError`` (ROADMAP queue 1, item 8.1); the fused
+step of kernels/train.py has its own edge terms.
 
 Names: the JAX ``march="xla"`` (the march in the XLA graph) is the port's
 ``march="plain"`` (``cast_ray`` in torch), and ``march="pallas"`` (the
@@ -59,8 +60,9 @@ def check_smooth_only(edge_grad: bool = False, edge_secondary: bool = False):
     """Raise for the options of the JAX renderer this port does not have."""
     if edge_grad or edge_secondary:
         raise NotImplementedError(
-            "edge_grad / edge_secondary (the silhouette estimators) are not "
-            "ported (ROADMAP queue 1, item 8)")
+            "edge_grad / edge_secondary of the autograd path (the XLA "
+            "silhouette estimators) are not ported (ROADMAP queue 1, item "
+            "8.1); the fused step has them (fused=True)")
 
 
 def make_implicit_cast(map_fn, gv: torch.Tensor):

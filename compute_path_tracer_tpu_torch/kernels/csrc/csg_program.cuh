@@ -1,7 +1,8 @@
 // The CSG program interpreter shared by the marching kernels
-// (megakernel_march.cu, K2; march_rays.cu, K3): one bounce's AABB guards and
-// t-cull intervals, the leaf SDFs, the fold, the scene map over the op list
-// of render/program.py, the 80-step march and the 6-tap normal.  The parity
+// (megakernel_march.cu, K2; march_rays.cu, K3; train_fused.cu, K4): one
+// bounce's AABB guards and t-cull intervals, the leaf SDFs, the fold, the
+// scene map over the op list of render/program.py, the 80-step march and
+// the 6-tap normal.  The parity
 // decisions are in the note at the head of megakernel_march.cu; everything
 // here has internal linkage, so each kernel's translation unit carries its
 // own copy.
@@ -260,10 +261,10 @@ __device__ float march(const Scene& S, const Guards<TCULL>& g, V3 ro, V3 rd, int
   return t;
 }
 
-// Central-difference normal, 6 taps under the bounce's full guards
-// (calc_normal, funcs.glsl:21-35).
+// Central differences of the map, 6 taps under the bounce's full guards,
+// before normalisation (calc_grad, funcs.glsl:21-35).
 template <bool BAKED, bool TCULL>
-__device__ V3 calc_normal(const Scene& S, const Guards<TCULL>& g, V3 p) {
+__device__ V3 calc_grad(const Scene& S, const Guards<TCULL>& g, V3 p) {
   const float e = kNormalEps;
   int id;
   float d[6];
@@ -274,7 +275,13 @@ __device__ V3 calc_normal(const Scene& S, const Guards<TCULL>& g, V3 p) {
               p.z + (k / 2 == 2 ? off : 0.0f));
     d[k] = map_scene<BAKED, TCULL, false>(S, g, q, 0.0f, id);
   }
-  return normalize_safe(v3(d[0] - d[1], d[2] - d[3], d[4] - d[5]));
+  return v3(d[0] - d[1], d[2] - d[3], d[4] - d[5]);
+}
+
+// Central-difference normal (calc_normal).
+template <bool BAKED, bool TCULL>
+__device__ V3 calc_normal(const Scene& S, const Guards<TCULL>& g, V3 p) {
+  return normalize_safe(calc_grad<BAKED, TCULL>(S, g, p));
 }
 
 }  // namespace

@@ -425,6 +425,43 @@ def leaf_distance(kind: int, p: Vec3, g):
     return sd_octahedron(q, g[12])
 
 
+def spec_is_union_only(spec: SceneSpec) -> bool:
+    """True when every CSG op in the tree is a plain union (min-fold): the
+    map's parameter cotangent then flows through the per-pixel argmin leaf
+    alone (the fused train step's winner-leaf mode)."""
+
+    def walk(u):
+        return u.op == OP_UNION and all(walk(c) for c in u.children_unions)
+
+    return all(walk(r) for r in spec.roots)
+
+
+GEOM_CHANNELS = max(GEOM_SLOTS.values())  # widest leaf slot count (cube: 15)
+
+
+def baked_shapes_in_order(spec: SceneSpec) -> Tuple[BakedShape, ...]:
+    """Every leaf in the map's walk order (child unions first, then
+    shapes)."""
+    def shapes_of(bu):
+        for cu in bu.children_unions:
+            yield from shapes_of(cu)
+        yield from bu.children_shapes
+
+    return tuple(bs for broot in baked_layout(spec).roots
+                 for bs in shapes_of(broot))
+
+
+@lru_cache(maxsize=None)
+def baked_geom_slot_matrix(spec: SceneSpec) -> np.ndarray:
+    """``(n_shapes, GEOM_CHANNELS)`` int64 bv slot indices: row s holds shape
+    s's baked geometry slots, padded with -1 past its kind's slot count."""
+    m = np.full((spec.n_shapes, GEOM_CHANNELS), -1, np.int64)
+    for bs in baked_shapes_in_order(spec):
+        n = GEOM_SLOTS[bs.kind]
+        m[bs.shape_id, :n] = np.arange(bs.off, bs.off + n)
+    return m
+
+
 def _eval_union_baked(bu: BakedUnion, p: Vec3, bv, checks):
     acc_d = p.x * 0.0 + bv[bu.init_off]
     acc_i = torch.full_like(p.x, -1, dtype=torch.int32)
@@ -464,13 +501,7 @@ def make_map_baked(spec: SceneSpec):
 def boxed_shapes(spec: SceneSpec) -> Tuple[BakedShape, ...]:
     """The shapes with an AABB guard, in the map's walk order (child unions
     first, then shapes)."""
-    def shapes_of(bu):
-        for cu in bu.children_unions:
-            yield from shapes_of(cu)
-        yield from bu.children_shapes
-
-    return tuple(bs for broot in baked_layout(spec).roots
-                 for bs in shapes_of(broot) if bs.aabb)
+    return tuple(bs for bs in baked_shapes_in_order(spec) if bs.aabb)
 
 
 def make_bounds_baked(spec: SceneSpec, with_t: bool = False):

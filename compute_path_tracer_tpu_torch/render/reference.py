@@ -23,7 +23,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..constants import DEFAULT_BOUNCES, DEFAULT_FOV, FP, MHD, OFFSET, STEPS
+from ..constants import BIG, DEFAULT_BOUNCES, DEFAULT_FOV, FP, MHD, OFFSET, STEPS
 from ..ops.camera import calc_uv, primary_ray
 from ..ops.rng import gen_rng, random_float01, random_unit_vector
 from ..scene.compile import SceneSpec
@@ -148,11 +148,14 @@ def take_lanes(checks, sel):
     return tuple(None if c is None else c[sel] for c in checks)
 
 
-def cast_ray(map_fn, ro: Vec3, rd: Vec3, checks):
+def cast_ray(map_fn, ro: Vec3, rd: Vec3, checks, closest: bool = False):
     """The 80-step sphere march of (n,) rays (test_compute.glsl:74-89, JAX
     package ``render/reference.py:cast_ray``): ``t += |d|``, a hit at ``|d|
     < MHD``, far once ``t > FP``.  Returns ``(t, idx)``, ``idx`` the id of
     the last map tap (-1 when far).  ``map_fn(p, checks) -> (d, idx)``.
+    ``closest=True`` also returns the closest approach ``(d_min, t_min)``:
+    the smallest signed map value over the ray's taps and the t it was
+    taken at (JAX ``with_closest``; BIG and 0 before any tap).
 
     Each step evaluates only the rays still marching, so a lane's result is
     that of the JAX version's masked fixed-trip loop.  ``t`` is updated out
@@ -160,12 +163,19 @@ def cast_ray(map_fn, ro: Vec3, rd: Vec3, checks):
     in diff/vjp.py)."""
     t = torch.zeros_like(ro.x)
     idx = torch.full_like(ro.x, -1, dtype=torch.int32)
+    if closest:
+        d_min = torch.full_like(t, BIG)
+        t_min = torch.zeros_like(t)
     live = torch.arange(t.shape[0], device=t.device)
     lt = t
     for _ in range(STEPS):
         if live.numel() == 0:
             break
         d, mi = map_fn(ro + rd * lt, checks)
+        if closest:
+            better = d < d_min[live]
+            d_min[live] = torch.where(better, d, d_min[live])
+            t_min[live] = torch.where(better, lt, t_min[live])
         ad = torch.abs(d)
         nt = lt + ad
         far = nt > FP
@@ -174,7 +184,7 @@ def cast_ray(map_fn, ro: Vec3, rd: Vec3, checks):
         keep = ~((ad < MHD) | far)
         live, ro, rd, lt = live[keep], _sel(ro, keep), _sel(rd, keep), nt[keep]
         checks = take_lanes(checks, keep)
-    return t, idx
+    return (t, idx, d_min, t_min) if closest else (t, idx)
 
 
 def _sel(v: Vec3, mask) -> Vec3:
@@ -185,17 +195,22 @@ _NORMAL_EPS = 1e-4
 _TAPS = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1))
 
 
-def calc_normal(map_fn, p: Vec3, checks) -> Vec3:
-    """Central-difference SDF gradient, 6 map taps, eps 1e-4
-    (funcs.glsl:21-35), evaluated as one map call over the 6 offset
-    copies of the points."""
+def calc_grad(map_fn, p: Vec3, checks) -> Vec3:
+    """The 6-tap central differences of the map (eps 1e-4, funcs.glsl:21-35)
+    before normalisation, evaluated as one map call over the 6 offset copies
+    of the points."""
     e = _NORMAL_EPS
     pts = Vec3(*(torch.cat([c + e * tap[k] for tap in _TAPS])
                  for k, c in enumerate(p)))
     d, _ = map_fn(pts, tuple(None if c is None else c.repeat(6, *[1] * (c.dim() - 1))
                              for c in checks))
     d = d.view(6, -1)
-    return Vec3(d[0] - d[1], d[2] - d[3], d[4] - d[5]).normalize_safe()
+    return Vec3(d[0] - d[1], d[2] - d[3], d[4] - d[5])
+
+
+def calc_normal(map_fn, p: Vec3, checks) -> Vec3:
+    """Central-difference SDF gradient, normalised (funcs.glsl:21-35)."""
+    return calc_grad(map_fn, p, checks).normalize_safe()
 
 
 def calc_normal_autodiff(map_fn, p: Vec3, checks) -> Vec3:

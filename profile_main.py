@@ -2,8 +2,9 @@
 """Where the port's main-path frame or training-step time goes, on one
 NVIDIA GPU.
 
-    python3 profile_main.py [--mode analytic|march|train]
+    python3 profile_main.py [--mode analytic|march|train|fused]
                             [--normals kernel|central] [--remat]
+                            [--config analytic|march|secondary]
 
 ``analytic`` (the default) and ``march`` drive RenderSession at 1920x1080
 over the 64-primitive benchmark scene with 8 bounces, in one of
@@ -29,6 +30,15 @@ launched inside the autograd node ``ImplicitCastBackward``), the rest of the
 forward (bake, tables, shading, the bounce loop), the rest of the backward
 and the Adam update, and the TOP_OPS device ops with the most time.
 
+``fused`` drives the fused train step (kernels/train.py, one K4 launch per
+step) of the same scene and size in one of chip_smoke.py's three
+configurations (``--config``; by default ``analytic_all`` with the edge
+term, the main one), with an Adam step: the host-clock ms/step of REPEATS
+untraced steps and the peak memory, then from one traced step the device
+ops, the busy share and the device time by part: K4 (train_fused and its
+sum_rows), the bake and tables, the transposes, bake vjp and loss around
+the launch, and Adam.
+
 The last line is one JSON object with those numbers.  Exits non-zero
 without a result when torch finds no CUDA device.  Imports nothing of JAX.
 """
@@ -51,6 +61,13 @@ MODES = {
     "analytic": (dict(geometry="baked", analytic_all=True),
                  "megakernel_analytic"),
     "march": (dict(geometry="baked", t_cull=True), "megakernel_march"),
+}
+# --config of --mode fused -> make_fused_value_and_grad options (bench.py:462,
+# :424, :433)
+FUSED_CONFIGS = {
+    "analytic": dict(analytic_all=True, edge_grad=True),
+    "march": dict(edge_grad=True),
+    "secondary": dict(edge_grad=True, edge_secondary=True),
 }
 
 
@@ -190,6 +207,109 @@ def _profile_train(args, gpu) -> int:
     return 0
 
 
+def _profile_fused(args, gpu) -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from compute_path_tracer_tpu_torch.kernels import train as tm
+    from compute_path_tracer_tpu_torch.render.scenegen import material_slot_matrix
+    from compute_path_tracer_tpu_torch.scene import (
+        benchmark_scene, compile_scene, params_from_numpy)
+
+    cs = compile_scene(benchmark_scene(N_PRIMS))
+    p = params_from_numpy(cs.params, cs.spec, "cuda").requires_grad_()
+    vag = tm.make_fused_value_and_grad(
+        cs.spec, torch.zeros((MAIN_H, MAIN_W, 3), device="cuda"), width=MAIN_W,
+        height=MAIN_H, bounces=BOUNCES, **FUSED_CONFIGS[args.config])
+    opt = torch.optim.Adam([p], lr=2e-2, betas=(0.9, 0.999), eps=1e-8)
+    # The refract_chance slots stay at zero, as optimize_to_target pins them:
+    # the fused step rejects a scene that refracts.
+    pinned = torch.as_tensor(material_slot_matrix(cs.spec)[:, 13],
+                             device="cuda")
+    tables = tm.fused_tables
+
+    def traced_tables(*a, **kw):
+        with record_function("bake"):
+            return tables(*a, **kw)
+
+    tm.fused_tables = traced_tables
+
+    def step():
+        with record_function("fused_step"):
+            _, p.grad = vag(p)
+        with record_function("adam"):
+            p.grad[pinned] = 0.0
+            opt.step()
+
+    step()  # builds the kernel and fills the per-spec caches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    untraced = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        untraced.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    print("untraced ms/step: " + ", ".join(f"{t:.3f}" for t in untraced))
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("steps"):
+            step()
+            torch.cuda.synchronize()
+    events = _trace_events(prof)
+    device = [e for e in events
+              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    ranges = {name: [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                     for e in events if e.get("cat") == "user_annotation"
+                     and e.get("name") == name]
+              for name in ("steps", "bake", "adam")}
+    if not device or len(ranges["steps"]) != 1:
+        raise RuntimeError(f"the trace holds {len(device)} device ops and "
+                           f"{len(ranges['steps'])} 'steps' regions")
+    launched = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+
+    def part(e):
+        if "train_fused" in e["name"] or "sum_rows" in e["name"]:
+            return "K4"
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        for name in ("bake", "adam"):
+            if ts is not None and any(a <= ts <= b for a, b in ranges[name]):
+                return name
+        return "transposes"
+
+    by_part = {}
+    for e in device:
+        k = part(e)
+        by_part[k] = by_part.get(k, 0.0) + float(e["dur"]) / 1e3
+    if "K4" not in by_part:
+        raise RuntimeError("no train_fused kernel in the traced step")
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in device]
+    start, stop = ranges["steps"][0]
+    end = max(stop, max(b for _, b in spans))
+    summary = {
+        "gpu": gpu,
+        "mode": "fused",
+        "config": args.config,
+        "untraced_ms_per_step": untraced,
+        "peak_memory_gib": peak / 2**30,
+        "traced_ms_per_step": (stop - start) / 1e3,
+        "device_ops_per_step": len(device),
+        "device_ms_by_part": {
+            "K4 (train_fused + sum_rows)": by_part.get("K4", 0.0),
+            "bake and tables": by_part.get("bake", 0.0),
+            "transposes, bake vjp, loss": by_part.get("transposes", 0.0),
+            "adam": by_part.get("adam", 0.0),
+        },
+        "device_busy_share": _union_length(spans) / (end - start),
+    }
+    print(json.dumps(summary))
+    return 0
+
+
 def main() -> int:
     import argparse
 
@@ -197,7 +317,11 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", default="analytic",
-                    choices=tuple(MODES) + ("train",))
+                    choices=tuple(MODES) + ("train", "fused"))
+    ap.add_argument("--config", default="analytic",
+                    choices=tuple(FUSED_CONFIGS),
+                    help="fused: analytic_all + edge_grad (the main one), "
+                         "march + edge_grad, or with edge_secondary")
     ap.add_argument("--normals", default="kernel", choices=("kernel", "central"),
                     help="train: the shading normal (kernel = K3's, detached)")
     ap.add_argument("--remat", action="store_true",
@@ -208,6 +332,10 @@ def main() -> int:
         print("profile_main: no CUDA device; run this on an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if args.mode == "fused":
+        gpu = _gpu_line()
+        print(f"gpu: {gpu}, mode: fused, config: {args.config}")
+        return _profile_fused(args, gpu)
     if args.mode == "train":
         gpu = _gpu_line()
         print(f"gpu: {gpu}, mode: train, normals: {args.normals}, remat: "
