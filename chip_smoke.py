@@ -29,6 +29,18 @@ normals="kernel")``, backward, Adam) at 1920x1080 with 8 bounces (bench.py's
 fast-gradient row); ``optimize_to_target`` on a small scene and the CLI's
 ``optimize``;
 
+and the modes of the same two kernels that the last bench.py rows run:
+
+* K2b on K2's binary: ``analytic_unboxed`` (the guard-less shapes
+  intersected in closed form, capping the march; bench.py:189) against its
+  plain version on four scenes in debug 0 and 3, ``omega`` 1.6 on baked and
+  faithful geometry, ``omega=1.0`` bit for bit the march without it, and
+  its main path through RenderSession at 1920x1080;
+* K5 on K1's binary: ``analytic_soa`` (bench.py:275) on
+  ``benchmark_scene(256)`` and ``(512)`` against its plain version, bit for
+  bit K1's ``analytic_all`` frame at 64 primitives, and its main path at
+  1920x1080 for each;
+
 and the fused train step through K4 (train_fused): the whole step (loss,
 gradient, image) with K4 against the same with its plain version at
 320x180 in the winner and map-vjp modes, march and analytic_all phase 1,
@@ -36,9 +48,11 @@ with and without the edge terms, spp 2 and bounces 0; K4's image against
 K1's and K2's frames; the main configuration (``analytic_all=True,
 edge_grad=True``, bench.py:462) at 1080p against its plain version, and
 whether K4's sums repeat bit for bit; three timed 1080p steps of each of
-the three configurations of bench.py:462, :424 and :433; the flat ball's
-position recovered by ``optimize_to_target(fused=True, edge_grad=True)``
-and the CLI's ``optimize --fused --edge-grad``.
+the three configurations of bench.py:462, :424 and :433; K4's
+``analytic_unboxed`` mode (bench.py:442) against its plain step in four
+cases and three timed 1080p steps of it; the flat ball's position recovered
+by ``optimize_to_target(fused=True, edge_grad=True)`` and the CLI's
+``optimize --fused --edge-grad``.
 
 It prints timings beside the card's name and power limit, a kernels JSON
 line with each kernel's time, its plain version's and its bound, and
@@ -63,6 +77,11 @@ DIFF_TOL = 1e-2                  # a pixel differs when max-channel |diff| > thi
 SHARE_LIMIT = 5e-3               # ... and a check fails above this share
 ANALYTIC = dict(geometry="baked", analytic_all=True)
 MARCH = dict(geometry="baked", t_cull=True)
+# K2b's main path (bench.py:189) and K5's (bench.py:275, at SOA_PRIMS).
+UNBOXED = dict(MARCH, analytic_unboxed=True)
+SOA = dict(geometry="baked", analytic_soa=True)
+SOA_PRIMS = (256, 512)
+OMEGA = 1.6
 # The training path: bench.py's fast-gradient row (bench.py:406).
 TRAIN = dict(geometry="baked", march="kernel", normals="kernel")
 TIMED_STEPS = 3
@@ -116,6 +135,8 @@ FUSED_CONFIGS = (("analytic_all + edge_grad", FUSED_MAIN),
                  ("march + edge_grad", dict(edge_grad=True)),
                  ("march + edge_grad + edge_secondary",
                   dict(edge_grad=True, edge_secondary=True)))
+# K4's analytic_unboxed configuration (bench.py:442: march phase 1, no edge).
+FUSED_UNBOXED = dict(analytic_unboxed=True)
 FUSED_LOSS_REL, FUSED_TOP_REL, FUSED_COS = 1e-5, 1e-2, 1e-6
 # Where K4's image is not its plain version's bit for bit, a few pixels saw
 # another shape: K2's march flips a lamp's edge pixel against its plain
@@ -159,6 +180,28 @@ def _analytic_ops(segments, prog) -> float:
                        + sum(ANALYTIC_LEAF_OPS[k] for k in free))
 
 
+def _cap_ops(count, prog) -> float:
+    """FP32 operations of the analytic_unboxed cap: its closed form over the
+    program's cap list, once per ray segment that computes it."""
+    return count.get("cap_segments", 0) * sum(
+        ANALYTIC_LEAF_OPS[k] for k in prog.caps[:, 0].tolist())
+
+
+def _soa_ops(segments, layout) -> float:
+    """K1's operations per frame read off the packed tables (K5: no program
+    holds 512 guarded shapes): per ray segment, every guarded shape's slab
+    test and its valid ancestor slabs, and the closed form of every
+    unguarded shape; the closed forms of the guarded shapes a ray enters
+    are not counted, as in _analytic_ops."""
+    per = 0
+    for kd in layout.kinds:
+        guard = layout.i_const[kd.i_guard:kd.i_guard + kd.n]
+        anc = layout.i_const[kd.i_anc_valid:kd.i_anc_valid + kd.n * kd.a]
+        per += (int(guard.sum()) * SLAB_OPS + int(anc.sum()) * SLAB_OPS
+                + int((guard == 0).sum()) * ANALYTIC_LEAF_OPS[kd.kind])
+    return segments * per
+
+
 def _clobber_scene():
     """A guarded first shape beside a child union: while its AABB check
     passes it clobbers the child union's shapes (the reference's first-shape
@@ -177,6 +220,12 @@ def _clobber_scene():
     first.material.brightness.set(1.0)
     first.material.light_col.set(1.0, 0.5, 0.2)
     return Scene([root])
+
+
+def _stamp(start, phase):
+    """Prints the seconds since ``start`` as ``phase`` begins: the script
+    must end well inside its time limit."""
+    print(f"[{time.perf_counter() - start:.1f} s] {phase}", flush=True)
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -233,7 +282,7 @@ def _check_cases(mk, key, cases):
     return max_err
 
 
-def _drive_session(mk, key, sess, label, gpu):
+def _drive_session(mk, key, sess, label, gpu, prims=N_PRIMS):
     """The main path: one warm-up frame and TIMED_FRAMES timed frames, with
     every kernel count set to 0 just before and read just after; each frame
     must launch kernel ``key`` once and no other kernel."""
@@ -263,20 +312,23 @@ def _drive_session(mk, key, sess, label, gpu):
     frame_ms = dt / TIMED_FRAMES * 1e3
     rays = rays_per_second(MAIN_W, MAIN_H, TIMED_FRAMES, dt, bounces=BOUNCES)
     print(f"main path {label}: {TIMED_FRAMES} frames {MAIN_W}x{MAIN_H}, "
-          f"{N_PRIMS} prims, {BOUNCES} bounces: {frame_ms:.3f} ms/frame, "
+          f"{prims} prims, {BOUNCES} bounces: {frame_ms:.3f} ms/frame, "
           f"{rays:.4e} rays/s, mean {float(accum.mean()):.5f} [{gpu}]")
     return counts[key]
 
 
-def _main_shape_check(mk, key, spec, params, mode):
+def _main_shape_check(mk, key, spec, params, mode, label=None, count=None):
     """The kernel against the plain version at the main path's own shape
-    (frame 0, fresh accumulator); returns (share, max |diff|, plain ms)."""
+    (frame 0, fresh accumulator); returns (share, max |diff|, plain ms).
+    ``count``, a dict, takes the plain frame's tally of the kernel's work
+    for the bound, and its time then includes the counting."""
     import torch
 
     kw = dict(width=MAIN_W, height=MAIN_H, bounces=BOUNCES, **mode)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain = mk.render_frame_megakernel_plain(spec, params, None, 0, 0, **kw)
+    plain = mk.render_frame_megakernel_plain(spec, params, None, 0, 0,
+                                             count=count, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     before = mk.LAUNCHES[key]
@@ -284,9 +336,32 @@ def _main_shape_check(mk, key, spec, params, mode):
     torch.cuda.synchronize()
     if mk.LAUNCHES[key] - before != 1:
         raise AssertionError(f"the {MAIN_W}x{MAIN_H} check did not launch {key}")
-    share, err = _compare(f"{key} {MAIN_W}x{MAIN_H}, bounces {BOUNCES} frame 0",
-                          kernel, plain)
+    share, err = _compare(f"{label or key} {MAIN_W}x{MAIN_H}, bounces {BOUNCES} "
+                          f"frame 0", kernel, plain)
     return share, err, plain_ms
+
+
+def _cube_scene():
+    """tests/test_baked.py:275's guard-less rotated cube beside a guard-less
+    lamp: both are capped by analytic_unboxed."""
+    from compute_path_tracer_tpu_torch.scene import (
+        KIND_CUBE, KIND_SPHERE, Scene, Shape, Union)
+
+    root = Union(name="Root")
+    box = root.add_shape(Shape(KIND_CUBE, name="Box"))
+    box.size3.set(0.5, 0.4, 0.3)
+    box.transform.rotation.set(0.3, 0.5, 0.1)
+    box.transform.position.set(0.1, -0.1, 0.4)
+    box.transform.aabb = False
+    box.material.color.set(0.7, 0.5, 0.3)
+    lamp = root.add_shape(Shape(KIND_SPHERE, name="Lamp"))
+    lamp.size.set(0.6)
+    lamp.transform.position.set(1.2, 1.2, -0.8)
+    lamp.material.color.set(0.0, 0.0, 0.0)
+    lamp.material.brightness.set(10.0)
+    lamp.material.light_col.set(1.0, 1.0, 1.0)
+    lamp.transform.aabb = False
+    return Scene([root])
 
 
 def _sphere_and_plane():
@@ -562,6 +637,33 @@ def _fused_ops(count, prog, analytic):
     return ops
 
 
+def _k4_main_check(tm, spec, params, target, label, kw):
+    """One fused step at the main path's shape with K4 and one with its
+    plain version, held as the 320x180 cases are; the plain version also
+    counts K4's work for the bound.  Returns (image share off, max |gradient
+    diff|, plain ms with the counting, count)."""
+    import torch
+
+    torch.cuda.synchronize()
+    k = _fused_step(tm, spec, params, target, MAIN_W, MAIN_H, BOUNCES, **kw)
+    count = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _k4_swapped(tm, _k4_plain(tm, count)):
+        p = _fused_step(tm, spec, params, target, MAIN_W, MAIN_H, BOUNCES, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    share, _ = _compare(f"K4 {MAIN_W}x{MAIN_H} image, {label}", k[2], p[2])
+    equal = bool(torch.equal(k[2], p[2]))
+    _grad_compare(f"K4 {MAIN_W}x{MAIN_H} gradient, {label}, image "
+                  f"{'bit-equal' if equal else 'not bit-equal'}", k[:2],
+                  p[:2], *((FUSED_LOSS_REL, FUSED_TOP_REL, FUSED_COS) if equal
+                           else (FLIP_LOSS_REL, float("inf"), FLIP_COS)))
+    print(f"K4 plain step at {MAIN_W}x{MAIN_H} ({label}): {plain_ms:.1f} ms, "
+          f"host clock, counting included")
+    return share, float((k[1] - p[1]).abs().max()), plain_ms, count
+
+
 def _k4_checks(tm, cases, dev):
     """K4 against its plain version through the whole step at CHECK_W x
     CHECK_H; each case must launch K4 once per sample.  Returns the max
@@ -706,6 +808,7 @@ def _drive_fused(tm, others, spec, params, gpu, label, kw):
 
 
 def main() -> int:
+    start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -756,6 +859,7 @@ def main() -> int:
     gen = torch.Generator(device="cpu").manual_seed(0)
     prior = torch.rand((CHECK_H, CHECK_W, 3), generator=gen).to(dev)
 
+    _stamp(start, "K1 checks")
     # -- K1 against its plain version, on the card --------------------------
     b8 = dict(ANALYTIC, bounces=BOUNCES, frame=0)
     k1_err = _check_cases(mk, "megakernel_analytic", (
@@ -770,6 +874,7 @@ def main() -> int:
         ("K1 clobber scene, ancestor guards", clobber, b8, None, 5e-3),
     ))
 
+    _stamp(start, "K2 checks")
     # -- K2 against its plain version, on the card --------------------------
     csg, blend = compiled(csg_demo()), compiled(blend_demo())
     k2_cases = []
@@ -789,6 +894,62 @@ def main() -> int:
                           frame=3, last_clear=3), prior, SHARE_LIMIT))
     k2_err = _check_cases(mk, "megakernel_march", k2_cases)
 
+    _stamp(start, "K2b and K5 checks")
+    # -- K2b (analytic_unboxed, omega) and K5 (analytic_soa) against their
+    # plain versions, on the card --------------------------------------------
+    cube = compiled(_cube_scene())
+    k2b_cases = []
+    for name, scene in ((f"benchmark_scene({N_PRIMS})", bench),
+                        ("csg_demo, subtraction tree", csg),
+                        ("guard-less cube", cube), ("clobber scene", clobber)):
+        for debug in (0, 3):
+            k2b_cases.append((f"K2b analytic_unboxed {name} debug {debug}",
+                              scene, dict(UNBOXED, bounces=BOUNCES,
+                                          debug=debug), None, SHARE_LIMIT))
+    k2b_err = _check_cases(mk, "megakernel_march", k2b_cases)
+    k2b_err = max(k2b_err, _check_cases(mk, "megakernel_march", (
+        (f"K2b omega {OMEGA} benchmark_scene({N_PRIMS}) baked t_cull", bench,
+         dict(MARCH, omega=OMEGA, bounces=BOUNCES), None, SHARE_LIMIT),
+        (f"K2b omega {OMEGA} csg_demo faithful t_cull", csg,
+         dict(geometry="faithful", t_cull=True, omega=OMEGA,
+              bounces=BOUNCES), None, SHARE_LIMIT),
+        (f"K2b omega {OMEGA} + analytic_unboxed csg_demo", csg,
+         dict(UNBOXED, omega=OMEGA, bounces=BOUNCES), None, SHARE_LIMIT))))
+    # omega=1.0 is the march without over-relaxation: K2's frame, and on
+    # csg_demo, where K2 is its plain version bit for bit, the plain frame.
+    for name, (sspec, sparams), mode in (
+            (f"benchmark_scene({N_PRIMS}) baked", bench, MARCH),
+            ("csg_demo baked", csg, MARCH),
+            ("csg_demo faithful", csg, dict(geometry="faithful", t_cull=True))):
+        kw = dict(width=CHECK_W, height=CHECK_H, bounces=BOUNCES, **mode)
+        one = mk.render_frame_megakernel(sspec, sparams, omega=1.0, **kw)
+        ref = (mk.render_frame_megakernel_plain if name.startswith("csg")
+               else mk.render_frame_megakernel)(sspec, sparams, **kw)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(one, ref))
+        print(f"check K2 omega=1.0 {name} t_cull against the "
+              f"{'plain' if name.startswith('csg') else 'K2'} frame without "
+              f"omega: {'bit-equal' if equal else 'DIFFERENT'}")
+        if not equal:
+            raise AssertionError(f"omega=1.0 changed the {name} frame")
+
+    soa_scenes = {n: compiled(benchmark_scene(n)) for n in SOA_PRIMS}
+    k5_err = {n: _check_cases(mk, "megakernel_analytic", (
+        (f"K5 analytic_soa benchmark_scene({n})", soa_scenes[n],
+         dict(SOA, bounces=BOUNCES), None, SHARE_LIMIT),)) for n in SOA_PRIMS}
+    soa64 = mk.render_frame_megakernel(*bench, width=CHECK_W, height=CHECK_H,
+                                       bounces=BOUNCES, **SOA)
+    all64 = mk.render_frame_megakernel(*bench, width=CHECK_W, height=CHECK_H,
+                                       bounces=BOUNCES, **ANALYTIC)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(soa64, all64))
+    print(f"check K5 analytic_soa against K1 analytic_all, benchmark_scene("
+          f"{N_PRIMS}) {CHECK_W}x{CHECK_H}: {'bit-equal' if equal else 'DIFFERENT'}")
+    if not equal:
+        raise AssertionError("analytic_soa is not analytic_all's frame")
+    del soa64, all64
+
+    _stamp(start, "K1 main path")
     # -- K1 main path: RenderSession at 1080p, full-analytic ---------------
     sess = RenderSession(benchmark_scene(N_PRIMS), MAIN_W, MAIN_H,
                          Settings(debug=0, bounces=BOUNCES),
@@ -812,11 +973,13 @@ def main() -> int:
     k1_ms = _cuda_ms(lambda: mk.launch_megakernel(
         layout, soa_f, soa_i, scratch, frame=1, last_clear=1, bounces=BOUNCES,
         fov=sess.settings.fov, aspect=sess.aspect, debug=0), 5)
+    k1_count = {}
     k1_share, k1_main_err, k1_plain_ms = _main_shape_check(
-        mk, "megakernel_analytic", spec, sp, ANALYTIC)
+        mk, "megakernel_analytic", spec, sp, ANALYTIC, count=k1_count)
     k1_err = max(k1_err, k1_main_err)
     print(f"K1 layers at {MAIN_W}x{MAIN_H}: bake+pack {bake_ms:.3f} ms, kernel "
-          f"{k1_ms:.3f} ms, plain torch frame {k1_plain_ms:.3f} ms [{gpu}]")
+          f"{k1_ms:.3f} ms, plain torch frame {k1_plain_ms:.3f} ms while "
+          f"counting [{gpu}]")
 
     # -- a value edit: same spec object, changed image ----------------------
     spec_before = sess.compiled.spec
@@ -847,6 +1010,7 @@ def main() -> int:
     print(f"png: {rgba.shape} read back")
     del sess, scratch, edited, unedited
 
+    _stamp(start, "K2 main path")
     # -- K2 main path: RenderSession at 1080p, baked t-culled march --------
     sess = RenderSession(benchmark_scene(N_PRIMS), MAIN_W, MAIN_H,
                          Settings(debug=0, bounces=BOUNCES),
@@ -863,23 +1027,17 @@ def main() -> int:
     k2_ms = _cuda_ms(lambda: mk.launch_march(
         prog, table, scratch, frame=1, last_clear=1, bounces=BOUNCES,
         fov=sess.settings.fov, aspect=sess.aspect, debug=0, t_cull=True), 5)
+    k2_count = {}
     k2_share, k2_main_err, k2_plain_ms = _main_shape_check(
-        mk, "megakernel_march", spec, sp, MARCH)
+        mk, "megakernel_march", spec, sp, MARCH, count=k2_count)
     k2_err = max(k2_err, k2_main_err)
     print(f"K2 layers at {MAIN_W}x{MAIN_H}: program table {table_ms:.3f} ms, "
           f"kernel {k2_ms:.3f} ms, plain torch frame {k2_plain_ms:.3f} ms "
-          f"[{gpu}]")
+          f"while counting [{gpu}]")
 
     # -- work counts and bounds of K1 and K2 per main-path frame -----------
     peak = _fp32_peak()
     frame_bytes = MAIN_H * MAIN_W * 3 * 4 * 2  # the accumulator, read and written
-    k1_count, k2_count = {}, {}
-    mk.render_frame_megakernel_plain(spec, sp, None, 0, 0, width=MAIN_W,
-                                     height=MAIN_H, bounces=BOUNCES,
-                                     count=k1_count, **ANALYTIC)
-    mk.render_frame_megakernel_plain(spec, sp, None, 0, 0, width=MAIN_W,
-                                     height=MAIN_H, bounces=BOUNCES,
-                                     count=k2_count, **MARCH)
     k1_bound, k1_by = _bound_ms(frame_bytes + 4 * layout.f_len,
                                 _analytic_ops(k1_count["segments"], prog), peak)
     k2_bound, k2_by = _bound_ms(frame_bytes + 4 * prog.f_len,
@@ -890,8 +1048,82 @@ def main() -> int:
           f"leaves by kind { {k: int(v) for k, v in k2_count.items() if isinstance(k, int)} }, "
           f"bound {k2_bound:.4f} ms ({k2_by}); FP32 peak {peak / 1e12:.2f} "
           f"TFLOP/s [{gpu}]")
+    k2_omega_ms = _cuda_ms(lambda: mk.launch_march(
+        prog, table, scratch, frame=1, last_clear=1, bounces=BOUNCES,
+        fov=sess.settings.fov, aspect=sess.aspect, debug=0, t_cull=True,
+        omega=OMEGA), 5)
+    print(f"K2 with omega {OMEGA} at {MAIN_W}x{MAIN_H}: kernel "
+          f"{k2_omega_ms:.3f} ms [{gpu}]")
     del sess, scratch
 
+    _stamp(start, "K2b main path")
+    # -- K2b main path: RenderSession at 1080p, analytic_unboxed ------------
+    sess = RenderSession(benchmark_scene(N_PRIMS), MAIN_W, MAIN_H,
+                         Settings(debug=0, bounces=BOUNCES),
+                         frame_fn=partial(mk.render_frame_megakernel, **UNBOXED),
+                         device=dev)
+    k2b_launches = _drive_session(mk, "megakernel_march", sess,
+                                  "K2b analytic_unboxed (baked, t_cull)", gpu)
+    sp = sess.params
+    uprog = build_program(spec, "baked", True)
+    with torch.no_grad():
+        utable = program_table(uprog, sp, True)
+    scratch = sess.accum.clone()
+    run = dict(frame=1, last_clear=1, bounces=BOUNCES, fov=sess.settings.fov,
+               aspect=sess.aspect, debug=0, t_cull=True)
+    k2b_ms = _cuda_ms(lambda: mk.launch_march(uprog, utable, scratch, **run), 5)
+    k2_same_call_ms = _cuda_ms(lambda: mk.launch_march(prog, table, scratch,
+                                                       **run), 5)
+    k2b_count = {}
+    k2b_share, k2b_main_err, k2b_plain_ms = _main_shape_check(
+        mk, "megakernel_march", spec, sp, UNBOXED, "K2b analytic_unboxed",
+        k2b_count)
+    k2b_err = max(k2b_err, k2b_main_err)
+    k2b_bound, k2b_by = _bound_ms(frame_bytes + 4 * uprog.f_len,
+                                  _march_ops(k2b_count, uprog)
+                                  + _cap_ops(k2b_count, uprog), peak)
+    print(f"K2b layers at {MAIN_W}x{MAIN_H}: kernel {k2b_ms:.3f} ms (the "
+          f"t-culled K2 {k2_same_call_ms:.3f} ms in this call), plain torch "
+          f"frame {k2b_plain_ms:.3f} ms while counting; work "
+          f"{k2b_count['segments']} segments, {k2b_count['taps']} map taps, "
+          f"leaves by kind { {k: int(v) for k, v in k2b_count.items() if isinstance(k, int)} }, "
+          f"{k2b_count['cap_segments']} capped segments of {uprog.caps.shape[0]}"
+          f" shapes; bound {k2b_bound:.4f} ms ({k2b_by}) [{gpu}]")
+    del sess, scratch
+
+    _stamp(start, "K5 main paths")
+    # -- K5 main path: RenderSession at 1080p, analytic_soa ----------------
+    k5 = {}
+    for n in SOA_PRIMS:
+        sess = RenderSession(benchmark_scene(n), MAIN_W, MAIN_H,
+                             Settings(debug=0, bounces=BOUNCES),
+                             frame_fn=partial(mk.render_frame_megakernel, **SOA),
+                             device=dev)
+        launches = _drive_session(mk, "megakernel_analytic", sess,
+                                  "K5 analytic_soa", gpu, prims=n)
+        nspec, nparams = sess.compiled.spec, sess.params
+        nlayout = build_soa_smem_layout(nspec)
+        with torch.no_grad():
+            nf, ni = pack_soa_smem(nlayout, bake(nspec, nparams), nparams)
+        scratch = sess.accum.clone()
+        ms = _cuda_ms(lambda: mk.launch_megakernel(
+            nlayout, nf, ni, scratch, frame=1, last_clear=1, bounces=BOUNCES,
+            fov=sess.settings.fov, aspect=sess.aspect, debug=0), 5)
+        count = {}
+        share, main_err, plain_ms = _main_shape_check(
+            mk, "megakernel_analytic", nspec, nparams, SOA,
+            f"K5 analytic_soa, {n} prims", count)
+        k5_err[n] = max(k5_err[n], main_err)
+        bound, by = _bound_ms(frame_bytes + 4 * nlayout.f_len,
+                              _soa_ops(count["segments"], nlayout), peak)
+        k5[n] = (launches, ms, plain_ms, bound, by, share)
+        print(f"K5 layers at {MAIN_W}x{MAIN_H}, {n} prims: kernel {ms:.3f} ms, "
+              f"plain torch frame {plain_ms:.3f} ms while counting; "
+              f"{count['segments']} segments, tables {4 * nlayout.f_len} + "
+              f"{4 * nlayout.i_len} bytes; bound {bound:.4f} ms ({by}) [{gpu}]")
+        del sess, scratch
+
+    _stamp(start, "K3 checks")
     # -- K3 against its plain version, on the card --------------------------
     ro, rd = _scattered_rays(K3_RAYS, 1, dev)
     k3_err = 0.0
@@ -922,6 +1154,7 @@ def main() -> int:
           f"(host clock, one call each) [{gpu}]")
     del pro, prd, ro, rd
 
+    _stamp(start, "gradients through K3")
     # -- gradients through K3 ------------------------------------------------
     gkw = dict(geometry="baked")
     with torch.no_grad():
@@ -987,25 +1220,26 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{gpu}]")
     del pro, prd, g
 
+    _stamp(start, "K3 main path")
     # -- K3 main path: three training steps at 1080p ------------------------
     k3_launches, k3_ms, kept = _drive_training(km, mk, spec, sp, gpu)
     k3_plain_ms, k3_ops, k3_bytes = 0.0, 0.0, 0
     for kprog, ktable, kro, krd, kw in kept:
+        count = {"segments": kro.x.shape[0]}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        km.march_rays_plain(kprog, ktable, kro, krd, **kw)
+        km.march_rays_plain(kprog, ktable, kro, krd, count=count, **kw)
         torch.cuda.synchronize()
         k3_plain_ms += (time.perf_counter() - t0) * 1e3
-        count = {"segments": kro.x.shape[0]}
-        km.march_rays_plain(kprog, ktable, kro, krd, count=count, **kw)
         k3_ops += _march_ops(count, kprog)
         k3_bytes += kro.x.shape[0] * (24 + 8 + (12 if kw["with_normal"] else 0))
     k3_bound, k3_by = _bound_ms(k3_bytes, k3_ops, peak)
     print(f"K3 per training step: kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.3f} "
-          f"ms over the same {len(kept)} launches' rays, bound {k3_bound:.4f} "
+          f"ms over the same {len(kept)} launches' rays while counting, bound {k3_bound:.4f} "
           f"ms ({k3_by}: {k3_ops:.4e} FP32 ops, {k3_bytes} bytes) [{gpu}]")
     del kept
 
+    _stamp(start, "K4 checks")
     # -- K4 against its plain version, on the card --------------------------
     edge_sc = compiled(edge_demo())
     sap = compiled(sphere_and_plane())
@@ -1025,6 +1259,22 @@ def main() -> int:
          dict(edge_grad=True, edge_secondary=True), BOUNCES),
         ("K4 edge_demo, bounces 0 + edge", edge_sc, dict(edge_grad=True), 0),
     ), dev)
+    k4b_err = _k4_checks(tm, (
+        ("K4 winner, analytic_unboxed", bench, FUSED_UNBOXED, BOUNCES),
+        ("K4 winner, analytic_unboxed + edge", bench,
+         dict(FUSED_UNBOXED, edge_grad=True), BOUNCES),
+        ("K4 winner, analytic_unboxed + edge + secondary", bench,
+         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), BOUNCES),
+        ("K4 map-vjp csg_demo, analytic_unboxed", csg, FUSED_UNBOXED, BOUNCES),
+        # Images bit-equal to the plain version's, so the tight gates hold
+        # the secondary exclusion march over the skipped shapes: every shape
+        # of the cube scene is skipped, csg_demo's plane and lamp are.
+        ("K4 winner guard-less cube, analytic_unboxed + edge + secondary",
+         cube, dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True),
+         BOUNCES),
+        ("K4 map-vjp csg_demo, analytic_unboxed + edge + secondary", csg,
+         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), BOUNCES),
+    ), dev)
 
     n, nd, nid, nnear, ndnear = _edge_cull_count(spec, sp, dev)
     print(f"K4 edge term, {CHECK_W}x{CHECK_H} primary rays: {nd} of {n} would "
@@ -1035,7 +1285,8 @@ def main() -> int:
     # K4's image is K1's frame (analytic_all) and K2's baked t-culled frame.
     zero_t = torch.zeros((CHECK_H, CHECK_W, 3), device=dev)
     for name, fkw, rmode in (("K1 analytic_all", FUSED_MAIN, ANALYTIC),
-                             ("K2 baked t_cull", {}, MARCH)):
+                             ("K2 baked t_cull", {}, MARCH),
+                             ("K2b analytic_unboxed", FUSED_UNBOXED, UNBOXED)):
         _, _, img = _fused_step(tm, spec, sp, zero_t, CHECK_W, CHECK_H,
                                 BOUNCES, **fkw)
         frame = mk.render_frame_megakernel(spec, sp, None, 0, 0,
@@ -1051,27 +1302,9 @@ def main() -> int:
     # The main configuration at 1080p against its plain version (one step
     # each), and the plain version's count of the work for the bound.
     target0 = torch.zeros((MAIN_H, MAIN_W, 3), device=dev)
-    torch.cuda.synchronize()
-    k = _fused_step(tm, spec, sp, target0, MAIN_W, MAIN_H, BOUNCES, **FUSED_MAIN)
-    k4_count = {}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with _k4_swapped(tm, _k4_plain(tm, k4_count)):
-        p = _fused_step(tm, spec, sp, target0, MAIN_W, MAIN_H, BOUNCES,
-                        **FUSED_MAIN)
-    torch.cuda.synchronize()
-    k4_plain_ms = (time.perf_counter() - t0) * 1e3
-    k4_share, _ = _compare(f"K4 {MAIN_W}x{MAIN_H} image, main configuration",
-                           k[2], p[2])
-    equal = bool(torch.equal(k[2], p[2]))
-    _grad_compare(f"K4 {MAIN_W}x{MAIN_H} gradient, main configuration, image "
-                  f"{'bit-equal' if equal else 'not bit-equal'}", k[:2],
-                  p[:2], *((FUSED_LOSS_REL, FUSED_TOP_REL, FUSED_COS) if equal
-                           else (FLIP_LOSS_REL, float("inf"), FLIP_COS)))
-    k4_err = max(k4_err, float((k[1] - p[1]).abs().max()))
-    print(f"K4 plain step at {MAIN_W}x{MAIN_H} (main configuration): "
-          f"{k4_plain_ms:.1f} ms, host clock [{gpu}]")
-    del k, p
+    k4_share, main_err, k4_plain_ms, k4_count = _k4_main_check(
+        tm, spec, sp, target0, "main configuration", FUSED_MAIN)
+    k4_err = max(k4_err, main_err)
 
     # Do K4's in-kernel sums repeat bit for bit?  And the whole gradient?
     mode = tm.FusedMode(BOUNCES, True, edge_grad=True, analytic_all=True)
@@ -1094,6 +1327,7 @@ def main() -> int:
         raise AssertionError("K4's sums do not repeat")
     del runs, grads, tables
 
+    _stamp(start, "K4 main paths")
     # -- K4 main path: three timed 1080p steps per configuration ------------
     fused = {}
     for label, fkw in FUSED_CONFIGS:
@@ -1109,6 +1343,25 @@ def main() -> int:
           f"{k4_ops:.4e} FP32 ops, {k4_bytes} bytes; work "
           f"{ {str(k): int(v) for k, v in k4_count.items()} }) [{gpu}]")
 
+    # K4's analytic_unboxed mode (bench.py:442), beside the same march
+    # without it, and its plain step at 1080p for the work count.
+    _drive_fused(tm, (mk.LAUNCHES, km.LAUNCHES), spec, sp, gpu,
+                 "march, no edge", {})
+    k4b_launches, k4b_ms = _drive_fused(tm, (mk.LAUNCHES, km.LAUNCHES), spec,
+                                        sp, gpu, "analytic_unboxed",
+                                        FUSED_UNBOXED)[:2]
+    k4b_share, main_err, k4b_plain_ms, k4b_count = _k4_main_check(
+        tm, spec, sp, target0, "analytic_unboxed", FUSED_UNBOXED)
+    k4b_err = max(k4b_err, main_err)
+    k4b_ops = _fused_ops(k4b_count, uprog, False) + _cap_ops(k4b_count, uprog)
+    k4b_bound, k4b_by = _bound_ms(MAIN_W * MAIN_H * 3 * 4 * 2 + 4 * uprog.f_len,
+                                  k4b_ops, peak)
+    print(f"K4 per analytic_unboxed step: kernel {k4b_ms:.3f} ms, plain "
+          f"{k4b_plain_ms:.1f} ms, bound {k4b_bound:.4f} ms ({k4b_by}: "
+          f"{k4b_ops:.4e} FP32 ops; work "
+          f"{ {str(k): int(v) for k, v in k4b_count.items()} }) [{gpu}]")
+
+    _stamp(start, "entry points")
     # -- the entry points: optimize_to_target and the CLI ------------------
     sp_scene = compile_scene(_sphere_and_plane())
     p_true = params_from_numpy(sp_scene.params, sp_scene.spec, dev)
@@ -1207,7 +1460,26 @@ def main() -> int:
          "main_shape_share_off": k4_share, "ms": k4_ms,
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
          "library_ms": None},
-    ]}
+        {"name": "megakernel_march (K2b: analytic_unboxed, omega)",
+         "route": "cuda", "source": csrc + "megakernel_march.cu",
+         "replaces": replaces, "launches": k2b_launches,
+         "max_abs_err": k2b_err, "main_shape_share_off": k2b_share,
+         "ms": k2b_ms, "plain_ms": k2b_plain_ms,
+         "bound_ms": k2b_bound, "bound_by": k2b_by, "library_ms": None},
+        {"name": "train_fused (K2b: analytic_unboxed)", "route": "cuda",
+         "source": csrc + "train_fused.cu",
+         "replaces": "compute_path_tracer_tpu/kernels/train.py:1018",
+         "launches": k4b_launches, "max_abs_err": k4b_err,
+         "main_shape_share_off": k4b_share, "ms": k4b_ms,
+         "plain_ms": k4b_plain_ms, "bound_ms": k4b_bound, "bound_by": k4b_by,
+         "library_ms": None},
+    ] + [
+        {"name": f"megakernel_analytic (K5: analytic_soa, {n} prims)",
+         "route": "cuda", "source": csrc + "megakernel_analytic.cu",
+         "replaces": replaces, "launches": k5[n][0], "max_abs_err": k5_err[n],
+         "main_shape_share_off": k5[n][5], "ms": k5[n][1], "plain_ms": k5[n][2], "bound_ms": k5[n][3],
+         "bound_by": k5[n][4], "library_ms": None} for n in SOA_PRIMS]}
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(gpu)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

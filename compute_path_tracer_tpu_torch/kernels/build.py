@@ -105,13 +105,13 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [p, p, p, i, p, i, p, i, i, i, i, i, f, f, i, p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_megakernel_march
-    fn.argtypes = [p, i, p, i, i, i, i, i, p, i, i, i, i, i, f, f, i, p]
+    fn.argtypes = [p, i, p, i, i, i, i, i, i, f, p, i, i, i, i, i, f, f, i, p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_march_rays
     fn.argtypes = [p, i, p, i, i, i, i, i, i] + [p] * 12
     fn.restype = ctypes.c_int
     fn = lib.cpt_train_fused
-    fn.argtypes = ([p, i, p, i, i, i, p, i, p, p, p, p, i] + [p] * 10
+    fn.argtypes = ([p, i, i, p, i, p, i, i, i, p, i, p, p, p, p, i] + [p] * 10
                    + [i] * 7 + [f] * 3 + [i, f, f, p])
     fn.restype = ctypes.c_int
     return lib

@@ -1,14 +1,16 @@
 // The CSG program interpreter shared by the marching kernels
 // (megakernel_march.cu, K2; march_rays.cu, K3; train_fused.cu, K4): one
 // bounce's AABB guards and t-cull intervals, the leaf SDFs, the fold, the
-// scene map over the op list of render/program.py, the 80-step march and
-// the 6-tap normal.  The parity
+// scene map over the op list of render/program.py, the 80-step march (with
+// the closed-form cap of analytic_unboxed, and over-relaxed), the 6-tap
+// normal, and the cap's closed form over the program's cap list.  The parity
 // decisions are in the note at the head of megakernel_march.cu; everything
 // here has internal linkage, so each kernel's translation unit carries its
 // own copy.
 
 #pragma once
 
+#include "analytic.cuh"
 #include "common.cuh"
 
 namespace {
@@ -28,10 +30,12 @@ constexpr float kMaxDist = 10000.0f;    // constants.MAX_DIST
 constexpr float kNormalEps = 1e-4f;
 
 struct Scene {
-  const int* code;     // n_ops records of OP_WIDTH, then box_cull
+  const int* code;     // n_ops records of OP_WIDTH, then box_cull, then caps
   int n_ops;
   const float* F;      // program_table
   int n_boxed, f_box, f_sph, f_mat;
+  const int* caps;     // n_cap records: kind, baked offset in F, shape id
+  int n_cap;
 };
 
 // One bounce's guards: AABB check bits, and with TCULL each culled box's
@@ -237,9 +241,12 @@ __device__ float map_scene(const Scene& S, const Guards<TCULL>& g, V3 p, float t
 }
 
 // The 80-step march of one ray (cast_ray, or cast_tcull with TCULL);
-// returns t, and the id of the last map tap in idx (-1 when far).
+// returns t, and the id of the last map tap in idx (-1 when far).  A finite
+// t_cap (analytic_unboxed) stops the ray on it: t = min(t, t_cap), done once
+// t >= t_cap; the default INFINITY leaves the march as it is.
 template <bool BAKED, bool TCULL>
-__device__ float march(const Scene& S, const Guards<TCULL>& g, V3 ro, V3 rd, int& idx) {
+__device__ float march(const Scene& S, const Guards<TCULL>& g, V3 ro, V3 rd, int& idx,
+                       float t_cap = INFINITY) {
   float t = 0.0f;
   float m = kBig;
   if constexpr (TCULL) m = next_entry(S, g, 0.0f);
@@ -250,15 +257,112 @@ __device__ float march(const Scene& S, const Guards<TCULL>& g, V3 ro, V3 rd, int
                                                       ro.z + rd.z * t), t, mi);
     float ad = fabsf(d);
     float nt = TCULL ? t + nan_min(ad, nan_max(m - t, kMhd)) : t + ad;
+    nt = nan_min(nt, t_cap);
     bool far = nt > kFar;
     idx = far ? -1 : mi;
     t = nt;
-    if (ad < kMhd || far) break;
+    if (ad < kMhd || far || nt >= t_cap) break;
     if constexpr (TCULL) {
       if (t >= m) m = next_entry(S, g, t);
     }
   }
   return t;
+}
+
+// The over-relaxed t-culled march (cast_tcull with omega != 1, JAX
+// _march_while_tcull :785-820): an exterior sample steps min(omega |d|,
+// clamp); when the unbounding spheres of the last two samples stop
+// overlapping (d_prev > 0 and s_prev > d_prev + d, signed) the ray reverts to
+// t_prev + f_prev, the exact march's step from the previous sample, and a hit
+// needs no such overshoot.  A revert moves t back, so the nearest pending
+// entry is recomputed at every step.
+template <bool BAKED>
+__device__ float march_relax(const Scene& S, const Guards<true>& g, V3 ro, V3 rd, int& idx,
+                             float omega, float t_cap) {
+  float t = 0.0f, tp = 0.0f, dp = 0.0f, sp = 0.0f, fp = 0.0f;
+  idx = -1;
+  for (int step = 0; step < kSteps; ++step) {
+    const float m = next_entry(S, g, t);
+    int mi;
+    float d = map_scene<BAKED, true, true>(S, g, v3(ro.x + rd.x * t, ro.y + rd.y * t,
+                                                    ro.z + rd.z * t), t, mi);
+    float ad = fabsf(d);
+    float clamp = nan_max(m - t, kMhd);
+    float exact = nan_min(ad, clamp);
+    bool over = dp > 0.0f && sp > dp + d;
+    float stretch = d > 0.0f ? nan_min(omega * ad, clamp) : exact;
+    float nt = over ? tp + fp : t + stretch;
+    nt = nan_min(nt, t_cap);
+    bool hit = !over && ad < kMhd;
+    bool far = nt > kFar;
+    idx = far ? -1 : mi;
+    if (!over) {
+      tp = t;
+      dp = d;
+      sp = stretch;
+      fp = exact;
+    } else {
+      sp = fp;
+    }
+    t = nt;
+    if (hit || far || nt >= t_cap) break;
+  }
+  return t;
+}
+
+// The closed-form cap of analytic_unboxed over the program's cap list
+// (kernels/megakernel.py:make_analytic_unboxed): the nearest hit t_cap (kBig
+// when none) and its record j (-1); a strict < keeps the earlier shape.
+__device__ void cap_scan(const Scene& S, V3 ro, V3 rd, float& t_cap, int& j_cap) {
+  t_cap = kBig;
+  j_cap = -1;
+  for (int j = 0; j < S.n_cap; ++j) {
+    const int* c = S.caps + 3 * j;
+    const int kind = __ldg(c);
+    const float* __restrict__ gv = S.F + __ldg(c + 1);
+    float t;
+    if (kind == KIND_SPHERE) {
+      t = leaf_t<KIND_SPHERE>(gv, ro, rd);
+    } else if (kind == KIND_PLANE) {
+      t = leaf_t<KIND_PLANE>(gv, ro, rd);
+    } else {
+      t = leaf_t<KIND_CUBE>(gv, ro, rd);
+    }
+    if (t < t_cap) {
+      t_cap = t;
+      j_cap = j;
+    }
+  }
+}
+
+// The exact normal of cap record j at p.
+__device__ __forceinline__ V3 cap_normal(const Scene& S, int j, V3 p) {
+  return leaf_normal(__ldg(S.caps + 3 * j), S.F + __ldg(S.caps + 3 * j + 1), p);
+}
+
+__device__ __forceinline__ int cap_id(const Scene& S, int j) { return __ldg(S.caps + 3 * j + 2); }
+
+// The signed closest approach of the ray to the capped spheres (planes and
+// cubes are skipped): d_ca (kBig when none), t_ca and the shape id i_ca.
+__device__ void closest_scan(const Scene& S, V3 ro, V3 rd, float& d_ca, float& t_ca, int& i_ca) {
+  d_ca = kBig;
+  t_ca = 0.0f;
+  i_ca = -1;
+  for (int j = 0; j < S.n_cap; ++j) {
+    const int* c = S.caps + 3 * j;
+    if (__ldg(c) != KIND_SPHERE) continue;
+    const float* __restrict__ gv = S.F + __ldg(c + 1);
+    const float ocx = ro.x - gv[0], ocy = ro.y - gv[1], ocz = ro.z - gv[2];
+    const float b = ocx * rd.x + ocy * rd.y + ocz * rd.z;
+    const float oo = ocx * ocx + ocy * ocy + ocz * ocz;
+    // A closest point behind the origin: the origin's distance.
+    const float d = -b > 0.0f ? sqrtf(nan_max(oo - b * b, 0.0f)) - gv[3] : sqrtf(oo) - gv[3];
+    if (d < d_ca) {
+      d_ca = d;
+      t_ca = nan_max(-b, 0.0f);
+      i_ca = __ldg(c + 2);
+    }
+  }
 }
 
 // Central differences of the map, 6 taps under the bounce's full guards,

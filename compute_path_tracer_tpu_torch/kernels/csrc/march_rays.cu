@@ -99,7 +99,7 @@ extern "C" int cpt_march_rays(const int* code, int n_ops, const float* table, in
                               const float* rox, const float* roy, const float* roz,
                               const float* rdx, const float* rdy, const float* rdz, float* t,
                               int* idx, float* nx, float* ny, float* nz, void* stream) {
-  Scene S{code, n_ops, table, n_boxed, f_box, f_box + 6 * n_boxed, 0};
+  Scene S{code, n_ops, table, n_boxed, f_box, f_box + 6 * n_boxed, 0, nullptr, 0};
   const float* ray[6] = {rox, roy, roz, rdx, rdy, rdz};
   float* nrm[3] = {nx, ny, nz};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

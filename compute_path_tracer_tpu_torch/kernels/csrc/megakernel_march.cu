@@ -54,7 +54,17 @@
 //   recomputed only when t reaches it: it cannot change before.
 // * Normals take 6 map taps under the bounce's full guards, also with
 //   t_cull; the debug-1 tint adds 0.1 per AABB hit in walk order.
-
+// * analytic_unboxed (_make_analytic_unboxed :319, the cap at :753-763,
+//   :1060-1063, :1094-1095, :1148-1153): the program leaves the guard-less
+//   shapes of render/baked.py:analytic_eligible_ids out of its ops and lists
+//   them as caps; once per bounce K1's closed forms (analytic.cuh) give each
+//   ray the nearest of them, the march stops on it, and a hit at t >= t_cap
+//   takes that shape's id and exact normal instead of the 6 taps.  On the
+//   benchmark scene that removes the ground plane and the two lamps from
+//   every map tap of every ray.
+// * omega != 1 (the RELAX instantiation, :785-820) over-relaxes the t-culled
+//   march with the sphere-overlap revert (csg_program.cuh:march_relax);
+//   omega == 1 runs the march above, unchanged.
 #include "csg_program.cuh"
 
 namespace {
@@ -62,10 +72,10 @@ namespace {
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 16;
 
-template <bool BAKED, bool TCULL>
+template <bool BAKED, bool TCULL, bool RELAX>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 megakernel_march(Scene S, float* __restrict__ accum, int width, int height, int frame,
-                 int last_clear, int bounces, float fov, float aspect, int debug) {
+                 int last_clear, int bounces, float fov, float aspect, int debug, float omega) {
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   if (x >= width || y >= height) return;
@@ -99,14 +109,28 @@ megakernel_march(Scene S, float* __restrict__ accum, int width, int height, int 
     int i_exit = -1;
     for (int i = 0; i <= bounces; ++i) {
       compute_guards(S, ro, rd, g);
+      float t_cap = INFINITY;
+      int j_cap = -1;
+      if (S.n_cap > 0) cap_scan(S, ro, rd, t_cap, j_cap);
       int idx;
-      float t = march<BAKED, TCULL>(S, g, ro, rd, idx);
+      float t;
+      if constexpr (RELAX) {
+        t = march_relax<BAKED>(S, g, ro, rd, idx, omega, t_cap);
+      } else {
+        t = march<BAKED, TCULL>(S, g, ro, rd, idx, t_cap);
+      }
       if (t > kFar) {
         i_exit = i;
         break;
       }
       V3 hit = ro + rd * t;
-      V3 n = calc_normal<BAKED, TCULL>(S, g, hit);
+      V3 n;
+      if (t >= t_cap) {
+        idx = cap_id(S, j_cap);
+        n = cap_normal(S, j_cap, hit);
+      } else {
+        n = calc_normal<BAKED, TCULL>(S, g, hit);
+      }
       const float* mt = idx >= 0 ? S.F + S.f_mat + kMatSize * idx : nullptr;
       if (!scatter(rng, ro, rd, ret, thr, hit, n, mt)) {
         i_exit = i;
@@ -120,39 +144,49 @@ megakernel_march(Scene S, float* __restrict__ accum, int width, int height, int 
   write_pixel(accum, x, y, width, col, last_clear, debug);
 }
 
-template <bool BAKED, bool TCULL>
+template <bool BAKED, bool TCULL, bool RELAX>
 void launch(const Scene& S, float* accum, int width, int height, int frame, int last_clear,
-            int bounces, float fov, float aspect, int debug, cudaStream_t stream) {
+            int bounces, float fov, float aspect, int debug, float omega, cudaStream_t stream) {
   dim3 block(kBlockX, kBlockY);
   dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
-  megakernel_march<BAKED, TCULL><<<grid, block, 0, stream>>>(
-      S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug);
+  megakernel_march<BAKED, TCULL, RELAX><<<grid, block, 0, stream>>>(
+      S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega);
 }
 
 }  // namespace
 
 // Launches one frame on `stream`; returns cudaGetLastError() (0 on success).
-// `code` is program_code_on's int32 vector (n_ops op records, then n_boxed
-// cull flags), `table` program_table's float32 vector; accum is (height,
-// width, 3) float32, contiguous, updated in place.  The caller checks the
-// program against kMaxDepth and kMaxBoxed.
+// `code` is program_code_on's int32 vector (n_ops op records, n_boxed cull
+// flags, then n_cap cap records), `table` program_table's float32 vector;
+// accum is (height, width, 3) float32, contiguous, updated in place.  The
+// caps and omega != 1 need t_cull and debug 0 or 3; the caller checks that
+// and the program against kMaxDepth and kMaxBoxed.
 extern "C" int cpt_megakernel_march(const int* code, int n_ops, const float* table,
-                                    int n_boxed, int f_box, int f_mat, int baked,
-                                    int t_cull, float* accum, int width, int height,
+                                    int n_boxed, int f_box, int f_mat, int n_cap, int baked,
+                                    int t_cull, float omega, float* accum, int width, int height,
                                     int frame, int last_clear, int bounces, float fov,
                                     float aspect, int debug, void* stream) {
-  Scene S{code, n_ops, table, n_boxed, f_box, f_box + 6 * n_boxed, f_mat};
+  Scene S{code, n_ops, table, n_boxed, f_box, f_box + 6 * n_boxed, f_mat,
+          code + OP_WIDTH * n_ops + n_boxed, n_cap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool relax = omega != 1.0f;
+  if ((n_cap > 0 || relax) && (!t_cull || debug == 1 || debug == 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (baked) {
-    if (t_cull) {
-      launch<true, true>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, st);
+    if (relax) {
+      launch<true, true, true>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, st);
+    } else if (t_cull) {
+      launch<true, true, false>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, st);
     } else {
-      launch<true, false>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, st);
+      launch<true, false, false>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, st);
     }
+  } else if (relax) {
+    launch<false, true, true>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, st);
   } else if (t_cull) {
-    launch<false, true>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, st);
+    launch<false, true, false>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, st);
   } else {
-    launch<false, false>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, st);
+    launch<false, false, false>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

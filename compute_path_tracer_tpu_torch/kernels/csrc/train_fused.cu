@@ -9,6 +9,9 @@
 //   form (analytic.cuh) and g = n * 2e-4; per bounce the state phase 2
 //   needs (ray, t, id, throughput, g, 1/(g.rd), RNG, alive) in thread-local
 //   arrays; the shading is K2's scatter, so the image is K1's or K2's frame;
+//   with UNBOXED (analytic_unboxed, :314-325, :465-520) the program lacks the
+//   eligible guard-less shapes, their closed form caps the march, and a
+//   capped hit takes that shape's id and g = n * 2e-4 from its exact normal;
 // * phase 2, the reverse sweep (:694-806): the hand-written adjoint of each
 //   bounce's shading replay, with the hit distance linearised by the
 //   implicit identity t = t* + A.(ro - ro*) + B.(rd - rd*) + t_aux (A =
@@ -19,9 +22,11 @@
 //   approach of the exact march of the primary ray, the signed
 //   continuation march through the surface it hit (from t = 0 with
 //   ANALYTIC), the 6-tap slope and the sigmoid's derivative seed the
-//   partials of the nearest leaf; with SECONDARY the same per bounce over
-//   the exclusion-masked union of leaves (_make_excl_closest, :175;
-//   :866-904).
+//   partials of the nearest leaf, with UNBOXED the march capped and the
+//   closed-form closest approach of the skipped spheres folded in
+//   (:682-687); with SECONDARY the same per bounce over the
+//   exclusion-masked union of leaves (_make_excl_closest, :175; :866-904),
+//   which reads every leaf of the full program, the skipped ones included.
 // The winner mode reduces every (shape, channel) sum in the kernel: each
 // warp adds its lanes' rows into its own copy of the (S, C) accumulator in
 // shared memory, one lane after another in lane order; the block sums its
@@ -72,6 +77,7 @@ constexpr int FLAG_WINNER = 1;
 constexpr int FLAG_EDGE = 2;
 constexpr int FLAG_SECONDARY = 4;
 constexpr int FLAG_ANALYTIC = 8;
+constexpr int FLAG_UNBOXED = 16;
 
 constexpr float kDenomEps = 1e-6f;
 constexpr float kEdgeStep = 2e-3f;
@@ -80,6 +86,8 @@ constexpr float kTwoEps = 2e-4f;         // float32(2 * 1e-4)
 
 struct Args {
   Scene S;                  // the baked program; S.F begins with bv
+  const int* excl_code;     // the full baked program's ops (the exclusion fold)
+  int excl_n_ops;
   const int* leaf_lut;      // (n_shapes, 2): kind, offset of its slots in S.F
   int n_shapes;
   const float* soa_f;       // ANALYTIC: K1's packed tables
@@ -359,9 +367,10 @@ __device__ __forceinline__ V3 at(V3 ro, V3 rd, float t) {
   return v3(ro.x + rd.x * t, ro.y + rd.y * t, ro.z + rd.z * t);
 }
 
-// The exact march (cast_ray, no t-cull) with its closest approach; returns t.
-__device__ float march_closest(const Scene& S, const Guards<true>& g, V3 ro, V3 rd, float& d_min,
-                               float& t_min) {
+// The exact march (cast_ray, no t-cull) with its closest approach, capped at
+// t_cap; returns t.
+__device__ float march_closest(const Scene& S, const Guards<true>& g, V3 ro, V3 rd, float t_cap,
+                               float& d_min, float& t_min) {
   float t = 0.0f;
   d_min = kBig;
   t_min = 0.0f;
@@ -373,9 +382,9 @@ __device__ float march_closest(const Scene& S, const Guards<true>& g, V3 ro, V3 
       t_min = t;
     }
     const float ad = fabsf(d);
-    const float nt = t + ad;
+    const float nt = nan_min(t + ad, t_cap);
     t = nt;
-    if (ad < kMhd || nt > kFar) break;
+    if (ad < kMhd || nt > kFar || nt >= t_cap) break;
   }
   return t;
 }
@@ -402,13 +411,15 @@ __device__ void continue_march(const Scene& S, const Guards<true>& g, V3 ro, V3 
   }
 }
 
-// The union of leaves without the shapes e1, e2, guarded leaves under the
-// bounce's checks (BIG and -1 when none is left).
-__device__ float excl_fold(const Scene& S, const Guards<true>& g, V3 p, int e1, int e2, int& id) {
+// The union of the leaves of the op list `code` (the full program's) without
+// the shapes e1, e2, guarded leaves under the bounce's checks (BIG and -1
+// when none is left).
+__device__ float excl_fold(const Scene& S, const int* __restrict__ code, int n_ops,
+                           const Guards<true>& g, V3 p, int e1, int e2, int& id) {
   float d = kBig;
   id = -1;
-  for (int pc = 0; pc < S.n_ops; ++pc) {
-    const int* __restrict__ op = S.code + OP_WIDTH * pc;
+  for (int pc = 0; pc < n_ops; ++pc) {
+    const int* __restrict__ op = code + OP_WIDTH * pc;
     if (__ldg(op) != OPC_SHAPE) continue;
     const int sid = __ldg(op + 4);
     if (sid == e1 || sid == e2) continue;
@@ -423,7 +434,7 @@ __device__ float excl_fold(const Scene& S, const Guards<true>& g, V3 p, int e1, 
   return d;
 }
 
-__device__ void excl_closest(const Scene& S, const Guards<true>& g, V3 ro, V3 rd, int e1, int e2,
+__device__ void excl_closest(const Args& A, const Guards<true>& g, V3 ro, V3 rd, int e1, int e2,
                              float t_stop, float& d_min, float& t_min, int& i_min) {
   float t = 0.0f;
   d_min = kBig;
@@ -431,7 +442,7 @@ __device__ void excl_closest(const Scene& S, const Guards<true>& g, V3 ro, V3 rd
   bool was_neg = false;
   int id;
   for (int step = 0; step < kSteps; ++step) {
-    const float d = excl_fold(S, g, at(ro, rd, t), e1, e2, id);
+    const float d = excl_fold(A.S, A.excl_code, A.excl_n_ops, g, at(ro, rd, t), e1, e2, id);
     if (d < d_min) {
       d_min = d;
       t_min = t;
@@ -442,7 +453,7 @@ __device__ void excl_closest(const Scene& S, const Guards<true>& g, V3 ro, V3 rd
     t = nt;
     if (exited || nt > kFar || nt > t_stop) break;
   }
-  excl_fold(S, g, at(ro, rd, t_min), e1, e2, id);
+  excl_fold(A.S, A.excl_code, A.excl_n_ops, g, at(ro, rd, t_min), e1, e2, id);
   i_min = d_min < 0.5f * kBig ? id : -1;
 }
 
@@ -505,6 +516,7 @@ __global__ void __launch_bounds__(kThreads) train_fused(Args A) {
   const bool edge = A.flags & FLAG_EDGE;
   const bool secondary = A.flags & FLAG_SECONDARY;
   const bool analytic = A.flags & FLAG_ANALYTIC;
+  const bool unboxed = A.flags & FLAG_UNBOXED;
   const int x = blockIdx.x * kBX + threadIdx.x;
   const int yl = blockIdx.y * kBY + threadIdx.y;
   const bool valid = x < A.width && yl < A.crop_h;
@@ -545,21 +557,29 @@ __global__ void __launch_bounds__(kThreads) train_fused(Args A) {
       if (!alive) continue;
       float t;
       int idx;
+      float t_cap = INFINITY;
+      int j_cap = -1;
       if (analytic) {
         cast(A.soa_f, A.soa_i, A.kmeta, A.n_kinds, ro, rd, t, idx);
       } else {
         compute_guards(S, ro, rd, g);
-        t = march<true, true>(S, g, ro, rd, idx);
+        if (unboxed) cap_scan(S, ro, rd, t_cap, j_cap);
+        t = march<true, true>(S, g, ro, rd, idx, t_cap);
       }
+      const bool hit = !(t > kFar);
+      const bool capped = hit && t >= t_cap;
+      if (capped) idx = cap_id(S, j_cap);
       s.t = t;
       s.idx = idx;
-      const bool hit = !(t > kFar);
       const V3 hp = ro + rd * t;
       V3 nrm = splat(0.0f);
       if (hit) {
         if (analytic) {
           nrm = leaf_normal(A.sid_lut[2 * idx], A.soa_f + A.sid_lut[2 * idx + 1], hp);
           s.g = nrm * kTwoEps;
+        } else if (capped) {
+          s.g = cap_normal(S, j_cap, hp) * kTwoEps;
+          nrm = normalize_safe(s.g);
         } else {
           s.g = calc_grad<true, true>(S, g, hp);
           nrm = normalize_safe(s.g);
@@ -569,7 +589,7 @@ __global__ void __launch_bounds__(kThreads) train_fused(Args A) {
       }
       if (secondary && b >= 1) {
         if (analytic) compute_guards(S, ro, rd, g);
-        excl_closest(S, g, ro, rd, idx, idx_prev, t, s.d2, s.t2, s.i2);
+        excl_closest(A, g, ro, rd, idx, idx_prev, t, s.d2, s.t2, s.i2);
       }
       idx_prev = idx;
       if (!hit) {
@@ -639,7 +659,10 @@ __global__ void __launch_bounds__(kThreads) train_fused(Args A) {
       int cap = kSteps + 32;
       bool go = true;
       if (!analytic) {
-        t0 = march_closest(S, g, ro0, rd0, d_min, t_min);
+        float t_cap = INFINITY;
+        int j_cap;
+        if (unboxed) cap_scan(S, ro0, rd0, t_cap, j_cap);
+        t0 = march_closest(S, g, ro0, rd0, t_cap, d_min, t_min);
         go = d_min < kMhd;
         cap = 32;
       }
@@ -651,7 +674,19 @@ __global__ void __launch_bounds__(kThreads) train_fused(Args A) {
       }
       int id;
       map_scene<true, true, false>(S, g, at(ro0, rd0, t_min), 0.0f, id);
-      const int i_min = d_min < 0.5f * kBig ? id : -1;
+      int i_min = d_min < 0.5f * kBig ? id : -1;
+      if (unboxed) {
+        // The skipped spheres are in no map tap: their closed-form closest
+        // approach.
+        float d_ca, t_ca;
+        int i_ca;
+        closest_scan(S, ro0, rd0, d_ca, t_ca, i_ca);
+        if (d_ca < d_min) {
+          i_min = i_ca;
+          t_min = t_ca;
+          d_min = d_ca;
+        }
+      }
       float w = 0.0f;
       if (i_min >= 0) {
         const float beta = nan_max(t_min, 0.2f) * A.foot1 * edge_slope(S, g, ro0, rd0, t_min);
@@ -734,14 +769,17 @@ __global__ void sum_rows(const float* __restrict__ in, int rows, int cols, int g
 // Launches the fused step on `stream`; returns cudaGetLastError() (0 on
 // success), or cudaErrorInvalidValue for a shape the kernel does not hold.
 // `code`, `table` are the baked program's (program_code_on, program_table
-// with its t-cull spheres); leaf_lut (n_shapes, 2) int32 each shape's kind
-// and slot offset in `table`; soa_f .. n_kinds K1's packed tables (with the
-// ANALYTIC flag, else null).  target and col are (3, crop_h, width) float32
+// with its t-cull spheres; with the UNBOXED flag the skip program, whose
+// n_cap cap records follow its cull flags); excl_code the full baked
+// program's ops, which the secondary exclusion fold walks; leaf_lut
+// (n_shapes, 2) int32 each shape's kind and slot offset in `table`; soa_f
+// .. n_kinds K1's packed tables (with the ANALYTIC flag, else null).  target and col are (3, crop_h, width) float32
 // planes; part has room for blocks + ceil(blocks / 128) rows of n_shapes *
 // n_acc floats, acc for one (n_acc > 0); the six seg_* / mat_cot planes are
 // written in the map-vjp mode (flags without WINNER).
-extern "C" int cpt_train_fused(const int* code, int n_ops, const float* table, int n_boxed,
-                               int f_box, int f_mat, const int* leaf_lut, int n_shapes,
+extern "C" int cpt_train_fused(const int* code, int n_ops, int n_cap, const int* excl_code,
+                               int excl_n_ops, const float* table, int n_boxed, int f_box,
+                               int f_mat, const int* leaf_lut, int n_shapes,
                                const float* soa_f, const int* soa_i, const int* kmeta,
                                const int* sid_lut, int n_kinds, const float* target, float* col,
                                float* part, float* acc, float* seg_ro, float* seg_rd,
@@ -758,7 +796,10 @@ extern "C" int cpt_train_fused(const int* code, int n_ops, const float* table, i
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   Args A;
-  A.S = Scene{code, n_ops, table, n_boxed, f_box, f_box + 6 * n_boxed, f_mat};
+  A.S = Scene{code, n_ops, table, n_boxed, f_box, f_box + 6 * n_boxed, f_mat,
+              code + OP_WIDTH * n_ops + n_boxed, n_cap};
+  A.excl_code = excl_code;
+  A.excl_n_ops = excl_n_ops;
   A.leaf_lut = leaf_lut;
   A.n_shapes = n_shapes;
   A.soa_f = soa_f;

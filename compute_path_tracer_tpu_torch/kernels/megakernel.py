@@ -4,14 +4,22 @@ versions.
 ``render_frame_megakernel`` keeps the signature and the defaults of the JAX
 package's ``render_frame_pallas`` and dispatches on its mode:
 
-* ``analytic_all=True`` (with ``geometry="baked"``, union-only trees, debug
-  0 or 3): bake the params (render/baked.py), pack the shape tables
-  (render/soa.py), and one launch of ``csrc/megakernel_analytic.cu`` (K1)
-  renders the frame with closed-form hits;
+* ``analytic_all=True`` or ``analytic_soa=True`` (with
+  ``geometry="baked"``, union-only trees, debug 0 or 3): bake the params
+  (render/baked.py), pack the shape tables (render/soa.py), and one launch
+  of ``csrc/megakernel_analytic.cu`` (K1) renders the frame with
+  closed-form hits.  JAX's ``analytic_soa`` (K5) is its ``analytic_all``
+  walked over the same packed tables at run time, bit-exact with it, which
+  is what K1 does at any primitive count;
 * otherwise the marching modes: fill the CSG program's table
   (render/program.py) for ``geometry`` "faithful" or "baked", and one
   launch of ``csrc/megakernel_march.cu`` (K2) sphere-marches the frame,
-  with per-thread t-interval culling when ``t_cull``, in debug 0-3.
+  with per-thread t-interval culling when ``t_cull``, in debug 0-3.  With
+  ``t_cull``, ``analytic_unboxed`` (baked, debug 0 or 3) intersects the
+  guard-less shapes of ``analytic_eligible_ids`` in closed form and caps the
+  march of the remaining program with them (``make_analytic_unboxed``), and
+  ``omega`` != 1 over-relaxes the march; as in JAX, ``omega`` is ignored
+  outside the t-culled march of debug 0 and 3.
 
 Either kernel updates the (H, W, 3) float32 accumulator in place.  On a CPU
 tensor the same call runs ``render_frame_megakernel_plain``: the frame in
@@ -27,8 +35,14 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..constants import DEFAULT_BOUNCES, DEFAULT_FOV, MAT_SIZE
-from ..render.baked import bake
+from ..constants import BIG, DEFAULT_BOUNCES, DEFAULT_FOV, FP, MAT_SIZE
+from ..render.baked import (
+    GEOM_SLOTS,
+    analytic_eligible_ids,
+    bake,
+    baked_layout,
+    baked_shapes_in_order,
+)
 from ..render.program import (
     Program,
     build_program,
@@ -43,10 +57,13 @@ from ..render.reference import (
     cast_ray,
     gather_material,
     running_mean,
+    take_lanes,
     trace_pixels,
 )
 from ..render.soa import (
     SoaSmemLayout,
+    _kind_normal,
+    _kind_t,
     build_soa_smem_layout,
     make_cast_soa,
     make_normal_soa,
@@ -54,6 +71,8 @@ from ..render.soa import (
     pack_soa_smem,
 )
 from ..scene.compile import SceneSpec
+from ..scene.model import KIND_SPHERE
+from ..vecmath import Vec3, sqrt_rn, vwhere
 from .build import load_library
 
 # Launches per kernel since import (or since a caller reset them): the counts
@@ -65,14 +84,43 @@ def _kernel_for(geometry: str, debug: int, normals: str, t_cull: bool,
                 omega: float, analytic_unboxed: bool, refresh_every: int,
                 dist_grid: bool, analytic_all: bool,
                 analytic_soa: bool) -> str:
-    """"analytic" (K1) or "march" (K2) for a mode of render_frame_pallas;
-    raises NotImplementedError for the modes not ported yet."""
+    """"analytic" (K1) or "march" (K2) for a mode of render_frame_pallas.
+    Raises the JAX package's ``ValueError``s where it raises them
+    (megakernel.py:1220-1272), and ``NotImplementedError`` for the modes
+    not ported yet."""
+    if geometry not in ("faithful", "baked"):
+        raise ValueError("geometry must be 'faithful' or 'baked'")
+    baked = geometry == "baked"
+    if analytic_soa:
+        if not baked:
+            raise ValueError("analytic_soa requires geometry='baked'")
+        if analytic_all or analytic_unboxed or dist_grid:
+            raise ValueError("analytic_soa is its own full-analytic mode; "
+                             "enable only one")
+        if debug not in (0, 3):
+            raise ValueError(
+                "analytic_soa supports the path-traced modes (debug 0/3)")
+    if analytic_all:
+        if not baked:
+            raise ValueError("analytic_all requires geometry='baked'")
+        if analytic_unboxed or dist_grid:
+            raise ValueError("analytic_all subsumes analytic_unboxed and "
+                             "dist_grid; enable only one")
+        if debug not in (0, 3):
+            raise ValueError("analytic_all renders the path-traced modes "
+                             "(debug 0/3)")
+    if dist_grid:
+        raise NotImplementedError(
+            "dist_grid is not ported (ROADMAP queue 1, item 11 (K6))")
+    if analytic_unboxed:
+        if not (baked and t_cull):
+            raise ValueError("analytic_unboxed requires geometry='baked' and "
+                             "t_cull=True")
+        if debug in (1, 2):
+            raise ValueError("analytic_unboxed supports the path-traced "
+                             "modes (debug 0/3)")
     not_yet = (
         (debug == 4, "debug=4 (tile statistics)", "queue 1, item 6"),
-        (analytic_unboxed, "analytic_unboxed", "queue 1, item 6 (K2b)"),
-        (float(omega) != 1.0, "omega != 1", "queue 1, item 6 (K2b)"),
-        (dist_grid, "dist_grid", "queue 1, item 11 (K6)"),
-        (analytic_soa, "analytic_soa", "queue 1, item 10 (K5)"),
         (normals != "central", f"normals={normals!r}", "queue 1, item 14"),
         (int(refresh_every) != 1, "refresh_every != 1", "queue 1, item 14"),
     )
@@ -81,23 +129,97 @@ def _kernel_for(geometry: str, debug: int, normals: str, t_cull: bool,
             raise NotImplementedError(f"{what} is not ported (ROADMAP {item})")
     if debug not in (0, 1, 2, 3):
         raise ValueError(f"debug must be in 0..=3, not {debug}")
-    if geometry not in ("faithful", "baked"):
-        raise ValueError("geometry must be 'faithful' or 'baked'")
-    if analytic_all:
-        if geometry != "baked":
-            raise ValueError("analytic_all requires geometry='baked'")
-        if debug not in (0, 3):
-            raise ValueError("analytic_all renders the path-traced modes "
-                             "(debug 0/3)")
-        return "analytic"
-    return "march"
+    return "analytic" if analytic_all or analytic_soa else "march"
 
 
-def _layout_for(spec: SceneSpec) -> SoaSmemLayout:
+def _layout_for(spec: SceneSpec, mode: str = "analytic_all") -> SoaSmemLayout:
     layout = build_soa_smem_layout(spec)
     if layout is None:
-        raise ValueError("analytic_all requires a union-only tree")
+        raise ValueError(f"{mode} requires a union-only tree")
     return layout
+
+
+def make_analytic_unboxed(spec: SceneSpec):
+    """The closed form of ``analytic_unboxed`` (JAX
+    ``_make_analytic_unboxed``) over the shapes of ``analytic_eligible_ids``
+    in walk order, reading their baked rows from ``bv``; the leaf closed
+    forms are K1's (render/soa.py).  Returns ``(cap_fn, normal_fn,
+    closest_fn)``:
+
+    * ``cap_fn(ro, rd, bv) -> (t_cap, cap_idx)``: each ray's nearest hit of
+      these shapes (BIG and -1 when none); a strict < keeps the earlier
+      shape on an equal t;
+    * ``normal_fn(p, cap_idx, bv) -> Vec3``: the capped shape's exact
+      normal (zero where ``cap_idx`` names none of them);
+    * ``closest_fn(ro, rd, bv) -> (d_ca, t_ca, idx_ca)``: the signed closest
+      approach of the ray to the eligible spheres (planes and cubes are
+      skipped, as in JAX), for the fused step's edge term."""
+    eligible = analytic_eligible_ids(spec)
+    shapes = [(bs.kind, bs.off, bs.shape_id)
+              for bs in baked_shapes_in_order(spec) if bs.shape_id in eligible]
+
+    def rows(bv, kind, off):
+        return bv[off:off + GEOM_SLOTS[kind]]
+
+    def cap_fn(ro: Vec3, rd: Vec3, bv):
+        t_cap = torch.full_like(ro.x, BIG)
+        cap_idx = torch.full_like(ro.x, -1, dtype=torch.int32)
+        for kind, off, sid in shapes:
+            t = _kind_t(kind, rows(bv, kind, off)[None, :], ro, rd)[0]
+            closer = t < t_cap
+            t_cap = torch.where(closer, t, t_cap)
+            cap_idx = torch.where(closer, torch.full_like(cap_idx, sid),
+                                  cap_idx)
+        return t_cap, cap_idx
+
+    def normal_fn(p: Vec3, cap_idx, bv) -> Vec3:
+        zero = torch.zeros_like(p.x)
+        n = Vec3(zero, zero, zero)
+        for kind, off, sid in shapes:
+            g = rows(bv, kind, off)[None, :].expand(p.x.shape[0], -1)
+            n = vwhere(cap_idx == sid, _kind_normal(kind, g, p), n)
+        return n
+
+    def closest_fn(ro: Vec3, rd: Vec3, bv):
+        d_ca = torch.full_like(ro.x, BIG)
+        t_ca = torch.zeros_like(ro.x)
+        i_ca = torch.full_like(ro.x, -1, dtype=torch.int32)
+        for kind, off, sid in shapes:
+            if kind != KIND_SPHERE:
+                continue
+            g = rows(bv, kind, off)
+            oc = Vec3(ro.x - g[0], ro.y - g[1], ro.z - g[2])
+            b = oc.x * rd.x + oc.y * rd.y + oc.z * rd.z
+            oo = oc.x * oc.x + oc.y * oc.y + oc.z * oc.z
+            d = sqrt_rn(torch.clamp(oo - b * b, min=0.0)) - g[3]
+            # A closest point behind the origin: the origin's distance.
+            d = torch.where(-b > 0.0, d, sqrt_rn(oo) - g[3])
+            t = torch.clamp(-b, min=0.0)
+            closer = d < d_ca
+            d_ca = torch.where(closer, d, d_ca)
+            t_ca = torch.where(closer, t, t_ca)
+            i_ca = torch.where(closer, torch.full_like(i_ca, sid), i_ca)
+        return d_ca, t_ca, i_ca
+
+    return cap_fn, normal_fn, closest_fn
+
+
+def capped_winners(t, t_cap, idx, cap_idx, hp: Vec3, normal_fn, bv, scale,
+                   tap_fn):
+    """The ``analytic_unboxed`` winner of each hit: a hit at ``t >= t_cap``
+    is capped and takes ``cap_idx`` and ``scale`` times its exact normal
+    (``make_analytic_unboxed``'s ``normal_fn``); every other hit keeps its
+    id and ``tap_fn(tapped)``, the 6-tap vector of the program at those of
+    its hit points.  ``hp`` holds the hit points in lane order, ``tapped``
+    indexes them.  Returns (idx over all lanes, vector over the hits)."""
+    hit = ~(t > FP)
+    capped = hit & (t >= t_cap)
+    idx = torch.where(capped, cap_idx, idx)
+    ch = capped[hit]
+    v = normal_fn(hp, torch.where(ch, idx[hit], -1), bv) * scale
+    tapped = torch.nonzero(~ch).flatten()
+    v_tap = tap_fn(tapped)
+    return idx, Vec3(*(a.index_put((tapped,), b) for a, b in zip(v, v_tap)))
 
 
 def _accum_for(accum, height: int, width: int, device) -> torch.Tensor:
@@ -135,10 +257,10 @@ def _count_segments(count, bounds):
 
 
 def _analytic_plain(spec, params, xs, ys, frame, bounces, fov, aspect,
-                    count=None, **kw):
+                    count=None, mode="analytic_all", **kw):
     """K1's frame: closed-form hits over the packed tables.  ``count``
     accumulates its ray segments."""
-    layout = _layout_for(spec)
+    layout = _layout_for(spec, mode)
     soa_f, soa_i = pack_soa_smem(layout, bake(spec, params), params)
     cast, normal = make_cast_soa(layout), make_normal_soa(layout)
     mats = material_table(layout, soa_f)
@@ -151,19 +273,43 @@ def _analytic_plain(spec, params, xs, ys, frame, bounces, fov, aspect,
 
 
 def _march_plain(prog: Program, table, t_cull, xs, ys, frame, bounces, fov,
-                 aspect, count=None, **kw):
+                 aspect, count=None, omega=1.0, **kw):
     """K2's frame: the CSG program interpreted per tap, the exact or the
     per-thread t-culled march, 6-tap normals under the bounce's guards.
-    ``count`` accumulates its ray segments and map work
-    (``make_map_program``)."""
+    A program with ``caps`` (``analytic_unboxed``) caps the t-culled march
+    with their closed form; a capped hit takes the capped shape's id and
+    exact normal.  ``omega`` over-relaxes the t-culled march.  ``count``
+    accumulates its ray segments, map work (``make_map_program``) and, as
+    ``"cap_segments"``, the segments the cap is computed for."""
     map_fn = make_map_program(prog, table.tolist(), count)
 
     def map_checked(p, checks):
         return map_fn(p, checks[0])
 
-    if t_cull:
+    def normal(p, _idx, c):
+        return calc_normal(map_checked, p, c[:1])
+
+    if prog.caps.shape[0]:
+        cap_fn, cap_normal, _ = make_analytic_unboxed(prog.spec)
+        bv = table[:baked_layout(prog.spec).n_slots]
+
         def cast(ro, rd, c):
-            return cast_tcull(prog, map_fn, ro, rd, c)
+            if count is not None:
+                count["cap_segments"] = (count.get("cap_segments", 0)
+                                         + ro.x.shape[0])
+            t_cap, cap_idx = cap_fn(ro, rd, bv)
+            t, idx = cast_tcull(prog, map_fn, ro, rd, c, t_cap, omega)
+            lanes = torch.nonzero(~(t > FP)).flatten()
+            hp = Vec3(*(v[lanes] for v in ro + rd * t))
+            idx, n_h = capped_winners(
+                t, t_cap, idx, cap_idx, hp, cap_normal, bv, 1.0,
+                lambda tp: normal(Vec3(*(v[tp] for v in hp)), None,
+                                  take_lanes(c, lanes[tp])))
+            zero = torch.zeros_like(t)
+            return t, idx, Vec3(*(zero.index_put((lanes,), v) for v in n_h))
+    elif t_cull:
+        def cast(ro, rd, c):
+            return cast_tcull(prog, map_fn, ro, rd, c, omega=omega)
     else:
         def cast(ro, rd, c):
             return cast_ray(map_checked, ro, rd, c)
@@ -171,8 +317,7 @@ def _march_plain(prog: Program, table, t_cull, xs, ys, frame, bounces, fov,
     return trace_pixels(
         _count_segments(count,
                         lambda ro, rd: program_bounds(prog, table, ro, rd, t_cull)),
-        cast,
-        lambda p, _idx, c: calc_normal(map_checked, p, c[:1]),
+        cast, normal,
         lambda idx: gather_material(mats, idx),
         xs, ys, frame, bounces, fov, aspect, **kw)
 
@@ -204,7 +349,8 @@ def render_frame_megakernel_plain(
     """The kernels' frame in vectorized torch, on ``params``' device.
     ``count``, a dict, accumulates the work the kernel does for the frame:
     its ``"segments"`` (ray segments, one per live path per bounce) and, for
-    the march, its map work (``render/program.py:make_map_program``)."""
+    the march, its map work (``render/program.py:make_map_program``) and
+    the segments that compute the ``analytic_unboxed`` cap."""
     kernel = _kernel_for(geometry, debug, normals, t_cull, omega,
                          analytic_unboxed, refresh_every, dist_grid,
                          analytic_all, analytic_soa)
@@ -216,13 +362,14 @@ def render_frame_megakernel_plain(
     kw = dict(width=width, height=height, debug=debug)
     with torch.no_grad():
         if kernel == "analytic":
-            col = _analytic_plain(spec, params, xs, ys, frame, bounces, fov,
-                                  aspect, count, **kw)
+            col = _analytic_plain(
+                spec, params, xs, ys, frame, bounces, fov, aspect, count,
+                "analytic_soa" if analytic_soa else "analytic_all", **kw)
         else:
-            prog = build_program(spec, geometry)
+            prog = build_program(spec, geometry, analytic_unboxed)
             col = _march_plain(prog, program_table(prog, params, t_cull),
                                t_cull, xs, ys, frame, bounces, fov, aspect,
-                               count, **kw)
+                               count, _march_omega(omega, t_cull, debug), **kw)
         img = col.stack()
         if debug != 0:
             return accum.copy_(img)
@@ -257,11 +404,14 @@ def render_frame_megakernel(
     is None; debug modes overwrite it with their image).
 
     Runs on ``params``' device: a CUDA tensor launches K1
-    (``analytic_all=True``) or K2 (the marching modes) on the current
+    (``analytic_all=True`` or ``analytic_soa=True``) or K2 (the marching
+    modes, ``analytic_unboxed`` and ``omega`` included) on the current
     stream without synchronising, a CPU tensor runs
     :func:`render_frame_megakernel_plain`.  Modes of ``render_frame_pallas``
-    that are not ported raise ``NotImplementedError``; ``analytic_all`` on a
-    tree with a non-union op raises ``ValueError``.
+    that are not ported (``debug=4``, ``dist_grid``, ``normals`` other than
+    "central", ``refresh_every`` != 1) raise ``NotImplementedError``;
+    the combinations JAX rejects, and ``analytic_all`` / ``analytic_soa``
+    on a tree with a non-union op, raise ``ValueError``.
     """
     mode = dict(geometry=geometry, normals=normals, t_cull=t_cull, omega=omega,
                 analytic_unboxed=analytic_unboxed,
@@ -288,14 +438,23 @@ def render_frame_megakernel(
                aspect=aspect, debug=debug)
     with torch.no_grad():
         if kernel == "analytic":
-            layout = _layout_for(spec)
+            layout = _layout_for(
+                spec, "analytic_soa" if analytic_soa else "analytic_all")
             soa_f, soa_i = pack_soa_smem(layout, bake(spec, params), params)
             launch_megakernel(layout, soa_f, soa_i, accum, **run)
         else:
-            prog = build_program(spec, geometry)
+            prog = build_program(spec, geometry, analytic_unboxed)
             launch_march(prog, program_table(prog, params, t_cull), accum,
-                         t_cull=t_cull, **run)
+                         t_cull=t_cull,
+                         omega=_march_omega(omega, t_cull, debug), **run)
     return accum
+
+
+def _march_omega(omega: float, t_cull: bool, debug: int) -> float:
+    """The over-relaxation the march applies: JAX takes ``omega`` only in
+    the t-culled march of debug 0 and 3 and ignores it elsewhere
+    (megakernel.py:1069-1089, :1418-1435)."""
+    return float(omega) if t_cull and debug in (0, 3) else 1.0
 
 
 def _check_accum(accum: torch.Tensor) -> None:
@@ -360,12 +519,19 @@ def launch_megakernel(layout: SoaSmemLayout, soa_f: torch.Tensor,
 
 def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
                  frame: int, last_clear: int, bounces: int, fov: float,
-                 aspect: float, debug: int, t_cull: bool) -> None:
+                 aspect: float, debug: int, t_cull: bool,
+                 omega: float = 1.0) -> None:
     """Launch K2 on a program's table (``program_table``) and a CUDA (H, W,
     3) float32 accumulator, on the current stream; counts the launch in
-    ``LAUNCHES["megakernel_march"]``."""
+    ``LAUNCHES["megakernel_march"]``.  A program with ``caps`` caps the
+    march in closed form, and ``omega`` != 1 over-relaxes it; both need
+    ``t_cull`` and debug 0 or 3."""
     if debug not in (0, 1, 2, 3):
         raise ValueError(f"the kernel renders debug 0-3, not {debug}")
+    relax = float(omega) != 1.0
+    if (prog.caps.shape[0] or relax) and not (t_cull and debug in (0, 3)):
+        raise ValueError("the closed-form cap and omega need t_cull and "
+                         "debug 0 or 3")
     _check_accum(accum)
     device = accum.device
     height, width = accum.shape[0], accum.shape[1]
@@ -375,10 +541,11 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
     with torch.cuda.device(device):
         err = lib.cpt_megakernel_march(
             code.data_ptr(), prog.ops.shape[0], table.data_ptr(), prog.n_boxed,
-            prog.f_box, prog.f_mat, int(prog.geometry == "baked"),
-            int(bool(t_cull)), accum.data_ptr(), width, height, int(frame),
-            int(last_clear), int(bounces), float(fov), float(aspect),
-            int(debug), torch.cuda.current_stream(device).cuda_stream)
+            prog.f_box, prog.f_mat, prog.caps.shape[0],
+            int(prog.geometry == "baked"), int(bool(t_cull)), float(omega),
+            accum.data_ptr(), width, height, int(frame), int(last_clear),
+            int(bounces), float(fov), float(aspect), int(debug),
+            torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"marching kernel launch failed: CUDA error {err}")
     LAUNCHES["megakernel_march"] += 1

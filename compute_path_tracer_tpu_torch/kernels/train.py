@@ -10,13 +10,18 @@ returns the gradient as the JAX version does; ``diff/inverse.py`` hands it to
 the optimizer as ``params.grad``.  Per step and sample:
 
 * ``fused_tables``: the baked vector (``bake``, differentiable) and the
-  tables the kernel reads: the baked CSG program of render/program.py and,
-  with ``analytic_all``, K1's packed shape tables;
+  tables the kernel reads: the baked CSG program of render/program.py (with
+  ``analytic_unboxed`` the program without the eligible guard-less shapes,
+  and their cap list) and, with ``analytic_all``, K1's packed shape
+  tables;
 * ``fused_planes``: on a CUDA tensor one launch of
   ``csrc/train_fused.cu`` (counted in ``LAUNCHES["train_fused"]``), on a CPU
   tensor :func:`fused_planes_plain`.  Per pixel, phase 1 is the bounce loop
   (K2's baked t-culled march with the closest approach of bounce 0, or K1's
-  closed form with ``analytic_all``); phase 2 the reverse sweep: the
+  closed form with ``analytic_all``; with ``analytic_unboxed`` the march
+  is capped by the closed form of the skipped shapes, and a capped hit
+  takes that shape's id and ``g = n * 2e-4`` from its exact normal, JAX
+  ``train.py:465-520``); phase 2 the reverse sweep: the
   adjoint of each bounce's shading replay, the hit distance linearised by
   the implicit identity ``t = t* + A.(ro - ro*) + B.(rd - rd*) + t_aux``
   with ``A = -g/(g.rd)``, ``B = A t*`` from the 6-tap gradient ``g``; then
@@ -24,6 +29,12 @@ the optimizer as ``params.grad``.  Per step and sample:
 * outside the kernel, in torch: the slot-gather transposes, the bake vjp
   and, for trees with a non-union op, the map vjp seeded with the kernel's
   per-bounce ``scale = -dL/dt / (g.rd)`` planes.
+
+Phase 2 reads every leaf: the winner-leaf partials, the map vjp and the
+secondary exclusion march (JAX ``_make_excl_closest``) take the full baked
+program, also with ``analytic_unboxed``, whose edge term folds in the
+closed-form closest approach of the skipped spheres (JAX
+``train.py:682-687``).
 
 Two modes, as in JAX: union-only trees take the winner-leaf mode, where the
 kernel reduces every cotangent to ``(n_shapes, 13)`` material and
@@ -41,7 +52,7 @@ primary ray, the signed continuation) do not cull at all, since a
 per-thread cull hides every shape from the near misses the coverage term is
 about (PERF.md); the winner id is the march's last tap; the normal taps run
 under the bounce's full guards.  The TPU-only ``tile`` and ``interpret``
-arguments are gone, and ``analytic_unboxed`` (K2b) is not ported.
+arguments are gone.
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ from ..render.baked import (
     GEOM_SLOTS,
     bake,
     baked_geom_slot_matrix,
+    baked_layout,
     leaf_distance,
     make_bounds_baked,
     make_map_baked,
@@ -95,6 +107,7 @@ from ..ops.rng import random_float01
 from ..scene.compile import SceneSpec
 from ..vecmath import Vec3, sqrt_rn
 from .build import load_library
+from .megakernel import capped_winners, make_analytic_unboxed
 
 # Launches since import (or since a caller reset them).
 LAUNCHES = {"train_fused": 0}
@@ -153,6 +166,7 @@ class FusedMode(NamedTuple):
     analytic_all: bool = False
     edge_beta: float = 0.5
     edge_beta2: float = 2.0
+    analytic_unboxed: bool = False
 
     @property
     def b1(self) -> int:
@@ -173,7 +187,8 @@ class FusedTables(NamedTuple):
 
     spec: SceneSpec
     bv: torch.Tensor          # baked vector, attached to the params' graph
-    prog: Program             # the baked CSG program
+    prog: Program             # the baked CSG program (analytic_unboxed: its
+                              # skip variant, with the cap list)
     table: torch.Tensor       # its t-culled table (program_table)
     leaf_lut: torch.Tensor    # (S, 2) int32: kind, bv offset of each shape
     layout: Optional[SoaSmemLayout]   # analytic_all: K1's packed tables
@@ -213,13 +228,15 @@ def _leaf_lut_on(spec: SceneSpec, device: torch.device) -> torch.Tensor:
 
 
 def fused_tables(spec: SceneSpec, params: torch.Tensor,
-                 analytic_all: bool = False) -> FusedTables:
+                 analytic_all: bool = False,
+                 analytic_unboxed: bool = False) -> FusedTables:
     """Bake ``params`` (keeping the graph for the bake vjp) and build the
-    tables the fused step reads."""
+    tables the fused step reads.  The skip program of ``analytic_unboxed``
+    has the full program's table: a skipped shape has no box."""
     if analytic_all and build_soa_smem_layout(spec) is None:
         raise ValueError("analytic_all requires a union-only tree")
     bv = bake(spec, params)
-    prog = build_program(spec, "baked")
+    prog = build_program(spec, "baked", analytic_unboxed)
     pd = params.detach()
     with torch.no_grad():
         table = program_table(prog, pd, True)
@@ -471,7 +488,13 @@ def fused_planes_plain(tables: FusedTables, target: torch.Tensor, frame: int,
         return map_fn(p, checks[0])
 
     mats = table[prog.f_mat:].view(prog.n_shapes, -1)
-    leaves = _leaves(prog, table.tolist()) if mode.edge_secondary else None
+    # The exclusion march keeps every leaf, the skipped ones included.
+    leaves = (_leaves(build_program(tables.spec, "baked"), table.tolist())
+              if mode.edge_secondary else None)
+    unboxed = mode.analytic_unboxed and prog.caps.shape[0] > 0
+    if unboxed:
+        cap_fn, cap_normal, closest_fn = make_analytic_unboxed(tables.spec)
+        bv_t = table[:baked_layout(tables.spec).n_slots]
     if mode.analytic_all:
         cast_soa = make_cast_soa(tables.layout)
         normal_soa = make_normal_soa(tables.layout)
@@ -494,13 +517,27 @@ def fused_planes_plain(tables: FusedTables, target: torch.Tensor, frame: int,
             t_a, idx_a = cast_soa(ro_a, rd_a, tables.soa_f, tables.soa_i)
         else:
             checks, _ = program_bounds(prog, table, ro_a, rd_a, True)
-            t_a, idx_a = cast_tcull(prog, map_fn, ro_a, rd_a, checks)
+            t_cap = None
+            if unboxed:
+                _tally(count, "cap_segments", al.numel())
+                t_cap, cap_idx = cap_fn(ro_a, rd_a, bv_t)
+            t_a, idx_a = cast_tcull(prog, map_fn, ro_a, rd_a, checks, t_cap)
         h = ~(t_a > FP)
         hl = al[h]
         hp = Vec3(*(o[h] + d[h] * t_a[h] for o, d in zip(ro_a, rd_a)))
         if mode.analytic_all:
             n_h = normal_soa(hp, idx_a[h], tables.soa_f, tables.soa_i)
             g_h = n_h * float(_F32(2.0 * EPS_N))
+        elif unboxed:
+            # A capped winner: its id, and its exact normal scaled so that
+            # g * 0.5/eps is a unit normal (JAX train.py:508-515).
+            hit_lanes = torch.nonzero(h).flatten()
+            idx_a, g_h = capped_winners(
+                t_a, t_cap, idx_a, cap_idx, hp, cap_normal, bv_t,
+                float(_F32(2.0 * EPS_N)),
+                lambda tp: calc_grad(map_checked, Vec3(*(c[tp] for c in hp)),
+                                     take_lanes(checks[:1], hit_lanes[tp])))
+            n_h = g_h.normalize_safe()
         else:
             g_h = calc_grad(map_checked, hp, take_lanes(checks[:1], h))
             n_h = g_h.normalize_safe()
@@ -623,8 +660,13 @@ def fused_planes_plain(tables: FusedTables, target: torch.Tensor, frame: int,
             lanes = torch.arange(n, device=device)
             t0, cap = zero, STEPS + 32
         else:
+            cap0 = None
+            if unboxed:
+                _tally(count, "cap_segments", n)
+                cap0, _ = cap_fn(ro0, rd0, bv_t)
             t_ex, _, e_dmin, e_tmin = cast_ray(map_checked, ro0, rd0,
-                                               checks0, closest=True)
+                                               checks0, closest=True,
+                                               t_cap=cap0)
             lanes = torch.nonzero(e_dmin < MHD).flatten()
             t0, cap = t_ex[lanes], 32
         c_dmin, c_tmin = _continue_march(
@@ -635,6 +677,14 @@ def fused_planes_plain(tables: FusedTables, target: torch.Tensor, frame: int,
         e_dmin[lanes] = torch.minimum(e_dmin[lanes], c_dmin)
         _, e_id = map_fn(ro0 + rd0 * e_tmin, checks0[0])
         e_imin = torch.where(e_dmin < 0.5 * BIG, e_id, torch.full_like(e_id, -1))
+        if unboxed:
+            # The skipped spheres are in no map tap: their closed-form
+            # closest approach (JAX train.py:682-687).
+            d_ca, t_ca, i_ca = closest_fn(ro0, rd0, bv_t)
+            closer = d_ca < e_dmin
+            e_imin = torch.where(closer, i_ca, e_imin)
+            e_tmin = torch.where(closer, t_ca, e_tmin)
+            e_dmin = torch.where(closer, d_ca, e_dmin)
 
         foot1, foot2 = edge_footprints(mode, height, fov)
         w = torch.zeros_like(zero)
@@ -754,18 +804,24 @@ def launch_train_fused(tables: FusedTables, target: torch.Tensor, frame: int,
         kmeta, sid_lut = _kernel_meta(tables.layout, device)
         analytic = (tables.soa_f, tables.soa_i, kmeta, sid_lut)
     foot1, foot2 = edge_footprints(mode, height, fov)
+    unboxed = mode.analytic_unboxed and prog.caps.shape[0] > 0
     flags = (int(mode.winner) | int(mode.edge_grad) << 1
-             | int(mode.edge_secondary) << 2 | int(mode.analytic_all) << 3)
+             | int(mode.edge_secondary) << 2 | int(mode.analytic_all) << 3
+             | int(unboxed) << 4)
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
     code = program_code_on(prog, device)
+    # The secondary exclusion march reads every leaf of the full program.
+    full = build_program(tables.spec, "baked")
     lib = load_library()
     with torch.cuda.device(device):
         err = lib.cpt_train_fused(
-            code.data_ptr(), prog.ops.shape[0], table.data_ptr(),
-            prog.n_boxed, prog.f_box, prog.f_mat, tables.leaf_lut.data_ptr(),
+            code.data_ptr(), prog.ops.shape[0], prog.caps.shape[0],
+            program_code_on(full, device).data_ptr(), full.ops.shape[0],
+            table.data_ptr(), prog.n_boxed, prog.f_box, prog.f_mat,
+            tables.leaf_lut.data_ptr(),
             S, *(ptr(t) for t in (analytic or (None,) * 4)),
             len(tables.layout.kinds) if analytic else 0,
             target.data_ptr(), col.data_ptr(), ptr(part), ptr(acc),
@@ -837,7 +893,8 @@ def _fused_sse_and_grad_impl(spec: SceneSpec, params: torch.Tensor,
     width) color planes."""
     p = params.detach().requires_grad_()
     with torch.enable_grad():
-        tables = fused_tables(spec, p, mode.analytic_all)
+        tables = fused_tables(spec, p, mode.analytic_all,
+                              mode.analytic_unboxed)
     out = fused_planes(tables, target, frame, fov, aspect, row_offset,
                        width=width, height=height, mode=mode)
     crop_h = target.shape[1]
@@ -890,22 +947,22 @@ def make_fused_value_and_grad(
     coverage term (without it no geometry slot gets a gradient: this
     shading model's smooth geometry gradient is zero); ``edge_secondary``
     (needs ``edge_grad``) the secondary-bounce term; ``analytic_all``
-    (union-only trees) takes phase 1 in K1's closed form.  The loss and the
-    image do not depend on the edge options.  ``analytic_unboxed`` needs
-    K2b and raises ``NotImplementedError``."""
-    if analytic_unboxed:
-        raise NotImplementedError(
-            "analytic_unboxed needs the megakernel's analytic_unboxed mode "
-            "(K2b), which is not ported (ROADMAP queue 1, item 6)")
+    (union-only trees) takes phase 1 in K1's closed form;
+    ``analytic_unboxed`` caps phase 1's march with the closed form of the
+    guard-less shapes of ``analytic_eligible_ids`` (a no-op where there are
+    none).  The loss and the image do not depend on the edge options."""
     if edge_secondary and not edge_grad:
         raise ValueError("edge_secondary requires edge_grad")
     if spp < 1:
         raise ValueError("spp must be >= 1")
+    if analytic_all and analytic_unboxed:
+        raise ValueError("analytic_all subsumes analytic_unboxed; enable "
+                         "only one")
     winner = spec_is_union_only(spec)
     if analytic_all and not winner:
         raise ValueError("analytic_all requires a union-only tree")
     mode = FusedMode(bounces, winner, edge_grad, edge_secondary, analytic_all,
-                     edge_beta, edge_beta2)
+                     edge_beta, edge_beta2, analytic_unboxed)
     if aspect is None:
         aspect = width / height
     tgt = torch.as_tensor(np.array(target, np.float32) if not isinstance(

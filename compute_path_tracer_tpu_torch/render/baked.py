@@ -108,6 +108,33 @@ def baked_layout(spec: SceneSpec) -> BakedLayout:
 
 
 @lru_cache(maxsize=None)
+def analytic_eligible_ids(spec: SceneSpec) -> frozenset:
+    """Shape ids that ``analytic_unboxed`` removes from the baked map and
+    intersects in closed form instead (JAX ``analytic_eligible_ids``): a
+    guard-less plane, sphere or cube whose every union on the root path,
+    its own included, is a plain UNION (its distance passes through min
+    folds alone), and which is not the first shape of a union with child
+    unions (whose assign clobbers them, containers.rs:244-252)."""
+    out = set()
+
+    def walk(us, union_path):
+        here = union_path and us.op == OP_UNION
+        for cu in us.children_unions:
+            walk(cu, here)
+        for si, ss in enumerate(us.children_shapes):
+            if ss.transform.aabb or not here:
+                continue
+            if si == 0 and us.children_unions:
+                continue
+            if ss.kind in (KIND_PLANE, KIND_SPHERE, KIND_CUBE):
+                out.add(ss.shape_id)
+
+    for r in spec.roots:
+        walk(r, True)
+    return frozenset(out)
+
+
+@lru_cache(maxsize=None)
 def analytic_all_plan(spec: SceneSpec):
     """Static plan for the full-analytic bounce: ``None`` when the tree has
     any non-union op, else ``(BakedShape, clobber_ids)`` rows in walk order,

@@ -29,6 +29,15 @@ reference's box, which decides the guard) and, for the t-culled march, a
 sphere that bounds the leaf itself; then the materials.  Faithful trig is computed here once per frame, so the kernel
 and the plain interpreter read the same cos/sin and agree bit for bit.
 
+``build_program(..., skip_unboxed=True)`` (baked geometry) is the program
+of the ``analytic_unboxed`` mode: the SHAPE ops of the guard-less shapes
+that ``analytic_eligible_ids`` names are left out, and the program's
+``caps`` list them, as (kind, baked offset, shape id) in walk order, for the
+closed-form cap of the march (kernels/megakernel.py:make_analytic_unboxed).
+A skipped first shape leaves the union's seed in the accumulator, and the
+next shape folds into it (JAX ``_eval_union_d``); the table is the full
+program's, since a skipped shape has no box.
+
 ``make_map_program`` / ``program_bounds`` / ``cast_tcull`` are the plain
 torch versions of the kernel's map, guards and per-thread t-culled march.
 """
@@ -48,7 +57,13 @@ from ..ops.sdf import combine, rot3d_cs
 from ..scene.compile import OP_SMOOTH_UNION, OP_UNION, SceneSpec
 from ..scene.model import KIND_CUBE, KIND_PLANE, KIND_SPHERE
 from ..vecmath import Vec3, sqrt_rn
-from .baked import GEOM_SLOTS, bake, baked_layout, leaf_distance
+from .baked import (
+    GEOM_SLOTS,
+    analytic_eligible_ids,
+    bake,
+    baked_layout,
+    leaf_distance,
+)
 from .reference import take_lanes
 from .scenegen import material_slot_matrix, shape_distance
 
@@ -67,6 +82,7 @@ class Program:
     ops: np.ndarray        # (n_ops, OP_WIDTH) int32
     box_cull: np.ndarray   # (n_boxed,) int32: 1 where t-culling may drop it
     box_leaf: np.ndarray   # (n_boxed, 2): kind, baked slot offset
+    caps: np.ndarray       # (n_cap, 3) int32: kind, baked offset, shape id
     depth: int             # deepest union nesting
     n_boxed: int
     f_box: int             # F offsets: boxes (n_boxed, 6), bounding spheres
@@ -85,13 +101,20 @@ class Program:
 
 
 @lru_cache(maxsize=None)
-def build_program(spec: SceneSpec, geometry: str) -> Program:
-    """Flatten ``spec`` for ``geometry`` ("faithful" or "baked")."""
+def build_program(spec: SceneSpec, geometry: str,
+                  skip_unboxed: bool = False) -> Program:
+    """Flatten ``spec`` for ``geometry`` ("faithful" or "baked");
+    ``skip_unboxed`` (baked only) leaves the shapes of
+    ``analytic_eligible_ids`` out of the ops and lists them in ``caps``."""
     if geometry not in ("faithful", "baked"):
         raise ValueError("geometry must be 'faithful' or 'baked'")
     baked = geometry == "baked"
+    if skip_unboxed and not baked:
+        raise ValueError("skip_unboxed requires geometry='baked'")
+    skip = analytic_eligible_ids(spec) if skip_unboxed else frozenset()
     zero, one = spec.n_params, spec.n_params + 1
-    ops, nodes, chains, sizes, gathers, culls, leaves = ([] for _ in range(7))
+    ops, nodes, chains, sizes, gathers, culls, leaves, caps = (
+        [] for _ in range(8))
     depth = [0]
 
     def node(t, size):
@@ -113,6 +136,10 @@ def build_program(spec: SceneSpec, geometry: str) -> Program:
         for si, (ss, bs) in enumerate(zip(us.children_shapes,
                                           bu.children_shapes)):
             srec = node(ss.transform, ss.size)
+            if ss.shape_id in skip:
+                # Guard-less, so no box; the next shape keeps its fold.
+                caps.append((ss.kind, bs.off, ss.shape_id))
+                continue
             box = -1
             # Only a bounded shape whose value reaches the scene through min
             # folds alone may leave the map away from it: dropping a
@@ -163,6 +190,7 @@ def build_program(spec: SceneSpec, geometry: str) -> Program:
         ops=np.asarray(ops, np.int32).reshape(-1, OP_WIDTH),
         box_cull=np.asarray(culls, np.int32),
         box_leaf=np.asarray(leaves, np.int64).reshape(-1, 2),
+        caps=np.asarray(caps, np.int32).reshape(-1, 3),
         depth=depth[0], n_boxed=n_boxed, f_box=f_box, f_sph=f_sph, f_mat=f_mat,
         f_len=f_mat + MAT_SIZE * spec.n_shapes,
         node_slots=np.asarray(nodes, np.int64).reshape(-1, 10),
@@ -181,7 +209,7 @@ class _OnDevice(NamedTuple):
     size: torch.Tensor       # box_size
     gather: torch.Tensor     # box_gather
     mat_slots: torch.Tensor  # (n_shapes, 18) material slots
-    code: torch.Tensor       # int32: ops, flattened, then box_cull
+    code: torch.Tensor       # int32: ops, flattened, then box_cull, caps
     cull: torch.Tensor       # bool box_cull
     spheres: tuple           # (kind, rows, (n, slots) bv offsets) per kind
     consts: torch.Tensor     # float32 [0.0, 1.0], the slots past the params
@@ -194,7 +222,8 @@ def _on_device(prog: Program, device: torch.device) -> _OnDevice:
     def t(a):
         return torch.as_tensor(a, dtype=torch.int64, device=device)
 
-    code = np.concatenate([prog.ops.reshape(-1), prog.box_cull])
+    code = np.concatenate([prog.ops.reshape(-1), prog.box_cull,
+                           prog.caps.reshape(-1)])
     spheres = []
     for kind in np.unique(prog.box_leaf[:, 0]):
         rows = np.nonzero((prog.box_leaf[:, 0] == kind) & (prog.box_cull != 0))[0]
@@ -276,7 +305,8 @@ def program_table(prog: Program, params: torch.Tensor,
 
 def program_code_on(prog: Program, device) -> torch.Tensor:
     """What the kernel reads as its program, on ``device`` (cached): the
-    op records, flattened, then ``box_cull``, as one int32 vector."""
+    op records, flattened, then ``box_cull``, then ``caps``, as one int32
+    vector."""
     return _on_device(prog, torch.device(device)).code
 
 
@@ -379,7 +409,8 @@ def program_bounds(prog: Program, table, ro: Vec3, rd: Vec3, with_t: bool):
     return (hit, lo, hi), dbg
 
 
-def cast_tcull(prog: Program, map_fn, ro: Vec3, rd: Vec3, checks):
+def cast_tcull(prog: Program, map_fn, ro: Vec3, rd: Vec3, checks,
+               t_cap=None, omega: float = 1.0):
     """The kernel's t-culled march (JAX ``_march_while_tcull`` with the tile
     reduced to one ray, and the interval taken through a sphere that bounds
     the leaf, where the reference's box need not): a guarded shape with
@@ -388,12 +419,24 @@ def cast_tcull(prog: Program, map_fn, ro: Vec3, rd: Vec3, checks):
     ``max(t_lo - t, MHD)``; the other guarded shapes keep the bounce-level
     check.  ``checks`` is ``(check, t_lo, t_hi)`` from
     ``program_bounds(..., with_t=True)``.  Returns ``(t, idx)`` like
-    ``cast_ray``, ``idx`` from the last tap."""
+    ``cast_ray``, ``idx`` from the last tap.
+
+    ``t_cap`` ((n,), the closed-form cap of ``analytic_unboxed``) stops a
+    ray on it: ``t = min(t, t_cap)``, done once ``t >= t_cap``.  ``omega``
+    != 1 over-relaxes the march (JAX ``:785-820``): an exterior sample (d >
+    0) steps ``min(omega |d|, clamp)``; when the unbounding spheres of two
+    samples stop overlapping (``d_prev > 0`` and ``s_prev > d_prev + d``,
+    signed) the ray reverts to ``t_prev + f_prev``, the step the exact march
+    would have taken there, and a hit needs no such overshoot."""
     cull = _on_device(prog, ro.x.device).cull
+    relax = float(omega) != 1.0
+    om = float(np.float32(omega))
     t = torch.zeros_like(ro.x)
     idx = torch.full_like(ro.x, -1, dtype=torch.int32)
     live = torch.arange(t.shape[0], device=t.device)
-    lt = t
+    lt = torch.zeros_like(t)  # not t itself: t is written in place
+    cap = t_cap
+    tp = dp = sp = fp = lt  # relax: t, d, step and exact step of the last sample
     for _ in range(STEPS):
         if live.numel() == 0:
             break
@@ -407,12 +450,33 @@ def cast_tcull(prog: Program, map_fn, ro: Vec3, rd: Vec3, checks):
             m = torch.full_like(lt, BIG)
         d, mi = map_fn(ro + rd * lt, active)
         ad = torch.abs(d)
-        nt = lt + torch.minimum(ad, torch.clamp(m - lt, min=MHD))
+        clamp = torch.clamp(m - lt, min=MHD)
+        exact = torch.minimum(ad, clamp)
+        if relax:
+            over = (dp > 0.0) & (sp > dp + d)
+            step = torch.where(d > 0.0, torch.minimum(om * ad, clamp), exact)
+            nt = torch.where(over, tp + fp, lt + step)
+            hit = ~over & (ad < MHD)
+        else:
+            nt = lt + exact
+            hit = ad < MHD
+        if cap is not None:
+            nt = torch.minimum(nt, cap)
         far = nt > FP
         t[live] = nt
         idx[live] = torch.where(far, torch.full_like(mi, -1), mi)
-        keep = ~((ad < MHD) | far)
+        done = hit | far
+        if cap is not None:
+            done = done | (nt >= cap)
+        keep = ~done
+        if relax:
+            tp, dp, sp, fp = (torch.where(over, tp, lt)[keep],
+                              torch.where(over, dp, d)[keep],
+                              torch.where(over, fp, step)[keep],
+                              torch.where(over, fp, exact)[keep])
         live, lt = live[keep], nt[keep]
         ro, rd = (Vec3(v.x[keep], v.y[keep], v.z[keep]) for v in (ro, rd))
         checks = take_lanes(checks, keep)
+        if cap is not None:
+            cap = cap[keep]
     return t, idx

@@ -148,14 +148,17 @@ def take_lanes(checks, sel):
     return tuple(None if c is None else c[sel] for c in checks)
 
 
-def cast_ray(map_fn, ro: Vec3, rd: Vec3, checks, closest: bool = False):
+def cast_ray(map_fn, ro: Vec3, rd: Vec3, checks, closest: bool = False,
+             t_cap=None):
     """The 80-step sphere march of (n,) rays (test_compute.glsl:74-89, JAX
     package ``render/reference.py:cast_ray``): ``t += |d|``, a hit at ``|d|
     < MHD``, far once ``t > FP``.  Returns ``(t, idx)``, ``idx`` the id of
     the last map tap (-1 when far).  ``map_fn(p, checks) -> (d, idx)``.
     ``closest=True`` also returns the closest approach ``(d_min, t_min)``:
     the smallest signed map value over the ray's taps and the t it was
-    taken at (JAX ``with_closest``; BIG and 0 before any tap).
+    taken at (JAX ``with_closest``; BIG and 0 before any tap).  ``t_cap``
+    ((n,), the closed-form cap of ``analytic_unboxed``) stops a ray on it:
+    ``t = min(t, t_cap)``, done once ``t >= t_cap``.
 
     Each step evaluates only the rays still marching, so a lane's result is
     that of the JAX version's masked fixed-trip loop.  ``t`` is updated out
@@ -178,10 +181,16 @@ def cast_ray(map_fn, ro: Vec3, rd: Vec3, checks, closest: bool = False):
             t_min[live] = torch.where(better, lt, t_min[live])
         ad = torch.abs(d)
         nt = lt + ad
+        if t_cap is not None:
+            nt = torch.minimum(nt, t_cap)
         far = nt > FP
         t = t.index_put((live,), nt)
         idx[live] = torch.where(far, torch.full_like(mi, -1), mi)
-        keep = ~((ad < MHD) | far)
+        done = (ad < MHD) | far
+        if t_cap is not None:
+            done = done | (nt >= t_cap)
+            t_cap = t_cap[~done]
+        keep = ~done
         live, ro, rd, lt = live[keep], _sel(ro, keep), _sel(rd, keep), nt[keep]
         checks = take_lanes(checks, keep)
     return (t, idx, d_min, t_min) if closest else (t, idx)

@@ -2,14 +2,16 @@
 """Where the port's main-path frame or training-step time goes, on one
 NVIDIA GPU.
 
-    python3 profile_main.py [--mode analytic|march|train|fused]
+    python3 profile_main.py [--mode analytic|march|unboxed|train|fused]
                             [--normals kernel|central] [--remat]
-                            [--config analytic|march|secondary]
+                            [--config analytic|march|secondary|unboxed]
 
-``analytic`` (the default) and ``march`` drive RenderSession at 1920x1080
-over the 64-primitive benchmark scene with 8 bounces, in one of
-chip_smoke.py's two rendering main paths: K1, the full-analytic bounce, or
-K2, the baked t-culled sphere march.  They print:
+``analytic`` (the default), ``march`` and ``unboxed`` drive RenderSession at
+1920x1080 over the 64-primitive benchmark scene with 8 bounces, in one of
+chip_smoke.py's rendering main paths: K1, the full-analytic bounce; K2, the
+baked t-culled sphere march; or K2 with ``analytic_unboxed``, the march
+capped by the closed form of the guard-less shapes (bench.py:189).  They
+print:
 
 * the host-clock ms/frame of REPEATS untraced runs of FRAMES frames;
 * from one run of FRAMES frames under torch.profiler: the traced ms/frame
@@ -31,9 +33,10 @@ forward (bake, tables, shading, the bounce loop), the rest of the backward
 and the Adam update, and the TOP_OPS device ops with the most time.
 
 ``fused`` drives the fused train step (kernels/train.py, one K4 launch per
-step) of the same scene and size in one of chip_smoke.py's three
+step) of the same scene and size in one of chip_smoke.py's four
 configurations (``--config``; by default ``analytic_all`` with the edge
-term, the main one), with an Adam step: the host-clock ms/step of REPEATS
+term, the main one; ``unboxed`` is bench.py:442's ``analytic_unboxed``
+without the edge term), with an Adam step: the host-clock ms/step of REPEATS
 untraced steps and the peak memory, then from one traced step the device
 ops, the busy share and the device time by part: K4 (train_fused and its
 sum_rows), the bake and tables, the transposes, bake vjp and loss around
@@ -61,13 +64,16 @@ MODES = {
     "analytic": (dict(geometry="baked", analytic_all=True),
                  "megakernel_analytic"),
     "march": (dict(geometry="baked", t_cull=True), "megakernel_march"),
+    "unboxed": (dict(geometry="baked", t_cull=True, analytic_unboxed=True),
+                "megakernel_march"),
 }
 # --config of --mode fused -> make_fused_value_and_grad options (bench.py:462,
-# :424, :433)
+# :424, :433, :442)
 FUSED_CONFIGS = {
     "analytic": dict(analytic_all=True, edge_grad=True),
     "march": dict(edge_grad=True),
     "secondary": dict(edge_grad=True, edge_secondary=True),
+    "unboxed": dict(analytic_unboxed=True),
 }
 
 
@@ -321,7 +327,8 @@ def main() -> int:
     ap.add_argument("--config", default="analytic",
                     choices=tuple(FUSED_CONFIGS),
                     help="fused: analytic_all + edge_grad (the main one), "
-                         "march + edge_grad, or with edge_secondary")
+                         "march + edge_grad, with edge_secondary, or "
+                         "analytic_unboxed")
     ap.add_argument("--normals", default="kernel", choices=("kernel", "central"),
                     help="train: the shading normal (kernel = K3's, detached)")
     ap.add_argument("--remat", action="store_true",

@@ -96,9 +96,9 @@ def test_unported_options_raise():
         make_loss(tc.spec, target, width=4, height=4, edge_grad=True)
     with pytest.raises(NotImplementedError, match="item 8"):
         render_image_diff(tc.spec, p, width=4, height=4, edge_secondary=True)
-    with pytest.raises(NotImplementedError, match="K2b"):
+    with pytest.raises(ValueError, match="analytic_all"):
         make_fused_value_and_grad(tc.spec, target, width=4, height=4,
-                                  analytic_unboxed=True)
+                                  analytic_unboxed=True, analytic_all=True)
     for flag in ("--edge-grad", "--edge-secondary"):
         with pytest.raises(NotImplementedError):
             cli_main(["optimize", "--device", "cpu", "--steps", "1", flag])

@@ -229,10 +229,20 @@ def test_rejects_non_union_tree():
                                 dict(omega=1.5), dict(dist_grid=True)],
                          ids=str)
 def test_unported_modes_raise(bench16, kw):
+    """With the defaults (faithful geometry, no t_cull): debug 4 and
+    dist_grid are not ported; analytic_unboxed raises JAX's ValueError (it
+    needs baked geometry and t_cull); omega is ignored outside the t-culled
+    march, as JAX ignores it."""
     _, tc = bench16
-    with pytest.raises(NotImplementedError):
-        mk.render_frame_megakernel(tc.spec, torch.from_numpy(tc.params),
-                                   width=16, height=8, bounces=0, **kw)
+    pv = torch.from_numpy(tc.params)
+    args = dict(width=16, height=8, bounces=0)
+    if "omega" in kw:
+        assert torch.equal(mk.render_frame_megakernel(tc.spec, pv, **kw, **args),
+                           mk.render_frame_megakernel(tc.spec, pv, **args))
+        return
+    raises = ValueError if "analytic_unboxed" in kw else NotImplementedError
+    with pytest.raises(raises):
+        mk.render_frame_megakernel(tc.spec, pv, **kw, **args)
 
 
 @pytest.mark.slow

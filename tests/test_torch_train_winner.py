@@ -168,8 +168,7 @@ def test_segment_matmul_matches_jax():
 
 
 def test_rejections():
-    """The fused step's ValueErrors as JAX raises them, and the option that
-    needs an unported kernel."""
+    """The fused step's ValueErrors as JAX raises them."""
     _, glass = scenes("glass_demo")
     _, csg = scenes("csg_demo")
     tgt = np.zeros((8, 8, 3), np.float32)
@@ -181,9 +180,9 @@ def test_rejections():
         tt.make_fused_value_and_grad(csg.spec, tgt, analytic_all=True, **kw)
     with pytest.raises(ValueError, match="edge_secondary"):
         tt.make_fused_value_and_grad(csg.spec, tgt, edge_secondary=True, **kw)
-    with pytest.raises(NotImplementedError, match="K2b"):
+    with pytest.raises(ValueError, match="analytic_all"):
         tt.make_fused_value_and_grad(csg.spec, tgt, analytic_unboxed=True,
-                                     **kw)
+                                     analytic_all=True, **kw)
 
 
 def test_mat_channels_match_jax():
