@@ -7,7 +7,8 @@ Needs one NVIDIA GPU (sm_90a) with the CUDA toolkit; exits non-zero without
 printing a result when there is none or when the port's package is missing.
 It builds the CUDA kernels from the checkout and, for each kernel, holds it
 against its plain torch version on the card (at 320x180 over scenes and
-modes, and one frame at its main path's 1920x1080), then drives its main
+modes, and one frame at its main path's 1920x1080; the megakernels' frames
+and K4's image bit for bit), then drives its main
 path through RenderSession at 1920x1080 over the 64-primitive benchmark
 scene with 8 bounces (the JAX package's bench.py rows):
 
@@ -40,6 +41,17 @@ and the modes of the same two kernels that the last bench.py rows run:
   ``benchmark_scene(256)`` and ``(512)`` against its plain version, bit for
   bit K1's ``analytic_all`` frame at 64 primitives, and its main path at
   1920x1080 for each;
+* K6 on K2's binary: ``dist_grid`` (the march on the frame's baked
+  lower-bound distance grid, benchmarks/distgrid_bench.py) against its plain
+  version on four scenes in debug 0 and 3, with ``analytic_unboxed``, and
+  with a zero ``grid_tau`` (every ray runs out of iterations); ``omega``
+  ignored under it; its frame against K2's; its main path through
+  RenderSession at 1920x1080 with one launch per frame, a 1080p plain frame
+  held to the kernel's that counts the work, and kernel-only times at grid
+  resolutions 8, 16 and 32 and a wider ``grid_tau`` beside K2's and K2b's,
+  with the grid march's warp statistics;
+* multi-frame accumulation (``render_accumulated_megakernel``) through K1
+  and K2, bit for bit the frames one at a time;
 
 and the fused train step through K4 (train_fused): the whole step (loss,
 gradient, image) with K4 against the same with its plain version at
@@ -70,6 +82,11 @@ from contextlib import contextmanager
 from functools import partial
 
 CHECK_W, CHECK_H = 320, 180      # kernel-vs-plain phase
+# The bounces of the 320x180 checks of the marching kernels (K2, K2b, K6,
+# K4): their plain versions are bound by torch launches per march step, and
+# 4 bounces keep the script inside its time; the 1080p checks and the main
+# paths take all 8.
+CHECK_BOUNCES = 4
 MAIN_W, MAIN_H, BOUNCES = 1920, 1080, 8
 N_PRIMS = 64
 TIMED_FRAMES = 8
@@ -79,6 +96,12 @@ ANALYTIC = dict(geometry="baked", analytic_all=True)
 MARCH = dict(geometry="baked", t_cull=True)
 # K2b's main path (bench.py:189) and K5's (bench.py:275, at SOA_PRIMS).
 UNBOXED = dict(MARCH, analytic_unboxed=True)
+# K6's main path (benchmarks/distgrid_bench.py), its timed grid resolutions
+# and its wider exact-tap shell (16 MHD against GRID_TAU's 4).
+GRID = dict(MARCH, dist_grid=True)
+GRID_RES = (8, 16, 32)
+GRID_TAU_WIDE = 16e-3
+ACC_FRAMES = 3
 SOA = dict(geometry="baked", analytic_soa=True)
 SOA_PRIMS = (256, 512)
 OMEGA = 1.6
@@ -91,6 +114,7 @@ GRAD_BOUNCES = 2
 # Gradient through K3 against the same with K3's plain version: K3 matches
 # it bit for bit, so only summation order may differ.
 GRAD_LOSS_REL, GRAD_TOP_REL, GRAD_COS = 1e-5, 1e-4, 1e-6
+TOP_FLOOR = 1e-6
 # Against the plain (exact, uncut) march: t_cull moves hits inside the MHD
 # shell, and on a silhouette a few pixels (16 of 57,600 on the benchmark
 # scene) see another shape, lamps included, which dominate the loss; the
@@ -121,6 +145,13 @@ SLAB_OPS = 26
 TAP_OPS = 11
 LEAF_OPS = {0: 12, 1: 39, 2: 7, 3: 32}
 ANALYTIC_LEAF_OPS = {0: 22, 1: 70, 2: 16, 3: 113}
+# One grid tap (csg_program.cuh:grid_tap): the cell index (3 subs, 3 muls,
+# 3 floors, 6 clamps), the box test (6 compares), the select and the step;
+# outside the box the fallback (the box distance, 12 ops, and the root, 6)
+# and each plane row (7 and a min) are counted as if every tap took it; one
+# sub per smooth node.
+GRID_TAP_OPS = 20 + 18
+GRID_PLANE_OPS = 8
 # The fused train step K4: its three 1080p configurations (bench.py:462,
 # :424, :433; the first is the main one), its checks against its plain
 # version at CHECK_W x CHECK_H, and their gates: loss, the 20 largest
@@ -138,12 +169,11 @@ FUSED_CONFIGS = (("analytic_all + edge_grad", FUSED_MAIN),
 # K4's analytic_unboxed configuration (bench.py:442: march phase 1, no edge).
 FUSED_UNBOXED = dict(analytic_unboxed=True)
 FUSED_LOSS_REL, FUSED_TOP_REL, FUSED_COS = 1e-5, 1e-2, 1e-6
-# Where K4's image is not its plain version's bit for bit, a few pixels saw
-# another shape: K2's march flips a lamp's edge pixel against its plain
-# version (2 of 57,600 pixels on the benchmark scene, PERF.md), and one
-# bright pixel moves the loss by ~4e-4 and single slots by per cents.  Such
-# a case is held to the image share above and to these looser gates.
-FLIP_LOSS_REL, FLIP_COS = 1e-3, 1e-4
+# K4's image must be its plain version's bit for bit: both trace the same
+# rays (the plain primary rays divide by the image size as the kernels do,
+# vecmath.div_exact), so every case is held to the gates above.  Before
+# that, an ulp in a primary ray flipped a lamp's edge pixel and moved the
+# secondary edge term's slots by up to 1.9e-2 (PERF.md).
 
 
 def _gpu_line(query="name,power.limit") -> str:
@@ -185,6 +215,15 @@ def _cap_ops(count, prog) -> float:
     program's cap list, once per ray segment that computes it."""
     return count.get("cap_segments", 0) * sum(
         ANALYTIC_LEAF_OPS[k] for k in prog.caps[:, 0].tolist())
+
+
+def _grid_ops(count, spec) -> float:
+    """FP32 operations of the grid taps in ``count`` (cast_grid's tally)."""
+    from compute_path_tracer_tpu_torch.render.distgrid import _grid_static
+
+    _b, planes, k_offs = _grid_static(spec)
+    return int(count.get("grid_taps", 0)) * (GRID_TAP_OPS + len(k_offs)
+                                             + GRID_PLANE_OPS * len(planes))
 
 
 def _soa_ops(segments, layout) -> float:
@@ -244,25 +283,29 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _compare(name, kernel_img, plain_img, limit=SHARE_LIMIT):
+def _compare(name, kernel_img, plain_img, limit=SHARE_LIMIT, exact=False):
     """Share of pixels off by > DIFF_TOL and the max |diff|; raises on a
-    breach or on non-finite values."""
+    breach, on non-finite values, or, with ``exact``, unless the images are
+    equal bit for bit."""
     import torch
 
     if not (torch.isfinite(kernel_img).all() and torch.isfinite(plain_img).all()):
         raise AssertionError(f"{name}: non-finite values")
     d = (kernel_img - plain_img).abs().amax(dim=-1)
     share, err = float((d > DIFF_TOL).float().mean()), float(d.max())
+    n_off = int((d > 0).sum())
     print(f"check {name}: share of pixels off by > {DIFF_TOL}: {share:.6f} "
-          f"(limit {limit}), max abs diff {err:.3e}, "
-          f"mean {float(kernel_img.mean()):.5f}")
-    if share > limit:
-        raise AssertionError(f"{name}: {share} of pixels differ (> {limit})")
+          f"(limit {'bit-equal' if exact else limit}), pixels not bit-equal "
+          f"{n_off}, max abs diff {err:.3e}, mean {float(kernel_img.mean()):.5f}")
+    if share > limit or (exact and n_off):
+        raise AssertionError(f"{name}: {share} of pixels differ by > "
+                             f"{DIFF_TOL}, {n_off} at all")
     return share, err
 
 
 def _check_cases(mk, key, cases):
-    """Kernel against plain at CHECK_W x CHECK_H; each case must launch
+    """Kernel against plain at CHECK_W x CHECK_H, bit for bit (the plain
+    versions on the card round as the kernels do); each case must launch
     kernel ``key`` once.  Returns the max |diff| over the cases."""
     import torch
 
@@ -278,7 +321,7 @@ def _check_cases(mk, key, cases):
         torch.cuda.synchronize()
         if mk.LAUNCHES[key] - before != 1:
             raise AssertionError(f"{name}: {key} was not launched once")
-        max_err = max(max_err, _compare(name, k, p, limit)[1])
+        max_err = max(max_err, _compare(name, k, p, limit, exact=True)[1])
     return max_err
 
 
@@ -319,7 +362,8 @@ def _drive_session(mk, key, sess, label, gpu, prims=N_PRIMS):
 
 def _main_shape_check(mk, key, spec, params, mode, label=None, count=None):
     """The kernel against the plain version at the main path's own shape
-    (frame 0, fresh accumulator); returns (share, max |diff|, plain ms).
+    (frame 0, fresh accumulator), bit for bit; returns (share, max |diff|,
+    plain ms).
     ``count``, a dict, takes the plain frame's tally of the kernel's work
     for the bound, and its time then includes the counting."""
     import torch
@@ -337,7 +381,7 @@ def _main_shape_check(mk, key, spec, params, mode, label=None, count=None):
     if mk.LAUNCHES[key] - before != 1:
         raise AssertionError(f"the {MAIN_W}x{MAIN_H} check did not launch {key}")
     share, err = _compare(f"{label or key} {MAIN_W}x{MAIN_H}, bounces {BOUNCES} "
-                          f"frame 0", kernel, plain)
+                          f"frame 0", kernel, plain, exact=True)
     return share, err, plain_ms
 
 
@@ -485,14 +529,18 @@ def _hit_t_grad(km, spec, params, ro, rd):
 
 def _grad_compare(name, a, b, loss_rel, top_rel, cos_tol):
     """Loss relative difference, the max relative error over the 20
-    largest-magnitude slots of ``b`` and the cosine of the two gradients."""
+    largest-magnitude slots of ``b`` (those above TOP_FLOOR of its largest)
+    and the cosine of the two gradients."""
     import torch
 
     (la, ga), (lb, gb) = a, b
     if not (bool(torch.isfinite(ga).all()) and bool(torch.isfinite(gb).all())):
         raise AssertionError(f"{name}: non-finite gradient")
     top = torch.argsort(gb.abs(), descending=True)[:20]
-    top = top[gb[top] != 0]  # a zero slot has no relative error
+    # A slot under TOP_FLOOR of the largest is a zero or cancellation
+    # residue (sphere_and_plane's 20 largest reach down to 1e-8 and 6e-11,
+    # 1e-7 and 4e-10 of its largest), whose relative error says nothing.
+    top = top[gb[top].abs() > TOP_FLOOR * gb.abs().max()]
     rel_top = float(((ga[top] - gb[top]).abs() / gb[top].abs()).max())
     cos = float(ga @ gb / (ga.norm() * gb.norm()))
     rel_loss = abs(la - lb) / abs(lb)
@@ -653,12 +701,10 @@ def _k4_main_check(tm, spec, params, target, label, kw):
         p = _fused_step(tm, spec, params, target, MAIN_W, MAIN_H, BOUNCES, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    share, _ = _compare(f"K4 {MAIN_W}x{MAIN_H} image, {label}", k[2], p[2])
-    equal = bool(torch.equal(k[2], p[2]))
-    _grad_compare(f"K4 {MAIN_W}x{MAIN_H} gradient, {label}, image "
-                  f"{'bit-equal' if equal else 'not bit-equal'}", k[:2],
-                  p[:2], *((FUSED_LOSS_REL, FUSED_TOP_REL, FUSED_COS) if equal
-                           else (FLIP_LOSS_REL, float("inf"), FLIP_COS)))
+    share, _ = _compare(f"K4 {MAIN_W}x{MAIN_H} image, {label}", k[2], p[2],
+                        exact=True)
+    _grad_compare(f"K4 {MAIN_W}x{MAIN_H} gradient, {label}", k[:2], p[:2],
+                  FUSED_LOSS_REL, FUSED_TOP_REL, FUSED_COS)
     print(f"K4 plain step at {MAIN_W}x{MAIN_H} ({label}): {plain_ms:.1f} ms, "
           f"host clock, counting included")
     return share, float((k[1] - p[1]).abs().max()), plain_ms, count
@@ -685,14 +731,10 @@ def _k4_checks(tm, cases, dev):
         with _k4_swapped(tm, _k4_plain(tm)):
             p = _fused_step(tm, spec, params, target, CHECK_W, CHECK_H,
                             bounces, **kw)
-        _compare(f"{name} image", k[2], p[2])
-        equal = bool(torch.equal(k[2], p[2]))
-        gates = ((FUSED_LOSS_REL, FUSED_TOP_REL, FUSED_COS) if equal
-                 else (FLIP_LOSS_REL, float("inf"), FLIP_COS))
+        _compare(f"{name} image", k[2], p[2], exact=True)
         _grad_compare(f"{name} gradient, {CHECK_W}x{CHECK_H}, bounces "
-                      f"{bounces}, image "
-                      f"{'bit-equal' if equal else 'not bit-equal'}",
-                      k[:2], p[:2], *gates)
+                      f"{bounces}", k[:2], p[:2], FUSED_LOSS_REL,
+                      FUSED_TOP_REL, FUSED_COS)
         max_err = max(max_err, float((k[1] - p[1]).abs().max()))
     return max_err
 
@@ -828,6 +870,7 @@ def main() -> int:
     from compute_path_tracer_tpu_torch.kernels import train as tm
     from compute_path_tracer_tpu_torch.render.reference import camera_rays
     from compute_path_tracer_tpu_torch.render.baked import bake
+    from compute_path_tracer_tpu_torch.render.distgrid import make_dist_grid
     from compute_path_tracer_tpu_torch.render.program import (
         build_program, program_table)
     from compute_path_tracer_tpu_torch.render.session import RenderSession
@@ -887,10 +930,10 @@ def main() -> int:
             (f"benchmark_scene({N_PRIMS}) baked t_cull", bench, MARCH)):
         for debug in (0, 1, 2, 3):
             k2_cases.append((f"K2 {name} debug {debug}", scene,
-                             dict(mode, bounces=BOUNCES, debug=debug), None,
+                             dict(mode, bounces=CHECK_BOUNCES, debug=debug), None,
                              SHARE_LIMIT))
     k2_cases.append(("K2 csg_demo faithful t_cull frame 3, running mean", csg,
-                     dict(geometry="faithful", t_cull=True, bounces=BOUNCES,
+                     dict(geometry="faithful", t_cull=True, bounces=CHECK_BOUNCES,
                           frame=3, last_clear=3), prior, SHARE_LIMIT))
     k2_err = _check_cases(mk, "megakernel_march", k2_cases)
 
@@ -904,17 +947,17 @@ def main() -> int:
                         ("guard-less cube", cube), ("clobber scene", clobber)):
         for debug in (0, 3):
             k2b_cases.append((f"K2b analytic_unboxed {name} debug {debug}",
-                              scene, dict(UNBOXED, bounces=BOUNCES,
+                              scene, dict(UNBOXED, bounces=CHECK_BOUNCES,
                                           debug=debug), None, SHARE_LIMIT))
     k2b_err = _check_cases(mk, "megakernel_march", k2b_cases)
     k2b_err = max(k2b_err, _check_cases(mk, "megakernel_march", (
         (f"K2b omega {OMEGA} benchmark_scene({N_PRIMS}) baked t_cull", bench,
-         dict(MARCH, omega=OMEGA, bounces=BOUNCES), None, SHARE_LIMIT),
+         dict(MARCH, omega=OMEGA, bounces=CHECK_BOUNCES), None, SHARE_LIMIT),
         (f"K2b omega {OMEGA} csg_demo faithful t_cull", csg,
          dict(geometry="faithful", t_cull=True, omega=OMEGA,
-              bounces=BOUNCES), None, SHARE_LIMIT),
+              bounces=CHECK_BOUNCES), None, SHARE_LIMIT),
         (f"K2b omega {OMEGA} + analytic_unboxed csg_demo", csg,
-         dict(UNBOXED, omega=OMEGA, bounces=BOUNCES), None, SHARE_LIMIT))))
+         dict(UNBOXED, omega=OMEGA, bounces=CHECK_BOUNCES), None, SHARE_LIMIT))))
     # omega=1.0 is the march without over-relaxation: K2's frame, and on
     # csg_demo, where K2 is its plain version bit for bit, the plain frame.
     for name, (sspec, sparams), mode in (
@@ -948,6 +991,67 @@ def main() -> int:
     if not equal:
         raise AssertionError("analytic_soa is not analytic_all's frame")
     del soa64, all64
+
+    _stamp(start, "K6 checks and accumulation")
+    # -- K6 (dist_grid) against its plain version, on the card --------------
+    sap = compiled(sphere_and_plane())
+    k6_cases = []
+    for name, scene in ((f"benchmark_scene({N_PRIMS})", bench),
+                        ("csg_demo, subtraction", csg),
+                        ("blend_demo, smooth union", blend),
+                        ("sphere_and_plane, plane", sap)):
+        for debug in (0, 3):
+            k6_cases.append((f"K6 dist_grid {name} debug {debug}", scene,
+                             dict(GRID, bounces=CHECK_BOUNCES, debug=debug), None,
+                             SHARE_LIMIT))
+    k6_cases.append((f"K6 dist_grid + analytic_unboxed benchmark_scene("
+                     f"{N_PRIMS})", bench, dict(GRID, analytic_unboxed=True,
+                                                bounces=CHECK_BOUNCES), None,
+                     SHARE_LIMIT))
+    # With a zero shell no ray takes an exact tap: those that reach a cell
+    # whose bound is 0 run out of iterations and take the full map's id.
+    k6_cases.append(("K6 dist_grid grid_tau 0, edge_demo, out of iterations",
+                     compiled(edge_demo()), dict(GRID, grid_tau=0.0,
+                                                 bounces=CHECK_BOUNCES), None,
+                     SHARE_LIMIT))
+    k6_err = _check_cases(mk, "megakernel_march", k6_cases)
+    kw = dict(width=CHECK_W, height=CHECK_H, bounces=BOUNCES, **GRID)
+    g1 = mk.render_frame_megakernel(*bench, omega=1.0, **kw)
+    g16 = mk.render_frame_megakernel(*bench, omega=OMEGA, **kw)
+    k2_frame = mk.render_frame_megakernel(*bench, width=CHECK_W,
+                                          height=CHECK_H, bounces=BOUNCES,
+                                          **MARCH)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(g1, g16))
+    print(f"check K6 omega {OMEGA} against omega 1.0 under dist_grid: "
+          f"{'bit-equal' if equal else 'DIFFERENT'}")
+    if not equal:
+        raise AssertionError("dist_grid did not ignore omega")
+    _compare(f"K6 dist_grid against K2 (t_cull alone), benchmark_scene("
+             f"{N_PRIMS}) {CHECK_W}x{CHECK_H}", g1, k2_frame)
+    del g1, g16, k2_frame
+
+    # Multi-frame accumulation: ACC_FRAMES launches on one accumulator, bit
+    # for bit the frames one at a time, through K1 and through K2.
+    for key, mode in (("megakernel_analytic", ANALYTIC),
+                      ("megakernel_march", MARCH)):
+        kw = dict(width=CHECK_W, height=CHECK_H, bounces=BOUNCES, **mode)
+        before = mk.LAUNCHES[key]
+        acc = mk.render_accumulated_megakernel(*bench, ACC_FRAMES, **kw)
+        torch.cuda.synchronize()
+        launched = mk.LAUNCHES[key] - before
+        one = None
+        for f in range(ACC_FRAMES):
+            one = mk.render_frame_megakernel(*bench, one, f, f, **kw)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(acc, one))
+        print(f"check render_accumulated_megakernel ({key}), {ACC_FRAMES} "
+              f"frames: {launched} launches, "
+              f"{'bit-equal' if equal else 'DIFFERENT'} to {ACC_FRAMES} "
+              f"render_frame_megakernel calls")
+        if not equal or launched != ACC_FRAMES:
+            raise AssertionError(f"render_accumulated_megakernel ({key})")
+    del acc, one
 
     _stamp(start, "K1 main path")
     # -- K1 main path: RenderSession at 1080p, full-analytic ---------------
@@ -1123,6 +1227,65 @@ def main() -> int:
               f"{4 * nlayout.i_len} bytes; bound {bound:.4f} ms ({by}) [{gpu}]")
         del sess, scratch
 
+    _stamp(start, "K6 main path")
+    # -- K6 main path: RenderSession at 1080p, the march on the grid --------
+    sess = RenderSession(benchmark_scene(N_PRIMS), MAIN_W, MAIN_H,
+                         Settings(debug=0, bounces=BOUNCES),
+                         frame_fn=partial(mk.render_frame_megakernel, **GRID),
+                         device=dev)
+    k6_launches = _drive_session(mk, "megakernel_march", sess,
+                                 "K6 dist_grid (baked, t_cull)", gpu)
+    sp = sess.params
+    with torch.no_grad():
+        bv = bake(spec, sp)
+        table = program_table(prog, sp, True, bv)
+        utable = program_table(uprog, sp, True, bv)
+        grid_ms = _cuda_ms(lambda: make_dist_grid(spec, bake(spec, sp)), 20)
+    scratch = sess.accum.clone()
+    run = dict(frame=1, last_clear=1, bounces=BOUNCES, fov=sess.settings.fov,
+               aspect=sess.aspect, debug=0, t_cull=True)
+    rows = {"K2 (t_cull)": _cuda_ms(lambda: mk.launch_march(
+                prog, table, scratch, **run), 5),
+            "K2b (analytic_unboxed)": _cuda_ms(lambda: mk.launch_march(
+                uprog, utable, scratch, **run), 5)}
+    for r in GRID_RES:
+        grid = make_dist_grid(spec, bv, (r, r, r))
+        rows[f"K6 {r}^3"] = _cuda_ms(lambda: mk.launch_march(
+            prog, table, scratch, grid=grid, **run), 5)
+    grid = make_dist_grid(spec, bv, (16, 16, 16), GRID_TAU_WIDE)
+    rows[f"K6 16^3, grid_tau {GRID_TAU_WIDE}"] = _cuda_ms(
+        lambda: mk.launch_march(prog, table, scratch, grid=grid, **run), 5)
+    grid = make_dist_grid(spec, bv)
+    rows["K6 16^3 + analytic_unboxed"] = _cuda_ms(lambda: mk.launch_march(
+        uprog, utable, scratch, grid=grid, **run), 5)
+    k6_ms = rows["K6 16^3"]
+    print(f"K6 kernel-only times at {MAIN_W}x{MAIN_H}, {BOUNCES} bounces, "
+          f"CUDA events over 5 launches, one call: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in rows.items())
+          + f"; grid bake {grid_ms:.3f} ms [{gpu}]")
+    stats = torch.zeros(5, dtype=torch.int64, device=dev)
+    mk.launch_march(prog, table, scratch, grid=grid, grid_stats=stats, **run)
+    w_it, w_ex, w_mix, l_ex, l_ch = stats.tolist()
+    print(f"K6 warp statistics at 16^3 (one frame): {w_it} warp-iterations, "
+          f"{w_ex} with an exact tap ({w_mix} of them mixed with cheap "
+          f"steps); lane steps {l_ex} exact, {l_ch} cheap; exact taps fill "
+          f"{l_ex / max(32 * w_ex, 1):.4f} of their warps' lanes [{gpu}]")
+    k6_count = {}
+    k6_share, k6_main_err, k6_plain_ms = _main_shape_check(
+        mk, "megakernel_march", spec, sp, GRID, "K6 dist_grid", k6_count)
+    k6_err = max(k6_err, k6_main_err)
+    gcells = 16 ** 3
+    k6_bound, k6_by = _bound_ms(frame_bytes + 4 * (prog.f_len + 9 + gcells),
+                                _march_ops(k6_count, prog)
+                                + _grid_ops(k6_count, spec), peak)
+    print(f"K6 layers at {MAIN_W}x{MAIN_H}: kernel {k6_ms:.3f} ms, plain "
+          f"torch frame {k6_plain_ms:.3f} ms while counting; work "
+          f"{k6_count['segments']} segments, {int(k6_count['grid_taps'])} "
+          f"grid taps, {k6_count['taps']} map taps, leaves by kind "
+          f"{ {k: int(v) for k, v in k6_count.items() if isinstance(k, int)} }"
+          f"; bound {k6_bound:.4f} ms ({k6_by}) [{gpu}]")
+    del sess, scratch
+
     _stamp(start, "K3 checks")
     # -- K3 against its plain version, on the card --------------------------
     ro, rd = _scattered_rays(K3_RAYS, 1, dev)
@@ -1242,38 +1405,37 @@ def main() -> int:
     _stamp(start, "K4 checks")
     # -- K4 against its plain version, on the card --------------------------
     edge_sc = compiled(edge_demo())
-    sap = compiled(sphere_and_plane())
     k4_err = _k4_checks(tm, (
         ("K4 winner, march, sphere_and_plane", sap, {}, 2),
         ("K4 winner, march + edge + secondary, sphere_and_plane", sap,
          dict(edge_grad=True, edge_secondary=True), 2),
-        ("K4 winner, march", bench, {}, BOUNCES),
-        ("K4 winner, march + edge", bench, dict(edge_grad=True), BOUNCES),
+        ("K4 winner, march", bench, {}, CHECK_BOUNCES),
+        ("K4 winner, march + edge", bench, dict(edge_grad=True), CHECK_BOUNCES),
         ("K4 winner, march + edge + secondary", bench,
-         dict(edge_grad=True, edge_secondary=True), BOUNCES),
-        ("K4 winner, analytic_all + edge", bench, FUSED_MAIN, BOUNCES),
+         dict(edge_grad=True, edge_secondary=True), CHECK_BOUNCES),
+        ("K4 winner, analytic_all + edge", bench, FUSED_MAIN, CHECK_BOUNCES),
         ("K4 winner, analytic_all + edge, spp 2", bench,
-         dict(FUSED_MAIN, spp=2), BOUNCES),
-        ("K4 map-vjp csg_demo, march", csg, {}, BOUNCES),
+         dict(FUSED_MAIN, spp=2), CHECK_BOUNCES),
+        ("K4 map-vjp csg_demo, march", csg, {}, CHECK_BOUNCES),
         ("K4 map-vjp csg_demo, march + edge + secondary", csg,
-         dict(edge_grad=True, edge_secondary=True), BOUNCES),
+         dict(edge_grad=True, edge_secondary=True), CHECK_BOUNCES),
         ("K4 edge_demo, bounces 0 + edge", edge_sc, dict(edge_grad=True), 0),
     ), dev)
     k4b_err = _k4_checks(tm, (
-        ("K4 winner, analytic_unboxed", bench, FUSED_UNBOXED, BOUNCES),
+        ("K4 winner, analytic_unboxed", bench, FUSED_UNBOXED, CHECK_BOUNCES),
         ("K4 winner, analytic_unboxed + edge", bench,
-         dict(FUSED_UNBOXED, edge_grad=True), BOUNCES),
+         dict(FUSED_UNBOXED, edge_grad=True), CHECK_BOUNCES),
         ("K4 winner, analytic_unboxed + edge + secondary", bench,
-         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), BOUNCES),
-        ("K4 map-vjp csg_demo, analytic_unboxed", csg, FUSED_UNBOXED, BOUNCES),
+         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), CHECK_BOUNCES),
+        ("K4 map-vjp csg_demo, analytic_unboxed", csg, FUSED_UNBOXED, CHECK_BOUNCES),
         # Images bit-equal to the plain version's, so the tight gates hold
         # the secondary exclusion march over the skipped shapes: every shape
         # of the cube scene is skipped, csg_demo's plane and lamp are.
         ("K4 winner guard-less cube, analytic_unboxed + edge + secondary",
          cube, dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True),
-         BOUNCES),
+         CHECK_BOUNCES),
         ("K4 map-vjp csg_demo, analytic_unboxed + edge + secondary", csg,
-         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), BOUNCES),
+         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), CHECK_BOUNCES),
     ), dev)
 
     n, nd, nid, nnear, ndnear = _edge_cull_count(spec, sp, dev)
@@ -1478,7 +1640,13 @@ def main() -> int:
          "route": "cuda", "source": csrc + "megakernel_analytic.cu",
          "replaces": replaces, "launches": k5[n][0], "max_abs_err": k5_err[n],
          "main_shape_share_off": k5[n][5], "ms": k5[n][1], "plain_ms": k5[n][2], "bound_ms": k5[n][3],
-         "bound_by": k5[n][4], "library_ms": None} for n in SOA_PRIMS]}
+         "bound_by": k5[n][4], "library_ms": None} for n in SOA_PRIMS] + [
+        {"name": "megakernel_march (K6: dist_grid)", "route": "cuda",
+         "source": csrc + "megakernel_march.cu", "replaces": replaces,
+         "launches": k6_launches, "max_abs_err": k6_err,
+         "main_shape_share_off": k6_share, "ms": k6_ms,
+         "plain_ms": k6_plain_ms, "bound_ms": k6_bound, "bound_by": k6_by,
+         "library_ms": None}]}
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(gpu)
     print(json.dumps(report))

@@ -105,7 +105,8 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [p, p, p, i, p, i, p, i, i, i, i, i, f, f, i, p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_megakernel_march
-    fn.argtypes = [p, i, p, i, i, i, i, i, i, f, p, i, i, i, i, i, f, f, i, p]
+    fn.argtypes = ([p, i, p, i, i, i, i, i, i, f, p, i, i, i, i, i, f, f, i]
+                   + [p, p, i, i, i, p, i, i, f, p, p])
     fn.restype = ctypes.c_int
     fn = lib.cpt_march_rays
     fn.argtypes = [p, i, p, i, i, i, i, i, i] + [p] * 12

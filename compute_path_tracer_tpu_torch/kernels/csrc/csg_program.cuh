@@ -2,8 +2,9 @@
 // (megakernel_march.cu, K2; march_rays.cu, K3; train_fused.cu, K4): one
 // bounce's AABB guards and t-cull intervals, the leaf SDFs, the fold, the
 // scene map over the op list of render/program.py, the 80-step march (with
-// the closed-form cap of analytic_unboxed, and over-relaxed), the 6-tap
-// normal, and the cap's closed form over the program's cap list.  The parity
+// the closed-form cap of analytic_unboxed, and over-relaxed), the
+// distance-grid march (dist_grid, K6) with its grid tap, the 6-tap normal,
+// and the cap's closed form over the program's cap list.  The parity
 // decisions are in the note at the head of megakernel_march.cu; everything
 // here has internal linkage, so each kernel's translation unit carries its
 // own copy.
@@ -307,6 +308,125 @@ __device__ float march_relax(const Scene& S, const Guards<true>& g, V3 ro, V3 rd
     t = nt;
     if (hit || far || nt >= t_cap) break;
   }
+  return t;
+}
+
+// -- the distance grid (K6) -----------------------------------------------------
+
+constexpr int kGridExtraIters = 256;    // distgrid.py:GRID_EXTRA_ITERS
+
+// The frame's baked lower-bound grid (render/distgrid.py): meta holds lo.xyz,
+// inv_cell.xyz, hi.xyz; cells the gz*gy*gx per-cell bounds, flat index
+// (iz*gy + iy)*gx + ix; offs the n_planes plane-row offsets into the table,
+// then the n_k smooth-union k offsets, in walk order.  A few KiB to 128 KiB
+// read with __ldg, so they stay in L1 and L2.
+struct Grid {
+  const float* meta;
+  const float* cells;
+  int gx, gy, gz;
+  const int* offs;
+  int n_planes, n_k;
+  float tau;
+};
+
+// The bound at p (distgrid.py:make_grid_tap, JAX make_grid_tap): the cell's
+// value inside the box, else the distance to the box min'ed with the exact
+// plane distances; minus k/4 per smooth node.  Floor, clip as float, then
+// the int cast, in JAX's order.
+__device__ float grid_tap(const Grid& G, const float* __restrict__ F, V3 p) {
+  const float* __restrict__ mt = G.meta;
+  const float lox = __ldg(mt), loy = __ldg(mt + 1), loz = __ldg(mt + 2);
+  const float ivx = __ldg(mt + 3), ivy = __ldg(mt + 4), ivz = __ldg(mt + 5);
+  const float hix = __ldg(mt + 6), hiy = __ldg(mt + 7), hiz = __ldg(mt + 8);
+  const int ix = (int)nan_min(nan_max(floorf((p.x - lox) * ivx), 0.0f), (float)(G.gx - 1));
+  const int iy = (int)nan_min(nan_max(floorf((p.y - loy) * ivy), 0.0f), (float)(G.gy - 1));
+  const int iz = (int)nan_min(nan_max(floorf((p.z - loz) * ivz), 0.0f), (float)(G.gz - 1));
+  float g = __ldg(G.cells + (iz * G.gy + iy) * G.gx + ix);
+  const bool inside = p.x >= lox && p.x <= hix && p.y >= loy && p.y <= hiy && p.z >= loz &&
+                      p.z <= hiz;
+  if (!inside) {
+    const float qx = nan_max(nan_max(lox - p.x, p.x - hix), 0.0f);
+    const float qy = nan_max(nan_max(loy - p.y, p.y - hiy), 0.0f);
+    const float qz = nan_max(nan_max(loz - p.z, p.z - hiz), 0.0f);
+    float db = sqrtf(qx * qx + qy * qy + qz * qz);
+    for (int j = 0; j < G.n_planes; ++j) {
+      const float* __restrict__ r = F + __ldg(G.offs + j);
+      db = nan_min(db, __ldg(r) * p.x + __ldg(r + 1) * p.y + __ldg(r + 2) * p.z + __ldg(r + 3));
+    }
+    g = db;
+  }
+  for (int j = 0; j < G.n_k; ++j) g = g - 0.25f * __ldg(F + __ldg(G.offs + G.n_planes + j));
+  return g;
+}
+
+// Warp statistics of the grid march, per warp-iteration of the march loop
+// (the lanes of __activemask(), so approximate where lanes of one warp run
+// the loop out of step): [0] warp-iterations, [1] those in which some lane
+// took an exact tap, [2] those in which lanes took both kinds of step, [3]
+// lane exact taps, [4] lane cheap taps.
+struct GridStats {
+  unsigned long long v[5];
+};
+
+__device__ __forceinline__ void grid_stats_add(GridStats& st, bool near) {
+  const unsigned act = __activemask();
+  const unsigned nb = __ballot_sync(act, near);
+  if (((threadIdx.x + threadIdx.y * blockDim.x) & 31) == __ffs(act) - 1) {
+    const int n_near = __popc(nb), n_act = __popc(act);
+    st.v[0] += 1;
+    st.v[1] += n_near > 0;
+    st.v[2] += n_near > 0 && n_near < n_act;
+    st.v[3] += n_near;
+    st.v[4] += n_act - n_near;
+  }
+}
+
+// The distance-grid march of one ray (cast_grid; JAX _march_while_grid with
+// the tile reduced to this ray): each iteration taps the grid for g; with g
+// < tau one exact tap of the t-culled map, stepping min(|d|, max(m - t,
+// MHD)), else a step of g with no map tap.  Only exact taps count against
+// kSteps; at most kSteps + kGridExtraIters iterations.  A hit needs an exact
+// tap with |d| < MHD.  A cheap step can carry t past the nearest interval
+// entry m, so m is re-read before an exact tap whenever t >= m.  Returns t,
+// and in idx the id of the last exact tap (-1 when far or none); a ray still
+// marching when the iterations run out takes the id of a map tap under the
+// full guards at its previous t (JAX _final_idx).  With STATS, adds the
+// warp statistics to st.
+template <bool BAKED, bool STATS>
+__device__ float march_grid(const Scene& S, const Guards<true>& g, const Grid& G, V3 ro, V3 rd,
+                            int& idx, float t_cap, GridStats& st) {
+  float t = 0.0f, tp = 0.0f;
+  float m = -INFINITY;
+  int last = -1, exact = 0;
+  idx = -1;
+  for (int it = 0; it < kSteps + kGridExtraIters; ++it) {
+    const V3 p = v3(ro.x + rd.x * t, ro.y + rd.y * t, ro.z + rd.z * t);
+    const float gv = grid_tap(G, S.F, p);
+    const bool near = gv < G.tau;
+    if constexpr (STATS) grid_stats_add(st, near);
+    float nt;
+    bool hit = false;
+    if (near) {
+      if (t >= m) m = next_entry(S, g, t);
+      int mi;
+      const float d = map_scene<BAKED, true, true>(S, g, p, t, mi);
+      const float ad = fabsf(d);
+      nt = t + nan_min(ad, nan_max(m - t, kMhd));
+      hit = ad < kMhd;
+      last = mi;
+      ++exact;
+    } else {
+      nt = t + gv;
+    }
+    nt = nan_min(nt, t_cap);
+    const bool far = nt > kFar;
+    idx = far ? -1 : last;
+    tp = t;
+    t = nt;
+    if (hit || far || exact >= kSteps || nt >= t_cap) return t;
+  }
+  map_scene<BAKED, true, false>(S, g, v3(ro.x + rd.x * tp, ro.y + rd.y * tp, ro.z + rd.z * tp),
+                                0.0f, idx);
   return t;
 }
 

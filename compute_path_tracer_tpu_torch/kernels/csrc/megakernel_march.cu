@@ -65,6 +65,17 @@
 // * omega != 1 (the RELAX instantiation, :785-820) over-relaxes the t-culled
 //   march with the sphere-overlap revert (csg_program.cuh:march_relax);
 //   omega == 1 runs the march above, unchanged.
+// * dist_grid (K6; the GRID instantiation, baked geometry with t_cull only:
+//   _march_while_grid :843, its grid tap render/distgrid.py:187) marches on
+//   the frame's baked lower-bound grid (csg_program.cuh:march_grid): a ray
+//   whose grid bound is at least tau steps by it with no map tap, a nearer
+//   one takes K2's t-culled exact tap.  What bounds it is the same as K2's:
+//   the exact taps it keeps.  JAX decides per 8,192-lane tile whether the
+//   exact map runs; here each thread decides, and a warp pays for the exact
+//   tap when any of its 32 lanes is near (GRID_STATS counts how often).
+//   The grid (16 KiB at 16^3) is read with __ldg and stays in L1 and L2.
+//   The cheap step's fallback root is the build's -prec-sqrt=true sqrtf,
+//   the plain version's vecmath.sqrt_rn.
 #include "csg_program.cuh"
 
 namespace {
@@ -72,10 +83,15 @@ namespace {
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 16;
 
-template <bool BAKED, bool TCULL, bool RELAX>
+// The march of debug 0 and 3: K2's (PLAIN), over-relaxed (RELAX), or on the
+// distance grid (GRID, and GRID_STATS, which also counts warp statistics).
+enum MarchMode { PLAIN = 0, RELAX = 1, GRID = 2, GRID_STATS = 3 };
+
+template <bool BAKED, bool TCULL, int MODE>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 megakernel_march(Scene S, float* __restrict__ accum, int width, int height, int frame,
-                 int last_clear, int bounces, float fov, float aspect, int debug, float omega) {
+                 int last_clear, int bounces, float fov, float aspect, int debug, float omega,
+                 Grid G, unsigned long long* __restrict__ stats) {
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   if (x >= width || y >= height) return;
@@ -107,6 +123,7 @@ megakernel_march(Scene S, float* __restrict__ accum, int width, int height, int 
     V3 ret = v3(0.0f, 0.0f, 0.0f);
     V3 thr = v3(1.0f, 1.0f, 1.0f);
     int i_exit = -1;
+    GridStats st = {};
     for (int i = 0; i <= bounces; ++i) {
       compute_guards(S, ro, rd, g);
       float t_cap = INFINITY;
@@ -114,8 +131,10 @@ megakernel_march(Scene S, float* __restrict__ accum, int width, int height, int 
       if (S.n_cap > 0) cap_scan(S, ro, rd, t_cap, j_cap);
       int idx;
       float t;
-      if constexpr (RELAX) {
+      if constexpr (MODE == RELAX) {
         t = march_relax<BAKED>(S, g, ro, rd, idx, omega, t_cap);
+      } else if constexpr (MODE == GRID || MODE == GRID_STATS) {
+        t = march_grid<BAKED, MODE == GRID_STATS>(S, g, G, ro, rd, idx, t_cap, st);
       } else {
         t = march<BAKED, TCULL>(S, g, ro, rd, idx, t_cap);
       }
@@ -138,19 +157,25 @@ megakernel_march(Scene S, float* __restrict__ accum, int width, int height, int 
       }
     }
     if (i_exit < 0) i_exit = bounces + 1;
+    if constexpr (MODE == GRID_STATS) {
+      for (int k = 0; k < 5; ++k) {
+        if (st.v[k]) atomicAdd(stats + k, st.v[k]);
+      }
+    }
     // debug 3: the bounce heatmap (test_compute.glsl:163).
     col = debug == 3 ? splat((float)i_exit / (float)bounces) : ret;
   }
   write_pixel(accum, x, y, width, col, last_clear, debug);
 }
 
-template <bool BAKED, bool TCULL, bool RELAX>
+template <bool BAKED, bool TCULL, int MODE>
 void launch(const Scene& S, float* accum, int width, int height, int frame, int last_clear,
-            int bounces, float fov, float aspect, int debug, float omega, cudaStream_t stream) {
+            int bounces, float fov, float aspect, int debug, float omega, const Grid& G,
+            unsigned long long* stats, cudaStream_t stream) {
   dim3 block(kBlockX, kBlockY);
   dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
-  megakernel_march<BAKED, TCULL, RELAX><<<grid, block, 0, stream>>>(
-      S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega);
+  megakernel_march<BAKED, TCULL, MODE><<<grid, block, 0, stream>>>(
+      S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, stats);
 }
 
 }  // namespace
@@ -160,33 +185,51 @@ void launch(const Scene& S, float* accum, int width, int height, int frame, int 
 // flags, then n_cap cap records), `table` program_table's float32 vector;
 // accum is (height, width, 3) float32, contiguous, updated in place.  The
 // caps and omega != 1 need t_cull and debug 0 or 3; the caller checks that
-// and the program against kMaxDepth and kMaxBoxed.
+// and the program against kMaxDepth and kMaxBoxed.  A non-null grid_cells
+// (dist_grid) marches on the grid: grid_meta f32[9], grid_cells
+// f32[gz*gy*gx], grid_offs the n_planes plane-row and n_k smooth-k offsets
+// (render/distgrid.py:grid_code_on); it needs baked geometry, t_cull, debug
+// 0 or 3 and omega 1.  A non-null grid_stats (5 zeroed uint64) takes the
+// grid march's warp statistics.
 extern "C" int cpt_megakernel_march(const int* code, int n_ops, const float* table,
                                     int n_boxed, int f_box, int f_mat, int n_cap, int baked,
                                     int t_cull, float omega, float* accum, int width, int height,
                                     int frame, int last_clear, int bounces, float fov,
-                                    float aspect, int debug, void* stream) {
+                                    float aspect, int debug, const float* grid_meta,
+                                    const float* grid_cells, int gx, int gy, int gz,
+                                    const int* grid_offs, int n_planes, int n_k, float tau,
+                                    unsigned long long* grid_stats, void* stream) {
   Scene S{code, n_ops, table, n_boxed, f_box, f_box + 6 * n_boxed, f_mat,
           code + OP_WIDTH * n_ops + n_boxed, n_cap};
+  const Grid G{grid_meta, grid_cells, gx, gy, gz, grid_offs, n_planes, n_k, tau};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool relax = omega != 1.0f;
   if ((n_cap > 0 || relax) && (!t_cull || debug == 1 || debug == 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (baked) {
-    if (relax) {
-      launch<true, true, true>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, st);
-    } else if (t_cull) {
-      launch<true, true, false>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, st);
+  if (grid_cells != nullptr) {
+    if (!baked || !t_cull || relax || debug == 1 || debug == 2 || gx < 1 || gy < 1 || gz < 1) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (grid_stats != nullptr) {
+      launch<true, true, GRID_STATS>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, grid_stats, st);
     } else {
-      launch<true, false, false>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, st);
+      launch<true, true, GRID>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
+    }
+  } else if (baked) {
+    if (relax) {
+      launch<true, true, RELAX>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
+    } else if (t_cull) {
+      launch<true, true, PLAIN>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
+    } else {
+      launch<true, false, PLAIN>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
     }
   } else if (relax) {
-    launch<false, true, true>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, st);
+    launch<false, true, RELAX>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
   } else if (t_cull) {
-    launch<false, true, false>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, st);
+    launch<false, true, PLAIN>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
   } else {
-    launch<false, false, false>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, st);
+    launch<false, false, PLAIN>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,7 +19,15 @@ package's ``render_frame_pallas`` and dispatches on its mode:
   guard-less shapes of ``analytic_eligible_ids`` in closed form and caps the
   march of the remaining program with them (``make_analytic_unboxed``), and
   ``omega`` != 1 over-relaxes the march; as in JAX, ``omega`` is ignored
-  outside the t-culled march of debug 0 and 3.
+  outside the t-culled march of debug 0 and 3.  ``dist_grid`` (baked,
+  t_cull, debug 0 or 3; K6) bakes the frame's distance grid
+  (render/distgrid.py, ``grid_res``) from the same baked vector as the
+  table, and the march steps by its bound wherever that is at least
+  ``grid_tau``, taking exact map taps only nearer to a surface; it composes
+  with ``analytic_unboxed`` and, as in JAX, ignores ``omega``.
+
+``render_accumulated_megakernel`` renders ``n_frames`` progressive frames
+into one accumulator on the device (JAX ``render_accumulated_pallas``).
 
 Either kernel updates the (H, W, 3) float32 accumulator in place.  On a CPU
 tensor the same call runs ``render_frame_megakernel_plain``: the frame in
@@ -43,9 +51,19 @@ from ..render.baked import (
     baked_layout,
     baked_shapes_in_order,
 )
+from ..render.distgrid import (
+    DEFAULT_RES as GRID_DEFAULT_RES,
+    GRID_TAU,
+    DistGrid,
+    grid_code_on,
+    grid_eligible,
+    make_dist_grid,
+    make_grid_tap,
+)
 from ..render.program import (
     Program,
     build_program,
+    cast_grid,
     cast_tcull,
     make_map_program,
     program_bounds,
@@ -80,14 +98,15 @@ from .build import load_library
 LAUNCHES = {"megakernel_analytic": 0, "megakernel_march": 0}
 
 
-def _kernel_for(geometry: str, debug: int, normals: str, t_cull: bool,
-                omega: float, analytic_unboxed: bool, refresh_every: int,
-                dist_grid: bool, analytic_all: bool,
+def _kernel_for(spec: SceneSpec, geometry: str, debug: int, normals: str,
+                t_cull: bool, omega: float, analytic_unboxed: bool,
+                refresh_every: int, dist_grid: bool, analytic_all: bool,
                 analytic_soa: bool) -> str:
-    """"analytic" (K1) or "march" (K2) for a mode of render_frame_pallas.
-    Raises the JAX package's ``ValueError``s where it raises them
-    (megakernel.py:1220-1272), and ``NotImplementedError`` for the modes
-    not ported yet."""
+    """"analytic" (K1) or "march" (K2, and K6 with ``dist_grid``) for a
+    mode of render_frame_pallas.  Raises the JAX package's ``ValueError``s
+    where it raises them (megakernel.py:1220-1272; its ``tile_w == 128``
+    check of ``dist_grid`` has no counterpart: the port takes no tile), and
+    ``NotImplementedError`` for the modes not ported yet."""
     if geometry not in ("faithful", "baked"):
         raise ValueError("geometry must be 'faithful' or 'baked'")
     baked = geometry == "baked"
@@ -110,8 +129,15 @@ def _kernel_for(geometry: str, debug: int, normals: str, t_cull: bool,
             raise ValueError("analytic_all renders the path-traced modes "
                              "(debug 0/3)")
     if dist_grid:
-        raise NotImplementedError(
-            "dist_grid is not ported (ROADMAP queue 1, item 11 (K6))")
+        if not (baked and t_cull):
+            raise ValueError(
+                "dist_grid requires geometry='baked' and t_cull=True")
+        if debug not in (0, 3):
+            raise ValueError(
+                "dist_grid supports the path-traced modes (debug 0/3); the "
+                "id-march and stats diagnostics stay faithful")
+        if not grid_eligible(spec):
+            raise ValueError("dist_grid requires at least one bounded leaf")
     if analytic_unboxed:
         if not (baked and t_cull):
             raise ValueError("analytic_unboxed requires geometry='baked' and "
@@ -273,21 +299,34 @@ def _analytic_plain(spec, params, xs, ys, frame, bounces, fov, aspect,
 
 
 def _march_plain(prog: Program, table, t_cull, xs, ys, frame, bounces, fov,
-                 aspect, count=None, omega=1.0, **kw):
+                 aspect, count=None, omega=1.0, grid: DistGrid = None, **kw):
     """K2's frame: the CSG program interpreted per tap, the exact or the
     per-thread t-culled march, 6-tap normals under the bounce's guards.
     A program with ``caps`` (``analytic_unboxed``) caps the t-culled march
     with their closed form; a capped hit takes the capped shape's id and
-    exact normal.  ``omega`` over-relaxes the t-culled march.  ``count``
-    accumulates its ray segments, map work (``make_map_program``) and, as
-    ``"cap_segments"``, the segments the cap is computed for."""
-    map_fn = make_map_program(prog, table.tolist(), count)
+    exact normal.  ``omega`` over-relaxes the t-culled march; ``grid``
+    (K6) replaces it with the distance-grid march (``cast_grid``).
+    ``count`` accumulates its ray segments, map work (``make_map_program``),
+    grid taps and, as ``"cap_segments"``, the segments the cap is computed
+    for."""
+    vals = table.tolist()
+    map_fn = make_map_program(prog, vals, count)
 
     def map_checked(p, checks):
         return map_fn(p, checks[0])
 
     def normal(p, _idx, c):
         return calc_normal(map_checked, p, c[:1])
+
+    if grid is not None:
+        tap = make_grid_tap(prog.spec, grid, vals)
+
+        def march(ro, rd, c, t_cap=None):
+            return cast_grid(prog, map_fn, ro, rd, c, tap, grid.tau, t_cap,
+                             count)
+    else:
+        def march(ro, rd, c, t_cap=None):
+            return cast_tcull(prog, map_fn, ro, rd, c, t_cap, omega)
 
     if prog.caps.shape[0]:
         cap_fn, cap_normal, _ = make_analytic_unboxed(prog.spec)
@@ -298,7 +337,7 @@ def _march_plain(prog: Program, table, t_cull, xs, ys, frame, bounces, fov,
                 count["cap_segments"] = (count.get("cap_segments", 0)
                                          + ro.x.shape[0])
             t_cap, cap_idx = cap_fn(ro, rd, bv)
-            t, idx = cast_tcull(prog, map_fn, ro, rd, c, t_cap, omega)
+            t, idx = march(ro, rd, c, t_cap)
             lanes = torch.nonzero(~(t > FP)).flatten()
             hp = Vec3(*(v[lanes] for v in ro + rd * t))
             idx, n_h = capped_winners(
@@ -308,8 +347,7 @@ def _march_plain(prog: Program, table, t_cull, xs, ys, frame, bounces, fov,
             zero = torch.zeros_like(t)
             return t, idx, Vec3(*(zero.index_put((lanes,), v) for v in n_h))
     elif t_cull:
-        def cast(ro, rd, c):
-            return cast_tcull(prog, map_fn, ro, rd, c, omega=omega)
+        cast = march
     else:
         def cast(ro, rd, c):
             return cast_ray(map_checked, ro, rd, c)
@@ -320,6 +358,17 @@ def _march_plain(prog: Program, table, t_cull, xs, ys, frame, bounces, fov,
         cast, normal,
         lambda idx: gather_material(mats, idx),
         xs, ys, frame, bounces, fov, aspect, **kw)
+
+
+def _march_tables(spec: SceneSpec, params, geometry, t_cull,
+                  analytic_unboxed, dist_grid, grid_res, grid_tau):
+    """The march's program, its table and, for ``dist_grid``, the frame's
+    grid, from one bake of the params."""
+    prog = build_program(spec, geometry, analytic_unboxed)
+    bv = bake(spec, params) if geometry == "baked" or t_cull else None
+    table = program_table(prog, params, t_cull, bv)
+    grid = make_dist_grid(spec, bv, grid_res, grid_tau) if dist_grid else None
+    return prog, table, grid
 
 
 def render_frame_megakernel_plain(
@@ -342,6 +391,8 @@ def render_frame_megakernel_plain(
     analytic_unboxed: bool = False,
     refresh_every: int = 1,
     dist_grid: bool = False,
+    grid_res=GRID_DEFAULT_RES,
+    grid_tau: float = GRID_TAU,
     analytic_all: bool = False,
     analytic_soa: bool = False,
     count: dict = None,
@@ -349,9 +400,9 @@ def render_frame_megakernel_plain(
     """The kernels' frame in vectorized torch, on ``params``' device.
     ``count``, a dict, accumulates the work the kernel does for the frame:
     its ``"segments"`` (ray segments, one per live path per bounce) and, for
-    the march, its map work (``render/program.py:make_map_program``) and
-    the segments that compute the ``analytic_unboxed`` cap."""
-    kernel = _kernel_for(geometry, debug, normals, t_cull, omega,
+    the march, its map work (``render/program.py:make_map_program``), its
+    grid taps and the segments that compute the ``analytic_unboxed`` cap."""
+    kernel = _kernel_for(spec, geometry, debug, normals, t_cull, omega,
                          analytic_unboxed, refresh_every, dist_grid,
                          analytic_all, analytic_soa)
     if aspect is None:
@@ -366,14 +417,58 @@ def render_frame_megakernel_plain(
                 spec, params, xs, ys, frame, bounces, fov, aspect, count,
                 "analytic_soa" if analytic_soa else "analytic_all", **kw)
         else:
-            prog = build_program(spec, geometry, analytic_unboxed)
-            col = _march_plain(prog, program_table(prog, params, t_cull),
-                               t_cull, xs, ys, frame, bounces, fov, aspect,
-                               count, _march_omega(omega, t_cull, debug), **kw)
+            prog, table, grid = _march_tables(
+                spec, params, geometry, t_cull, analytic_unboxed, dist_grid,
+                grid_res, grid_tau)
+            col = _march_plain(prog, table, t_cull, xs, ys, frame, bounces,
+                               fov, aspect, count,
+                               _march_omega(omega, t_cull, debug, dist_grid),
+                               grid, **kw)
         img = col.stack()
         if debug != 0:
             return accum.copy_(img)
         return accum.copy_(running_mean(accum, img, last_clear))
+
+
+def _frame_launcher(spec: SceneSpec, params: torch.Tensor, *, width, height,
+                    debug, bounces, fov, aspect, geometry, normals, t_cull,
+                    omega, analytic_unboxed, refresh_every, dist_grid,
+                    grid_res, grid_tau, analytic_all, analytic_soa):
+    """Checks a mode and makes the frame's tables on the card, once;
+    returns ``launch(accum, frame, last_clear)``, which launches the mode's
+    kernel on them."""
+    if params.device.type != "cuda":
+        raise ValueError(f"no kernel for device {params.device}")
+    kernel = _kernel_for(spec, geometry, debug, normals, t_cull, omega,
+                         analytic_unboxed, refresh_every, dist_grid,
+                         analytic_all, analytic_soa)
+    if params.dtype != torch.float32 or params.shape != (spec.n_params,):
+        raise ValueError(
+            f"params must be float32 of shape ({spec.n_params},), got "
+            f"{params.dtype} {tuple(params.shape)}")
+    if aspect is None:
+        aspect = width / height
+    run = dict(bounces=bounces, fov=fov, aspect=aspect, debug=debug)
+    with torch.no_grad():
+        if kernel == "analytic":
+            layout = _layout_for(
+                spec, "analytic_soa" if analytic_soa else "analytic_all")
+            soa_f, soa_i = pack_soa_smem(layout, bake(spec, params), params)
+
+            def launch(accum, frame, last_clear):
+                launch_megakernel(layout, soa_f, soa_i, accum, frame=frame,
+                                  last_clear=last_clear, **run)
+        else:
+            prog, table, grid = _march_tables(
+                spec, params, geometry, t_cull, analytic_unboxed, dist_grid,
+                grid_res, grid_tau)
+            om = _march_omega(omega, t_cull, debug, dist_grid)
+
+            def launch(accum, frame, last_clear):
+                launch_march(prog, table, accum, frame=frame,
+                             last_clear=last_clear, t_cull=t_cull, omega=om,
+                             grid=grid, **run)
+    return launch
 
 
 def render_frame_megakernel(
@@ -396,6 +491,8 @@ def render_frame_megakernel(
     analytic_unboxed: bool = False,
     refresh_every: int = 1,
     dist_grid: bool = False,
+    grid_res=GRID_DEFAULT_RES,
+    grid_tau: float = GRID_TAU,
     analytic_all: bool = False,
     analytic_soa: bool = False,
 ) -> torch.Tensor:
@@ -405,56 +502,81 @@ def render_frame_megakernel(
 
     Runs on ``params``' device: a CUDA tensor launches K1
     (``analytic_all=True`` or ``analytic_soa=True``) or K2 (the marching
-    modes, ``analytic_unboxed`` and ``omega`` included) on the current
-    stream without synchronising, a CPU tensor runs
+    modes, ``analytic_unboxed``, ``omega`` and ``dist_grid`` included) on
+    the current stream without synchronising, a CPU tensor runs
     :func:`render_frame_megakernel_plain`.  Modes of ``render_frame_pallas``
-    that are not ported (``debug=4``, ``dist_grid``, ``normals`` other than
-    "central", ``refresh_every`` != 1) raise ``NotImplementedError``;
-    the combinations JAX rejects, and ``analytic_all`` / ``analytic_soa``
-    on a tree with a non-union op, raise ``ValueError``.
+    that are not ported (``debug=4``, ``normals`` other than "central",
+    ``refresh_every`` != 1) raise ``NotImplementedError``; the combinations
+    JAX rejects, and ``analytic_all`` / ``analytic_soa`` on a tree with a
+    non-union op, raise ``ValueError``.
     """
     mode = dict(geometry=geometry, normals=normals, t_cull=t_cull, omega=omega,
                 analytic_unboxed=analytic_unboxed,
                 refresh_every=refresh_every, dist_grid=dist_grid,
+                grid_res=grid_res, grid_tau=grid_tau,
                 analytic_all=analytic_all, analytic_soa=analytic_soa)
     if params.device.type == "cpu":
         return render_frame_megakernel_plain(
             spec, params, accum, frame, last_clear, width=width,
             height=height, debug=debug, bounces=bounces, fov=fov,
             aspect=aspect, **mode)
-    if params.device.type != "cuda":
-        raise ValueError(f"no kernel for device {params.device}")
-    kernel = _kernel_for(geometry, debug, normals, t_cull, omega,
-                         analytic_unboxed, refresh_every, dist_grid,
-                         analytic_all, analytic_soa)
-    if params.dtype != torch.float32 or params.shape != (spec.n_params,):
-        raise ValueError(
-            f"params must be float32 of shape ({spec.n_params},), got "
-            f"{params.dtype} {tuple(params.shape)}")
-    if aspect is None:
-        aspect = width / height
+    launch = _frame_launcher(spec, params, width=width, height=height,
+                             debug=debug, bounces=bounces, fov=fov,
+                             aspect=aspect, **mode)
     accum = _accum_for(accum, height, width, params.device)
-    run = dict(frame=frame, last_clear=last_clear, bounces=bounces, fov=fov,
-               aspect=aspect, debug=debug)
-    with torch.no_grad():
-        if kernel == "analytic":
-            layout = _layout_for(
-                spec, "analytic_soa" if analytic_soa else "analytic_all")
-            soa_f, soa_i = pack_soa_smem(layout, bake(spec, params), params)
-            launch_megakernel(layout, soa_f, soa_i, accum, **run)
-        else:
-            prog = build_program(spec, geometry, analytic_unboxed)
-            launch_march(prog, program_table(prog, params, t_cull), accum,
-                         t_cull=t_cull,
-                         omega=_march_omega(omega, t_cull, debug), **run)
+    launch(accum, frame, last_clear)
     return accum
 
 
-def _march_omega(omega: float, t_cull: bool, debug: int) -> float:
+def render_accumulated_megakernel(
+    spec: SceneSpec,
+    params: torch.Tensor,
+    n_frames: int,
+    *,
+    width: int = 256,
+    height: int = 256,
+    bounces: int = DEFAULT_BOUNCES,
+    fov: float = DEFAULT_FOV,
+    aspect: float = None,
+    geometry: str = "faithful",
+    normals: str = "central",
+    t_cull: bool = False,
+    analytic_all: bool = False,
+) -> torch.Tensor:
+    """``n_frames`` progressive frames into one zero (H, W, 3) float32
+    accumulator (JAX ``render_accumulated_pallas``): frame f uses RNG
+    stream f and running-mean weight 1/(f+1), so frame 0 overwrites.  On a
+    CUDA tensor the tables are made once and K1 (``analytic_all``) or K2
+    runs ``n_frames`` times on the accumulator, with no host round trip; on
+    a CPU tensor each frame is :func:`render_frame_megakernel_plain`.
+    Either way the result is that of ``n_frames`` calls of
+    :func:`render_frame_megakernel` bit for bit."""
+    mode = dict(width=width, height=height, debug=0, bounces=bounces,
+                fov=fov, aspect=aspect, geometry=geometry, normals=normals,
+                t_cull=t_cull, omega=1.0, analytic_unboxed=False,
+                refresh_every=1, dist_grid=False, grid_res=GRID_DEFAULT_RES,
+                grid_tau=GRID_TAU, analytic_all=analytic_all,
+                analytic_soa=False)
+    accum = torch.zeros((height, width, 3), dtype=torch.float32,
+                        device=params.device)
+    if params.device.type == "cpu":
+        for f in range(int(n_frames)):
+            render_frame_megakernel_plain(spec, params, accum, f, f, **mode)
+        return accum
+    launch = _frame_launcher(spec, params, **mode)
+    for f in range(int(n_frames)):
+        launch(accum, f, f)
+    return accum
+
+
+def _march_omega(omega: float, t_cull: bool, debug: int,
+                 dist_grid: bool = False) -> float:
     """The over-relaxation the march applies: JAX takes ``omega`` only in
     the t-culled march of debug 0 and 3 and ignores it elsewhere
-    (megakernel.py:1069-1089, :1418-1435)."""
-    return float(omega) if t_cull and debug in (0, 3) else 1.0
+    (megakernel.py:1069-1089, :1418-1435), the grid march included
+    (``_march_while_grid`` takes none)."""
+    return (float(omega) if t_cull and debug in (0, 3) and not dist_grid
+            else 1.0)
 
 
 def _check_accum(accum: torch.Tensor) -> None:
@@ -520,23 +642,45 @@ def launch_megakernel(layout: SoaSmemLayout, soa_f: torch.Tensor,
 def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
                  frame: int, last_clear: int, bounces: int, fov: float,
                  aspect: float, debug: int, t_cull: bool,
-                 omega: float = 1.0) -> None:
+                 omega: float = 1.0, grid: DistGrid = None,
+                 grid_stats: torch.Tensor = None) -> None:
     """Launch K2 on a program's table (``program_table``) and a CUDA (H, W,
     3) float32 accumulator, on the current stream; counts the launch in
     ``LAUNCHES["megakernel_march"]``.  A program with ``caps`` caps the
     march in closed form, and ``omega`` != 1 over-relaxes it; both need
-    ``t_cull`` and debug 0 or 3."""
+    ``t_cull`` and debug 0 or 3.  ``grid`` (K6, baked geometry, t_cull,
+    debug 0 or 3, omega 1) marches on the frame's distance grid;
+    ``grid_stats``, a zeroed int64 CUDA tensor of 5, then takes the warp
+    statistics of the grid march (kernels/csrc/megakernel_march.cu)."""
     if debug not in (0, 1, 2, 3):
         raise ValueError(f"the kernel renders debug 0-3, not {debug}")
     relax = float(omega) != 1.0
     if (prog.caps.shape[0] or relax) and not (t_cull and debug in (0, 3)):
         raise ValueError("the closed-form cap and omega need t_cull and "
                          "debug 0 or 3")
+    if grid is not None and not (prog.geometry == "baked" and t_cull
+                                 and debug in (0, 3) and not relax):
+        raise ValueError("the grid march needs baked geometry, t_cull, "
+                         "debug 0 or 3 and omega 1")
+    if grid_stats is not None and grid is None:
+        raise ValueError("grid_stats needs a grid")
     _check_accum(accum)
     device = accum.device
     height, width = accum.shape[0], accum.shape[1]
     _check_table("table", table, torch.float32, prog.f_len, device)
     code = program_code_on(prog, device)
+    gargs = [None, None, 0, 0, 0, None, 0, 0, 0.0, None]
+    if grid is not None:
+        gx, gy, gz = grid.res
+        _check_table("grid meta", grid.meta, torch.float32, 9, device)
+        _check_table("grid cells", grid.cells, torch.float32, gx * gy * gz,
+                     device)
+        gcode, n_planes, n_k = grid_code_on(prog.spec, device)
+        gargs = [grid.meta.data_ptr(), grid.cells.data_ptr(), gx, gy, gz,
+                 gcode.data_ptr(), n_planes, n_k, float(grid.tau), None]
+        if grid_stats is not None:
+            _check_table("grid_stats", grid_stats, torch.int64, 5, device)
+            gargs[-1] = grid_stats.data_ptr()
     lib = load_library()
     with torch.cuda.device(device):
         err = lib.cpt_megakernel_march(
@@ -544,7 +688,7 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
             prog.f_box, prog.f_mat, prog.caps.shape[0],
             int(prog.geometry == "baked"), int(bool(t_cull)), float(omega),
             accum.data_ptr(), width, height, int(frame), int(last_clear),
-            int(bounces), float(fov), float(aspect), int(debug),
+            int(bounces), float(fov), float(aspect), int(debug), *gargs,
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"marching kernel launch failed: CUDA error {err}")

@@ -10,14 +10,16 @@ from __future__ import annotations
 import torch
 
 from ..constants import CAMERA_ORIGIN
-from ..vecmath import Vec3
+from ..vecmath import Vec3, div_exact
 
 
 def calc_uv(px, py, width: int, height: int, aspect: float):
     """Pixel coords (+ subpixel jitter) -> NDC in [-1, 1], x scaled by aspect
-    (funcs.glsl:1-7)."""
-    u = (px / float(width)) * 2.0 - 1.0
-    v = (py / float(height)) * 2.0 - 1.0
+    (funcs.glsl:1-7).  The divisions are true ones on every device
+    (``div_exact``), as in the kernels: a reciprocal would move a few rays
+    by an ulp, and an edge pixel with them."""
+    u = div_exact(px, float(width)) * 2.0 - 1.0
+    v = div_exact(py, float(height)) * 2.0 - 1.0
     return u * aspect, v
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..scene.compile import OP_SMOOTH_UNION, OP_SUBTRACTION, OP_UNION
-from ..vecmath import Vec3, vmax
+from ..vecmath import Vec3, div_exact, vmax
 
 # -- primitive distance functions ------------------------------------------
 
@@ -93,8 +93,10 @@ def op_subtraction(d1, i1, d2, i2):
 
 
 def op_smooth_union(d1, i1, d2, i2, k):
-    """Quadratic smooth-min; the id of the side that dominates the blend."""
-    h = torch.clamp(0.5 + 0.5 * (d2 - d1) / k, 0.0, 1.0)
+    """Quadratic smooth-min; the id of the side that dominates the blend.
+    ``k`` may be a Python number (the CSG program's table): the division is
+    a true one on every device (``div_exact``)."""
+    h = torch.clamp(0.5 + div_exact(0.5 * (d2 - d1), k), 0.0, 1.0)
     d = d2 * (1.0 - h) + d1 * h - k * h * (1.0 - h)
     return d, torch.where(h > 0.5, i1, i2)
 

@@ -38,8 +38,9 @@ A skipped first shape leaves the union's seed in the accumulator, and the
 next shape folds into it (JAX ``_eval_union_d``); the table is the full
 program's, since a skipped shape has no box.
 
-``make_map_program`` / ``program_bounds`` / ``cast_tcull`` are the plain
-torch versions of the kernel's map, guards and per-thread t-culled march.
+``make_map_program`` / ``program_bounds`` / ``cast_tcull`` / ``cast_grid``
+are the plain torch versions of the kernel's map, guards, per-thread
+t-culled march and distance-grid march.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ from .baked import (
     baked_layout,
     leaf_distance,
 )
+from .distgrid import GRID_MAX_ITERS
 from .reference import take_lanes
 from .scenegen import material_slot_matrix, shape_distance
 
@@ -73,6 +75,7 @@ FOLD_ASSIGN = -1
 XFORM = 14        # floats per faithful node record
 MAX_DEPTH = 16    # union nesting the kernel's per-thread stack holds
 MAX_BOXED = 256   # guarded shapes the kernel's per-thread guard arrays hold
+_GRID_CHEAP_RUN = 16  # cast_grid: cheap steps per ray between map calls
 
 
 @dataclass(frozen=True, eq=False)
@@ -263,15 +266,17 @@ def _bounding_spheres(prog: Program, bv: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def program_table(prog: Program, params: torch.Tensor,
-                  t_cull: bool = False) -> torch.Tensor:
+def program_table(prog: Program, params: torch.Tensor, t_cull: bool = False,
+                  bv: torch.Tensor = None) -> torch.Tensor:
     """The per-frame float32 table ``F`` (``prog.f_len``) on ``params``'
     device; a few tens of batched ops whatever the scene size.  The bounding
     spheres are filled only for ``t_cull`` (zeros otherwise: the exact march
-    does not read them)."""
+    does not read them).  ``bv``, the frame's ``bake(spec, params)`` where
+    the caller has it, saves baking again."""
     dev = _on_device(prog, params.device)
     parts = []
-    bv = bake(prog.spec, params) if prog.geometry == "baked" or t_cull else None
+    if bv is None and (prog.geometry == "baked" or t_cull):
+        bv = bake(prog.spec, params)
     if prog.geometry == "baked":
         parts += [bv, bv[dev.gather].reshape(-1)]
     else:
@@ -479,4 +484,136 @@ def cast_tcull(prog: Program, map_fn, ro: Vec3, rd: Vec3, checks,
         checks = take_lanes(checks, keep)
         if cap is not None:
             cap = cap[keep]
+    return t, idx
+
+
+def cast_grid(prog: Program, map_fn, ro: Vec3, rd: Vec3, checks, tap,
+              tau: float, t_cap=None, count=None):
+    """The kernel's distance-grid march (JAX ``_march_while_grid`` with the
+    tile reduced to one ray, as ``cast_tcull`` reduces
+    ``_march_while_tcull``): each iteration a ray taps the grid bound ``g =
+    tap(p)`` (render/distgrid.py).  A ray with ``g < tau`` takes one exact
+    tap of the map under the per-thread t-cull of ``cast_tcull`` and steps
+    ``min(|d|, max(m - t, MHD))``; a ray with ``g >= tau`` steps by ``g``
+    with no map tap.  Only exact taps count against STEPS, and a ray runs at
+    most ``GRID_MAX_ITERS`` iterations.  A hit needs an exact tap with ``|d|
+    < MHD``; a ray is far once ``t > FP``; a finite ``t_cap``
+    (``analytic_unboxed``) caps t and ends the ray.
+
+    Returns ``(t, idx)``: ``idx`` is the id of the ray's last exact tap, -1
+    when far or when it took none; a ray still marching when its iterations
+    run out takes, as JAX ``_final_idx`` does, the id of one map tap under
+    the bounce's full guards at its previous position.  ``count``, a dict,
+    adds ``"grid_taps"``, the grid taps (the map's own work goes through
+    ``map_fn``'s count).
+
+    Rays are independent, so their iterations may interleave in any order:
+    each round gives every ray up to ``_GRID_CHEAP_RUN`` cheap steps, then
+    one exact tap to every ray then near.  Each ray's own sequence of steps
+    is the kernel's, and the map, a few thousand torch ops, runs once a
+    round instead of once an iteration."""
+    cull = _on_device(prog, ro.x.device).cull
+    t = torch.zeros_like(ro.x)
+    idx = torch.full_like(ro.x, -1, dtype=torch.int32)
+    zero = torch.zeros_like(ro.x)
+    # The live rays' state, compacted once a round: lane, ray, guards, t, t
+    # before the last step, the last exact tap's id, exact taps,
+    # iterations, cap, and g at t.
+    st = dict(lane=torch.arange(t.shape[0], device=t.device), ro=ro, rd=rd,
+              chk=checks[0], lo=checks[1], hi=checks[2], t=zero, tp=zero,
+              last=idx, ec=torch.zeros_like(idx), it=torch.zeros_like(idx),
+              cap=t_cap, g=None)
+    out = []  # rays whose iterations ran out: (lane, ray at tp, guards)
+
+    def grid(p, n):
+        if count is not None:
+            count["grid_taps"] = count.get("grid_taps", 0) + n
+        return tap(p)
+
+    def at(t_):
+        return st["ro"] + st["rd"] * t_
+
+    st["g"] = grid(at(zero), t.shape[0])
+    while st["lane"].numel():
+        fin = torch.zeros_like(st["lane"], dtype=torch.bool)
+        far = fin.clone()
+        # Up to _GRID_CHEAP_RUN cheap steps of every ray with g >= tau.
+        for _ in range(_GRID_CHEAP_RUN):
+            cheap = ~fin & (st["g"] >= tau)
+            if not bool(cheap.any()):
+                break
+            lt = st["t"]
+            nt = torch.where(cheap, lt + st["g"], lt)
+            done = cheap & (nt > FP)
+            far = far | done
+            if st["cap"] is not None:
+                nt = torch.where(cheap, torch.minimum(nt, st["cap"]), nt)
+                done = done | (cheap & (nt >= st["cap"]))
+            st["tp"] = torch.where(cheap, lt, st["tp"])
+            st["t"] = nt
+            st["it"] = st["it"] + cheap.to(st["it"].dtype)
+            fin = fin | done | (cheap & (st["it"] >= GRID_MAX_ITERS))
+            go = cheap & ~fin
+            st["g"] = torch.where(go, grid(at(nt), go.sum()), st["g"])
+        # One exact tap of every ray now near.
+        sel = torch.nonzero(~fin & (st["g"] < tau)).flatten()
+        if sel.numel():
+            lt = st["t"][sel]
+            c, lo_, hi_ = st["chk"][sel], st["lo"][sel], st["hi"][sel]
+            tt = lt[:, None]
+            active = c & (~cull | ((lo_ <= tt) & (hi_ >= tt)))
+            if c.shape[1]:
+                m = torch.where(c & cull & (lo_ > tt), lo_,
+                                torch.full_like(lo_, BIG)).amin(1)
+            else:
+                m = torch.full_like(lt, BIG)
+            d, mi = map_fn(Vec3(*(o[sel] + r[sel] * lt
+                                  for o, r in zip(st["ro"], st["rd"]))),
+                           active)
+            ad = torch.abs(d)
+            nt = lt + torch.minimum(ad, torch.clamp(m - lt, min=MHD))
+            done = ad < MHD
+            if st["cap"] is not None:
+                nt = torch.minimum(nt, st["cap"][sel])
+                done = done | (nt >= st["cap"][sel])
+            f = nt > FP
+            ec, it = st["ec"][sel] + 1, st["it"][sel] + 1
+            done = done | f | (ec >= STEPS)
+            for k, v in (("tp", lt), ("t", nt), ("last", mi), ("ec", ec),
+                         ("it", it)):
+                st[k] = st[k].index_put((sel,), v)
+            far = far.index_put((sel,), f)
+            fin = fin.index_put((sel,), done | (it >= GRID_MAX_ITERS))
+            go = sel[~fin[sel]]
+            if go.numel():
+                st["g"] = st["g"].index_put(
+                    (go,), grid(Vec3(*(o[go] + r[go] * st["t"][go]
+                                       for o, r in zip(st["ro"], st["rd"]))),
+                                go.numel()))
+        # Retire the finished rays: write t and the id, set aside the rays
+        # whose iterations ran out, and compact the rest.
+        ran_out = fin & ~far & (st["it"] >= GRID_MAX_ITERS)
+        ended = fin & ~ran_out
+        if not bool(ended.any() | ran_out.any()):
+            continue
+        lanes = st["lane"][fin]
+        t[lanes] = st["t"][fin]
+        e = torch.nonzero(ended).flatten()
+        idx[st["lane"][e]] = torch.where(far[e], -1, st["last"][e])
+        r = torch.nonzero(ran_out).flatten()
+        if r.numel():
+            out.append((st["lane"][r], Vec3(*(o[r] + d_[r] * st["tp"][r]
+                                              for o, d_ in zip(st["ro"],
+                                                               st["rd"]))),
+                        st["chk"][r]))
+        keep = ~fin
+        for k, v in st.items():
+            if v is not None:
+                st[k] = (Vec3(v.x[keep], v.y[keep], v.z[keep])
+                         if isinstance(v, Vec3) else v[keep])
+    if out:
+        lanes = torch.cat([o[0] for o in out])
+        p = Vec3(*(torch.cat([o[1][k] for o in out]) for k in range(3)))
+        _, mi = map_fn(p, torch.cat([o[2] for o in out]))
+        idx[lanes] = mi
     return t, idx

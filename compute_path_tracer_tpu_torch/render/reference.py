@@ -27,7 +27,7 @@ from ..constants import BIG, DEFAULT_BOUNCES, DEFAULT_FOV, FP, MHD, OFFSET, STEP
 from ..ops.camera import calc_uv, primary_ray
 from ..ops.rng import gen_rng, random_float01, random_unit_vector
 from ..scene.compile import SceneSpec
-from ..vecmath import Vec3, reflect, sqrt_rn, vmix, vwhere
+from ..vecmath import Vec3, div_exact, reflect, sqrt_rn, vmix, vwhere
 from .baked import bake, make_bounds_baked, make_map_baked
 from .scenegen import make_bounds, make_map, material_slot_matrix
 
@@ -358,7 +358,8 @@ def trace_pixels(bounds_fn, cast_fn, normal_fn, gather_mat, xs, ys, frame,
         col, i_exit = path_trace(lambda o, d: bounds_fn(o, d)[0], cast_fn,
                                  normal_fn, gather_mat, ro, rd, rng, bounces)
         if debug == 3:
-            col = Vec3.splat(i_exit.to(torch.float32) / float(bounces))
+            col = Vec3.splat(div_exact(i_exit.to(torch.float32),
+                                       float(bounces)))
     elif debug == 1:
         col = normals_debug(bounds_fn, cast_fn, normal_fn, ro, rd)
     elif debug == 2:
@@ -436,3 +437,26 @@ def render_frame(spec: SceneSpec, params, accum=None, frame: int = 0,
     if accum is None:
         accum = torch.zeros_like(img)
     return running_mean(accum, img, last_clear)
+
+
+def render_accumulated(spec: SceneSpec, params, n_frames: int, *,
+                       width: int = 256, height: int = 256,
+                       bounces: int = DEFAULT_BOUNCES,
+                       fov: float = DEFAULT_FOV,
+                       aspect: float = None) -> torch.Tensor:
+    """``n_frames`` progressive oracle frames into one accumulator (JAX
+    package: ``render_accumulated``).  Frame f uses RNG stream f and
+    running-mean weight 1/(f+1); f = 0 overwrites the zero accumulator (the
+    reference mixes its first frame against stale texture memory at weight
+    1/2, path_tracer.rs:101-115)."""
+    if aspect is None:
+        aspect = width / height
+    accum = None
+    for f in range(int(n_frames)):
+        accum = render_frame(spec, params, accum, f, f, width=width,
+                             height=height, debug=0, bounces=bounces, fov=fov,
+                             aspect=aspect)
+    if accum is None:
+        accum = torch.zeros((height, width, 3), dtype=torch.float32,
+                            device=params.device)
+    return accum

@@ -22,6 +22,17 @@ def sqrt_rn(x):
     return torch.sqrt(x.to(torch.float64)).to(x.dtype)
 
 
+def div_exact(a, b):
+    """``a / b`` rounded once, also where ``b`` is a Python number: torch on
+    CUDA turns a division by a host scalar into a multiplication by the
+    scalar's reciprocal, which can be an ulp off the quotient that the CPU,
+    XLA and the CUDA kernels compute.  A divisor tensor on ``a``'s device
+    keeps it a true division everywhere."""
+    if isinstance(b, torch.Tensor):
+        return a / b
+    return a / torch.full_like(a, b)
+
+
 class Vec3(NamedTuple):
     """A vec3 held as three structure-of-arrays components."""
 

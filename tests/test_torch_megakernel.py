@@ -229,8 +229,8 @@ def test_rejects_non_union_tree():
                                 dict(omega=1.5), dict(dist_grid=True)],
                          ids=str)
 def test_unported_modes_raise(bench16, kw):
-    """With the defaults (faithful geometry, no t_cull): debug 4 and
-    dist_grid are not ported; analytic_unboxed raises JAX's ValueError (it
+    """With the defaults (faithful geometry, no t_cull): debug 4 is not
+    ported; analytic_unboxed and dist_grid raise JAX's ValueError (each
     needs baked geometry and t_cull); omega is ignored outside the t-culled
     march, as JAX ignores it."""
     _, tc = bench16
@@ -240,7 +240,8 @@ def test_unported_modes_raise(bench16, kw):
         assert torch.equal(mk.render_frame_megakernel(tc.spec, pv, **kw, **args),
                            mk.render_frame_megakernel(tc.spec, pv, **args))
         return
-    raises = ValueError if "analytic_unboxed" in kw else NotImplementedError
+    raises = (ValueError if "analytic_unboxed" in kw or "dist_grid" in kw
+              else NotImplementedError)
     with pytest.raises(raises):
         mk.render_frame_megakernel(tc.spec, pv, **kw, **args)
 

@@ -115,3 +115,71 @@ def test_aabb_slab():
     th = taabb.aabb_hit(tn, tf).numpy()
     assert np.array_equal(jh, th)
     assert np.isnan(tn.numpy()[:48]).any() and not th[:32].any()
+
+
+# -- no division by a host scalar in the plain frames --------------------------
+#
+# torch on CUDA computes ``tensor / python_number`` as a multiply by the
+# number's float32 reciprocal, an ulp off the true quotient that the CPU, XLA
+# and the CUDA kernels compute.  In calc_uv that moved a few primary rays and
+# flipped a lamp's edge pixel between K2 and its plain version on the card
+# (profile_main.py --mode parity), so the plain versions divide through
+# vecmath.div_exact.  These tests pin that form on the CPU: no plain frame
+# path divides by a Python number.
+
+_DIVISIONS = {torch.Tensor.__truediv__, torch.Tensor.__itruediv__,
+              torch.Tensor.div, torch.Tensor.div_, torch.div, torch.true_divide}
+
+
+class _ScalarDivisions(torch.overrides.TorchFunctionMode):
+    """Records every division whose divisor is not a tensor."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in _DIVISIONS and not isinstance(args[1], torch.Tensor):
+            self.seen += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_calc_uv_divides_exactly():
+    px = torch.from_numpy(np.random.default_rng(0).uniform(
+        -0.5, 320.5, 4096).astype(np.float32))
+    with _ScalarDivisions() as scan:
+        u, v = tcam.calc_uv(px, px, 320, 180, 320 / 180)
+        torch.ones(2) / 3.0  # the scan sees a host-scalar division
+    assert scan.seen == 1
+    want = (px.numpy() / np.float32(320)) * np.float32(2) - np.float32(1)
+    np.testing.assert_array_equal(u.numpy(), want * np.float32(320 / 180))
+
+
+@pytest.mark.parametrize("scene,mode,debug", [
+    ("blend_demo", dict(geometry="faithful"), 0),
+    ("blend_demo", dict(geometry="faithful"), 1),
+    ("blend_demo", dict(geometry="baked", t_cull=True, dist_grid=True), 3),
+    ("bench8", dict(geometry="baked", analytic_all=True), 0),
+    ("bench8", dict(geometry="baked", t_cull=True, analytic_unboxed=True), 0),
+    ("bench8", dict(geometry="baked", t_cull=True, omega=1.5), 3),
+    ("bench8", "fused", 0),
+], ids=str)
+def test_plain_frames_divide_by_no_host_scalar(scene, mode, debug):
+    from compute_path_tracer_tpu_torch.kernels import megakernel as mk
+    from compute_path_tracer_tpu_torch.kernels import train as tm
+    from compute_path_tracer_tpu_torch.scene import (
+        benchmark_scene, blend_demo, compile_scene, params_from_numpy)
+
+    cs = compile_scene(blend_demo() if scene == "blend_demo"
+                       else benchmark_scene(8))
+    params = params_from_numpy(cs.params, cs.spec, "cpu")
+    with _ScalarDivisions() as scan:
+        if mode == "fused":
+            tm.make_fused_value_and_grad(
+                cs.spec, torch.zeros(8, 16, 3), width=16, height=8,
+                bounces=2, edge_grad=True, edge_secondary=True)(params)
+        else:
+            mk.render_frame_megakernel_plain(cs.spec, params, width=16,
+                                             height=8, bounces=3, debug=debug,
+                                             **mode)
+    assert scan.seen == 0
