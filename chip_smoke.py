@@ -82,11 +82,6 @@ from contextlib import contextmanager
 from functools import partial
 
 CHECK_W, CHECK_H = 320, 180      # kernel-vs-plain phase
-# The bounces of the 320x180 checks of the marching kernels (K2, K2b, K6,
-# K4): their plain versions are bound by torch launches per march step, and
-# 4 bounces keep the script inside its time; the 1080p checks and the main
-# paths take all 8.
-CHECK_BOUNCES = 4
 MAIN_W, MAIN_H, BOUNCES = 1920, 1080, 8
 N_PRIMS = 64
 TIMED_FRAMES = 8
@@ -145,13 +140,17 @@ SLAB_OPS = 26
 TAP_OPS = 11
 LEAF_OPS = {0: 12, 1: 39, 2: 7, 3: 32}
 ANALYTIC_LEAF_OPS = {0: 22, 1: 70, 2: 16, 3: 113}
-# One grid tap (csg_program.cuh:grid_tap): the cell index (3 subs, 3 muls,
-# 3 floors, 6 clamps), the box test (6 compares), the select and the step;
-# outside the box the fallback (the box distance, 12 ops, and the root, 6)
-# and each plane row (7 and a min) are counted as if every tap took it; one
-# sub per smooth node.
-GRID_TAP_OPS = 20 + 18
-GRID_PLANE_OPS = 8
+# The grid march (csg_program.cuh:grid_tap, march_grid), counted from
+# cast_grid's tally: every grid tap the cell index (3 subs, 3 muls, 3
+# floors, 6 clamps), the box test (6 compares), the near test and, per
+# smooth node, the dip (a mul and a sub); a tap outside the box the
+# fallback (the box distance, 12 ops, and the root, 6) and each plane row
+# (3 muls, 3 adds and a min); a cheap step the point (3 muls, 3 adds), the
+# step, the cap's min and the far test.  An exact step's point and step are
+# in TAP_OPS.
+GRID_TAP_OPS, GRID_DIP_OPS = 22, 2
+GRID_OUTSIDE_OPS, GRID_PLANE_OPS = 18, 7
+GRID_CHEAP_OPS = 9
 # The fused train step K4: its three 1080p configurations (bench.py:462,
 # :424, :433; the first is the main one), its checks against its plain
 # version at CHECK_W x CHECK_H, and their gates: loss, the 20 largest
@@ -218,12 +217,16 @@ def _cap_ops(count, prog) -> float:
 
 
 def _grid_ops(count, spec) -> float:
-    """FP32 operations of the grid taps in ``count`` (cast_grid's tally)."""
+    """FP32 operations of the grid march in ``count`` (cast_grid's tally),
+    beyond its exact taps."""
     from compute_path_tracer_tpu_torch.render.distgrid import _grid_static
 
     _b, planes, k_offs = _grid_static(spec)
-    return int(count.get("grid_taps", 0)) * (GRID_TAP_OPS + len(k_offs)
-                                             + GRID_PLANE_OPS * len(planes))
+    return (int(count.get("grid_taps", 0))
+            * (GRID_TAP_OPS + GRID_DIP_OPS * len(k_offs))
+            + int(count.get("grid_outside", 0))
+            * (GRID_OUTSIDE_OPS + GRID_PLANE_OPS * len(planes))
+            + int(count.get("grid_cheap", 0)) * GRID_CHEAP_OPS)
 
 
 def _soa_ops(segments, layout) -> float:
@@ -930,10 +933,10 @@ def main() -> int:
             (f"benchmark_scene({N_PRIMS}) baked t_cull", bench, MARCH)):
         for debug in (0, 1, 2, 3):
             k2_cases.append((f"K2 {name} debug {debug}", scene,
-                             dict(mode, bounces=CHECK_BOUNCES, debug=debug), None,
+                             dict(mode, bounces=BOUNCES, debug=debug), None,
                              SHARE_LIMIT))
     k2_cases.append(("K2 csg_demo faithful t_cull frame 3, running mean", csg,
-                     dict(geometry="faithful", t_cull=True, bounces=CHECK_BOUNCES,
+                     dict(geometry="faithful", t_cull=True, bounces=BOUNCES,
                           frame=3, last_clear=3), prior, SHARE_LIMIT))
     k2_err = _check_cases(mk, "megakernel_march", k2_cases)
 
@@ -947,17 +950,17 @@ def main() -> int:
                         ("guard-less cube", cube), ("clobber scene", clobber)):
         for debug in (0, 3):
             k2b_cases.append((f"K2b analytic_unboxed {name} debug {debug}",
-                              scene, dict(UNBOXED, bounces=CHECK_BOUNCES,
+                              scene, dict(UNBOXED, bounces=BOUNCES,
                                           debug=debug), None, SHARE_LIMIT))
     k2b_err = _check_cases(mk, "megakernel_march", k2b_cases)
     k2b_err = max(k2b_err, _check_cases(mk, "megakernel_march", (
         (f"K2b omega {OMEGA} benchmark_scene({N_PRIMS}) baked t_cull", bench,
-         dict(MARCH, omega=OMEGA, bounces=CHECK_BOUNCES), None, SHARE_LIMIT),
+         dict(MARCH, omega=OMEGA, bounces=BOUNCES), None, SHARE_LIMIT),
         (f"K2b omega {OMEGA} csg_demo faithful t_cull", csg,
          dict(geometry="faithful", t_cull=True, omega=OMEGA,
-              bounces=CHECK_BOUNCES), None, SHARE_LIMIT),
+              bounces=BOUNCES), None, SHARE_LIMIT),
         (f"K2b omega {OMEGA} + analytic_unboxed csg_demo", csg,
-         dict(UNBOXED, omega=OMEGA, bounces=CHECK_BOUNCES), None, SHARE_LIMIT))))
+         dict(UNBOXED, omega=OMEGA, bounces=BOUNCES), None, SHARE_LIMIT))))
     # omega=1.0 is the march without over-relaxation: K2's frame, and on
     # csg_demo, where K2 is its plain version bit for bit, the plain frame.
     for name, (sspec, sparams), mode in (
@@ -1002,17 +1005,17 @@ def main() -> int:
                         ("sphere_and_plane, plane", sap)):
         for debug in (0, 3):
             k6_cases.append((f"K6 dist_grid {name} debug {debug}", scene,
-                             dict(GRID, bounces=CHECK_BOUNCES, debug=debug), None,
+                             dict(GRID, bounces=BOUNCES, debug=debug), None,
                              SHARE_LIMIT))
     k6_cases.append((f"K6 dist_grid + analytic_unboxed benchmark_scene("
                      f"{N_PRIMS})", bench, dict(GRID, analytic_unboxed=True,
-                                                bounces=CHECK_BOUNCES), None,
+                                                bounces=BOUNCES), None,
                      SHARE_LIMIT))
     # With a zero shell no ray takes an exact tap: those that reach a cell
     # whose bound is 0 run out of iterations and take the full map's id.
     k6_cases.append(("K6 dist_grid grid_tau 0, edge_demo, out of iterations",
                      compiled(edge_demo()), dict(GRID, grid_tau=0.0,
-                                                 bounces=CHECK_BOUNCES), None,
+                                                 bounces=BOUNCES), None,
                      SHARE_LIMIT))
     k6_err = _check_cases(mk, "megakernel_march", k6_cases)
     kw = dict(width=CHECK_W, height=CHECK_H, bounces=BOUNCES, **GRID)
@@ -1281,7 +1284,9 @@ def main() -> int:
     print(f"K6 layers at {MAIN_W}x{MAIN_H}: kernel {k6_ms:.3f} ms, plain "
           f"torch frame {k6_plain_ms:.3f} ms while counting; work "
           f"{k6_count['segments']} segments, {int(k6_count['grid_taps'])} "
-          f"grid taps, {k6_count['taps']} map taps, leaves by kind "
+          f"grid taps ({int(k6_count['grid_outside'])} outside the box, "
+          f"{int(k6_count['grid_cheap'])} cheap steps), {k6_count['taps']} "
+          f"map taps, leaves by kind "
           f"{ {k: int(v) for k, v in k6_count.items() if isinstance(k, int)} }"
           f"; bound {k6_bound:.4f} ms ({k6_by}) [{gpu}]")
     del sess, scratch
@@ -1409,33 +1414,33 @@ def main() -> int:
         ("K4 winner, march, sphere_and_plane", sap, {}, 2),
         ("K4 winner, march + edge + secondary, sphere_and_plane", sap,
          dict(edge_grad=True, edge_secondary=True), 2),
-        ("K4 winner, march", bench, {}, CHECK_BOUNCES),
-        ("K4 winner, march + edge", bench, dict(edge_grad=True), CHECK_BOUNCES),
+        ("K4 winner, march", bench, {}, BOUNCES),
+        ("K4 winner, march + edge", bench, dict(edge_grad=True), BOUNCES),
         ("K4 winner, march + edge + secondary", bench,
-         dict(edge_grad=True, edge_secondary=True), CHECK_BOUNCES),
-        ("K4 winner, analytic_all + edge", bench, FUSED_MAIN, CHECK_BOUNCES),
+         dict(edge_grad=True, edge_secondary=True), BOUNCES),
+        ("K4 winner, analytic_all + edge", bench, FUSED_MAIN, BOUNCES),
         ("K4 winner, analytic_all + edge, spp 2", bench,
-         dict(FUSED_MAIN, spp=2), CHECK_BOUNCES),
-        ("K4 map-vjp csg_demo, march", csg, {}, CHECK_BOUNCES),
+         dict(FUSED_MAIN, spp=2), BOUNCES),
+        ("K4 map-vjp csg_demo, march", csg, {}, BOUNCES),
         ("K4 map-vjp csg_demo, march + edge + secondary", csg,
-         dict(edge_grad=True, edge_secondary=True), CHECK_BOUNCES),
+         dict(edge_grad=True, edge_secondary=True), BOUNCES),
         ("K4 edge_demo, bounces 0 + edge", edge_sc, dict(edge_grad=True), 0),
     ), dev)
     k4b_err = _k4_checks(tm, (
-        ("K4 winner, analytic_unboxed", bench, FUSED_UNBOXED, CHECK_BOUNCES),
+        ("K4 winner, analytic_unboxed", bench, FUSED_UNBOXED, BOUNCES),
         ("K4 winner, analytic_unboxed + edge", bench,
-         dict(FUSED_UNBOXED, edge_grad=True), CHECK_BOUNCES),
+         dict(FUSED_UNBOXED, edge_grad=True), BOUNCES),
         ("K4 winner, analytic_unboxed + edge + secondary", bench,
-         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), CHECK_BOUNCES),
-        ("K4 map-vjp csg_demo, analytic_unboxed", csg, FUSED_UNBOXED, CHECK_BOUNCES),
+         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), BOUNCES),
+        ("K4 map-vjp csg_demo, analytic_unboxed", csg, FUSED_UNBOXED, BOUNCES),
         # Images bit-equal to the plain version's, so the tight gates hold
         # the secondary exclusion march over the skipped shapes: every shape
         # of the cube scene is skipped, csg_demo's plane and lamp are.
         ("K4 winner guard-less cube, analytic_unboxed + edge + secondary",
          cube, dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True),
-         CHECK_BOUNCES),
+         BOUNCES),
         ("K4 map-vjp csg_demo, analytic_unboxed + edge + secondary", csg,
-         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), CHECK_BOUNCES),
+         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), BOUNCES),
     ), dev)
 
     n, nd, nid, nnear, ndnear = _edge_cull_count(spec, sp, dev)

@@ -192,8 +192,11 @@ def grid_code_on(spec: SceneSpec, device: torch.device):
 
 
 def make_grid_tap(spec: SceneSpec, grid: DistGrid, bv):
-    """``tap(p) -> g``, the per-point bound of ``grid`` for (n,) points;
-    ``bv`` is the baked vector as Python floats (or a tensor)."""
+    """``tap(p, count=None, live=None) -> g``, the per-point bound of
+    ``grid`` for (n,) points; ``bv`` is the baked vector as Python floats
+    (or a tensor).  ``count``, a dict, adds ``"grid_taps"``, the taps of the
+    points in ``live`` (a bool mask; all when None), and ``"grid_outside"``,
+    those of them outside the box, which take the fallback."""
     gx, gy, gz = grid.res
     _b, planes, k_offs = _grid_static(spec)
     meta = [float(v) for v in grid.meta.tolist()]
@@ -206,7 +209,7 @@ def make_grid_tap(spec: SceneSpec, grid: DistGrid, bv):
         return torch.clamp(torch.floor((c - lo) * inv), 0.0, n - 1).to(
             torch.int64)
 
-    def tap(p: Vec3):
+    def tap(p: Vec3, count=None, live=None):
         g = cells[(cell(p.z, loz, ivz, gz) * gy + cell(p.y, loy, ivy, gy)) * gx
                   + cell(p.x, lox, ivx, gx)]
         inside = ((p.x >= lox) & (p.x <= hix) & (p.y >= loy) & (p.y <= hiy)
@@ -221,6 +224,11 @@ def make_grid_tap(spec: SceneSpec, grid: DistGrid, bv):
         for r in rows:
             db = torch.minimum(db, r[0] * p.x + r[1] * p.y + r[2] * p.z + r[3])
         g = torch.where(inside, g, db)
+        if count is not None:
+            live = torch.ones_like(inside) if live is None else live
+            count["grid_taps"] = count.get("grid_taps", 0) + live.sum()
+            count["grid_outside"] = (count.get("grid_outside", 0)
+                                     + (live & ~inside).sum())
         for k in ks:  # the smooth-union dip, k/4 per smooth node
             g = g - k
         return g

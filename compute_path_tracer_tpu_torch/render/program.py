@@ -503,9 +503,11 @@ def cast_grid(prog: Program, map_fn, ro: Vec3, rd: Vec3, checks, tap,
     Returns ``(t, idx)``: ``idx`` is the id of the ray's last exact tap, -1
     when far or when it took none; a ray still marching when its iterations
     run out takes, as JAX ``_final_idx`` does, the id of one map tap under
-    the bounce's full guards at its previous position.  ``count``, a dict,
-    adds ``"grid_taps"``, the grid taps (the map's own work goes through
-    ``map_fn``'s count).
+    the bounce's full guards at its previous position; a ray that hits,
+    goes far, meets its cap or spends its exact taps on its last iteration
+    keeps its last exact tap's id, as the kernel returns it.  ``count``, a
+    dict, adds the grid taps as ``tap`` counts them and ``"grid_cheap"``,
+    the cheap steps (the map's own work goes through ``map_fn``'s count).
 
     Rays are independent, so their iterations may interleave in any order:
     each round gives every ray up to ``_GRID_CHEAP_RUN`` cheap steps, then
@@ -525,18 +527,18 @@ def cast_grid(prog: Program, map_fn, ro: Vec3, rd: Vec3, checks, tap,
               cap=t_cap, g=None)
     out = []  # rays whose iterations ran out: (lane, ray at tp, guards)
 
-    def grid(p, n):
-        if count is not None:
-            count["grid_taps"] = count.get("grid_taps", 0) + n
-        return tap(p)
+    def grid(p, live=None):
+        return tap(p, count, live)
 
     def at(t_):
         return st["ro"] + st["rd"] * t_
 
-    st["g"] = grid(at(zero), t.shape[0])
+    st["g"] = grid(at(zero))
     while st["lane"].numel():
+        # fin: the ray ends this round; stop: it ends by a hit, far, its cap
+        # or its exact-tap budget, not by running out of iterations.
         fin = torch.zeros_like(st["lane"], dtype=torch.bool)
-        far = fin.clone()
+        far, stop = fin.clone(), fin.clone()
         # Up to _GRID_CHEAP_RUN cheap steps of every ray with g >= tau.
         for _ in range(_GRID_CHEAP_RUN):
             cheap = ~fin & (st["g"] >= tau)
@@ -552,9 +554,12 @@ def cast_grid(prog: Program, map_fn, ro: Vec3, rd: Vec3, checks, tap,
             st["tp"] = torch.where(cheap, lt, st["tp"])
             st["t"] = nt
             st["it"] = st["it"] + cheap.to(st["it"].dtype)
+            if count is not None:
+                count["grid_cheap"] = count.get("grid_cheap", 0) + cheap.sum()
+            stop = stop | done
             fin = fin | done | (cheap & (st["it"] >= GRID_MAX_ITERS))
             go = cheap & ~fin
-            st["g"] = torch.where(go, grid(at(nt), go.sum()), st["g"])
+            st["g"] = torch.where(go, grid(at(nt), go), st["g"])
         # One exact tap of every ray now near.
         sel = torch.nonzero(~fin & (st["g"] < tau)).flatten()
         if sel.numel():
@@ -583,16 +588,16 @@ def cast_grid(prog: Program, map_fn, ro: Vec3, rd: Vec3, checks, tap,
                          ("it", it)):
                 st[k] = st[k].index_put((sel,), v)
             far = far.index_put((sel,), f)
+            stop = stop.index_put((sel,), done)
             fin = fin.index_put((sel,), done | (it >= GRID_MAX_ITERS))
             go = sel[~fin[sel]]
             if go.numel():
                 st["g"] = st["g"].index_put(
                     (go,), grid(Vec3(*(o[go] + r[go] * st["t"][go]
-                                       for o, r in zip(st["ro"], st["rd"]))),
-                                go.numel()))
+                                       for o, r in zip(st["ro"], st["rd"])))))
         # Retire the finished rays: write t and the id, set aside the rays
         # whose iterations ran out, and compact the rest.
-        ran_out = fin & ~far & (st["it"] >= GRID_MAX_ITERS)
+        ran_out = fin & ~stop
         ended = fin & ~ran_out
         if not bool(ended.any() | ran_out.any()):
             continue

@@ -2,7 +2,7 @@
 """Where the port's main-path frame or training-step time goes, on one
 NVIDIA GPU.
 
-    python3 profile_main.py [--mode analytic|march|unboxed|grid|train|fused|parity]
+    python3 profile_main.py [--mode analytic|march|unboxed|grid|train|fused]
                             [--normals kernel|central] [--remat]
                             [--config analytic|march|secondary|unboxed]
 
@@ -43,24 +43,6 @@ ops, the busy share and the device time by part: K4 (train_fused and its
 sum_rows), the bake and tables, the transposes, bake vjp and loss around
 the launch, and Adam.
 
-``parity`` holds the marching kernel against its plain version where they
-had parted: at 320x180 with 8 bounces it renders the benchmark scene and
-sphere_and_plane (baked, t_cull) with K2, with the plain version on the card
-and on the CPU, and with the plain version on the card whose primary rays
-divide by the image size the way torch on CUDA divides by a host scalar
-(by multiplying with its reciprocal, the port's form before ``div_exact``).
-It prints the pixels each pair differs in, the baked slots in which the
-frame's geometry differs between the card and the CPU, and, for up to
-PARITY_PIXELS of
-the pixels that K2 and the reciprocal form differ in, each bounce's ray
-direction, hit t, shape id and normal from the plain version on the CPU and
-with the reciprocal form on the card, and from K3 (march_rays, the same
-interpreter as K2) on the CPU plain version's rays.  Then the fused step K4
-with ``edge_grad`` and ``edge_secondary`` on the benchmark scene at 320x180
-(bench.py:433), both uv forms: its map-vjp mode's per-bounce segment planes
-(the secondary exclusion march's inputs: ray, hit t, winner) and its
-winner-mode loss and gradient, kernel against plain.
-
 The last line is one JSON object with those numbers.  Exits non-zero
 without a result when torch finds no CUDA device.  Imports nothing of JAX.
 """
@@ -88,7 +70,6 @@ MODES = {
     "grid": (dict(geometry="baked", t_cull=True, dist_grid=True),
              "megakernel_march"),
 }
-PARITY_W, PARITY_H, PARITY_PIXELS = 320, 180, 4
 # --config of --mode fused -> make_fused_value_and_grad options (bench.py:462,
 # :424, :433, :442)
 FUSED_CONFIGS = {
@@ -338,179 +319,6 @@ def _profile_fused(args, gpu) -> int:
     return 0
 
 
-def _scalar_uv(px, py, width, height, aspect):
-    """calc_uv as torch on CUDA computes ``px / float(width)``: times the
-    float32 reciprocal of the divisor."""
-    import torch
-
-    def recip(n):
-        return torch.tensor(1.0, dtype=torch.float32) / torch.tensor(
-            float(n), dtype=torch.float32)
-
-    u = (px * recip(width).item()) * 2.0 - 1.0
-    v = (py * recip(height).item()) * 2.0 - 1.0
-    return u * aspect, v
-
-
-def _profile_parity(gpu) -> int:
-    """``--mode parity`` (module docstring)."""
-    import numpy as np
-    import torch
-
-    from compute_path_tracer_tpu_torch.kernels import march as km
-    from compute_path_tracer_tpu_torch.kernels import megakernel as mk
-    from compute_path_tracer_tpu_torch.kernels import train as tm
-    from compute_path_tracer_tpu_torch.render import reference as ref
-    from compute_path_tracer_tpu_torch.render.baked import bake
-    from compute_path_tracer_tpu_torch.render.program import (
-        build_program, program_table)
-    from compute_path_tracer_tpu_torch.scene import (
-        benchmark_scene, compile_scene, params_from_numpy, sphere_and_plane)
-    from compute_path_tracer_tpu_torch.vecmath import Vec3
-
-    exact_uv = ref.calc_uv
-    kw = dict(width=PARITY_W, height=PARITY_H, bounces=BOUNCES,
-              geometry="baked", t_cull=True)
-    out = {"gpu": gpu, "mode": "parity"}
-
-    def frame(fn, spec, params, uv):
-        ref.calc_uv = uv
-        try:
-            img = fn(spec, params, **kw)
-            torch.cuda.synchronize()
-            return img.cpu()
-        finally:
-            ref.calc_uv = exact_uv
-
-    def bounces_of(spec, params, x, y, uv):
-        """Per bounce of pixel (x, y): (ro, rd, t, idx, normal) of the
-        plain frame on ``params``' device."""
-        rec = []
-        orig = ref.path_trace
-
-        def recording(bounds_fn, cast_fn, normal_fn, *a, **k):
-            def cast(ro, rd, c):
-                o = cast_fn(ro, rd, c)
-                rec.append([[float(v[0]) for v in ro], [float(v[0]) for v in rd],
-                            float(o[0][0]), int(o[1][0]), None])
-                return o
-
-            def normal(p, idx, c):
-                n = normal_fn(p, idx, c)
-                if n.x.numel():
-                    rec[-1][4] = [float(v[0]) for v in n]
-                return n
-
-            return orig(bounds_fn, cast, normal, *a, **k)
-
-        dev = params.device
-        ref.path_trace, ref.calc_uv = recording, uv
-        try:
-            prog = build_program(spec, "baked")
-            table = program_table(prog, params, True)
-            xs = torch.tensor([[x]], dtype=torch.int32, device=dev)
-            ys = torch.tensor([[y]], dtype=torch.int32, device=dev)
-            mk._march_plain(prog, table, True, xs, ys, 0, BOUNCES, 1.0,
-                            PARITY_W / PARITY_H, width=PARITY_W,
-                            height=PARITY_H, debug=0)
-        finally:
-            ref.path_trace, ref.calc_uv = orig, exact_uv
-        return rec
-
-    for name, scene in (("benchmark_scene(64)", benchmark_scene(N_PRIMS)),
-                        ("sphere_and_plane", sphere_and_plane())):
-        cs = compile_scene(scene)
-        pc = params_from_numpy(cs.params, cs.spec, "cuda")
-        pcpu = pc.cpu()
-        k2 = frame(mk.render_frame_megakernel, cs.spec, pc, exact_uv)
-        imgs = {"plain on the card": frame(mk.render_frame_megakernel_plain,
-                                           cs.spec, pc, exact_uv),
-                "plain on the CPU": frame(mk.render_frame_megakernel_plain,
-                                          cs.spec, pcpu, exact_uv),
-                "plain on the card, reciprocal uv": frame(
-                    mk.render_frame_megakernel_plain, cs.spec, pc,
-                    _scalar_uv)}
-        res = {}
-        for label, img in imgs.items():
-            off = torch.nonzero((k2 != img).any(-1))
-            res[label] = [[int(y), int(x)] for y, x in off.tolist()]
-            print(f"{name}: K2 against the {label}: {off.shape[0]} of "
-                  f"{PARITY_W * PARITY_H} pixels differ "
-                  f"{res[label][:PARITY_PIXELS]}")
-        prog = build_program(cs.spec, "baked")
-        table_c = program_table(prog, pc, True)
-        bv_card, bv_cpu = bake(cs.spec, pc).cpu(), bake(cs.spec, pcpu)
-        n_bv = int((bv_card != bv_cpu).sum())
-        print(f"{name}: baked slots that differ between the card and the "
-              f"CPU: {n_bv} of {bv_cpu.shape[0]}, max |diff| "
-              f"{float((bv_card - bv_cpu).abs().max()):.3e}")
-        out[f"{name} baked slots differing"] = n_bv
-        for y, x in res["plain on the card, reciprocal uv"][:PARITY_PIXELS]:
-            cpu = bounces_of(cs.spec, pcpu, x, y, exact_uv)
-            card = bounces_of(cs.spec, pc, x, y, _scalar_uv)
-            for b in range(max(len(cpu), len(card))):
-                kern = None
-                if b < len(cpu):
-                    ro, rd = (Vec3(*(torch.tensor([c], device="cuda")
-                                     for c in v)) for v in cpu[b][:2])
-                    t, i, n = km.march_rays(prog, table_c, ro, rd, t_cull=True,
-                                            with_normal=True)
-                    kern = [float(t[0]), int(i[0]), [float(c[0]) for c in n]]
-                print(f"  pixel ({x}, {y}) bounce {b}: CPU plain "
-                      f"{cpu[b][1:] if b < len(cpu) else None}; card plain, "
-                      f"reciprocal uv {card[b][1:] if b < len(card) else None};"
-                      f" K3 on the CPU rays {kern}")
-        out[name] = {k: len(v) for k, v in res.items()}
-
-    # K4, march + edge_grad + edge_secondary, both uv forms.
-    cs = compile_scene(benchmark_scene(N_PRIMS))
-    pc = params_from_numpy(cs.params, cs.spec, "cuda")
-    target = torch.from_numpy(np.random.default_rng(3).random(
-        (PARITY_H, PARITY_W, 3)).astype(np.float32) * 0.3).cuda()
-    tplanes = target.permute(2, 0, 1).contiguous()
-    for label, uv in (("exact uv", exact_uv), ("reciprocal uv", _scalar_uv)):
-        ref.calc_uv = uv
-        try:
-            mode = tm.FusedMode(BOUNCES, False, edge_grad=True,
-                                edge_secondary=True)
-            tables = tm.fused_tables(cs.spec, pc)
-            run = dict(width=PARITY_W, height=PARITY_H, mode=mode)
-            k = tm.launch_train_fused(tables, tplanes, 0, 1.0,
-                                      PARITY_W / PARITY_H, 0, **run)
-            p = tm.fused_planes_plain(tables, tplanes, 0, 1.0,
-                                      PARITY_W / PARITY_H, 0, **run)
-            torch.cuda.synchronize()
-            same = {f: int((getattr(k, f) != getattr(p, f)).reshape(
-                -1, PARITY_W * PARITY_H).any(0).sum())
-                for f in ("seg_ro", "seg_rd", "seg_t", "seg_idx")}
-            gk = tm.make_fused_value_and_grad(
-                cs.spec, target, width=PARITY_W, height=PARITY_H,
-                bounces=BOUNCES, edge_grad=True, edge_secondary=True)(pc)
-            orig = tm.launch_train_fused
-            tm.launch_train_fused = lambda *a, **k_: tm.fused_planes_plain(*a, **k_)
-            try:
-                gp = tm.make_fused_value_and_grad(
-                    cs.spec, target, width=PARITY_W, height=PARITY_H,
-                    bounces=BOUNCES, edge_grad=True, edge_secondary=True)(pc)
-            finally:
-                tm.launch_train_fused = orig
-        finally:
-            ref.calc_uv = exact_uv
-        (lk, gk), (lp, gp) = gk, gp
-        top = torch.argsort(gp.abs(), descending=True)[:20]
-        top = top[gp[top] != 0]
-        rel = float(((gk[top] - gp[top]).abs() / gp[top].abs()).max())
-        cos = float(gk @ gp / (gk.norm() * gp.norm()))
-        print(f"K4 march + edge_grad + edge_secondary, {label}: pixels whose "
-              f"segment planes differ {same}; loss {float(lk):.8f} vs "
-              f"{float(lp):.8f}, top-20 slot rel err {rel:.3e}, cosine "
-              f"{cos:.8f}")
-        out[f"K4 {label}"] = dict(same, top20_rel=rel, cosine=cos,
-                                  loss_rel=abs(float(lk) - float(lp)) / abs(float(lp)))
-    print(json.dumps(out))
-    return 0
-
-
 def main() -> int:
     import argparse
 
@@ -518,7 +326,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", default="analytic",
-                    choices=tuple(MODES) + ("train", "fused", "parity"))
+                    choices=tuple(MODES) + ("train", "fused"))
     ap.add_argument("--config", default="analytic",
                     choices=tuple(FUSED_CONFIGS),
                     help="fused: analytic_all + edge_grad (the main one), "
@@ -538,10 +346,6 @@ def main() -> int:
         gpu = _gpu_line()
         print(f"gpu: {gpu}, mode: fused, config: {args.config}")
         return _profile_fused(args, gpu)
-    if args.mode == "parity":
-        gpu = _gpu_line()
-        print(f"gpu: {gpu}, mode: parity")
-        return _profile_parity(gpu)
     if args.mode == "train":
         gpu = _gpu_line()
         print(f"gpu: {gpu}, mode: train, normals: {args.normals}, remat: "

@@ -22,7 +22,10 @@ march (K6's mode), against the JAX package.
   benchmark_scene(16), csg_demo and blend_demo (measured 0, 4.9e-4 and
   0); ``omega`` ignored under
   ``dist_grid`` (bit-equal); JAX's ``ValueError``s; ``dist_grid`` with
-  ``analytic_unboxed``; and the id of a ray that runs out of iterations.
+  ``analytic_unboxed``, against the port's capped t-culled frame (5e-3) and
+  against JAX's frame of the same two modes in interpret mode (the 2 % gate
+  above); the id of a ray that runs out of iterations; and the id of a ray
+  that stops on its last allowed iteration.
 """
 
 import jax.numpy as jnp
@@ -42,10 +45,12 @@ from compute_path_tracer_tpu.vecmath import Vec3 as JVec3
 from compute_path_tracer_tpu_torch.constants import FP, MHD
 from compute_path_tracer_tpu_torch.kernels import megakernel as mk
 from compute_path_tracer_tpu_torch.render import distgrid as tdg
+from compute_path_tracer_tpu_torch.render import program as tprog
 from compute_path_tracer_tpu_torch.render.baked import bake
 from compute_path_tracer_tpu_torch.render.program import (
     build_program,
     cast_grid,
+    cast_tcull,
     make_map_program,
     program_bounds,
     program_table,
@@ -237,25 +242,47 @@ def test_dist_grid_composes_with_analytic_unboxed():
     assert _share_off(both, capped) <= 5e-3
 
 
+def test_grid_unboxed_frame_matches_jax_interpret():
+    """``dist_grid`` with ``analytic_unboxed`` against JAX's Pallas frame of
+    the same two modes (kernels/megakernel.py:1070-1074), in interpret
+    mode, at test_grid_frame_matches_jax_interpret's gate: JAX culls per
+    tile, the port per ray."""
+    jc, tc = _pair(j_lib.benchmark_scene(16))
+    kw = dict(width=128, height=32, bounces=2, analytic_unboxed=True)
+    jax_img = np.asarray(render_frame_pallas(
+        jc.spec, jnp.asarray(jc.params, jnp.float32), geometry="baked",
+        t_cull=True, dist_grid=True, interpret=True, tile=(32, 128), **kw))
+    port = mk.render_frame_megakernel(tc.spec, _params(tc), **kw,
+                                      **GRID).numpy()
+    assert np.isfinite(port).all() and port.mean() > 0.0
+    assert _share_off(port, jax_img) <= 0.02
+
+
+def _march_setup(scene, width=32, height=16):
+    _, tc = _pair(scene)
+    params = _params(tc)
+    prog = build_program(tc.spec, "baked")
+    bv = bake(tc.spec, params)
+    table = program_table(prog, params, True, bv)
+    ys, xs = torch.meshgrid(torch.arange(height, dtype=torch.int32),
+                            torch.arange(width, dtype=torch.int32),
+                            indexing="ij")
+    _, ro, rd = camera_rays(xs, ys, 0, 1.0, width / height, width=width,
+                            height=height)
+    checks, _ = program_bounds(prog, table, ro, rd, True)
+    return tc, prog, bv, table.tolist(), ro, rd, checks
+
+
 def test_ray_out_of_iterations_takes_the_full_map_id():
     """With tau 0 no ray takes an exact tap: a ray that reaches a cell
     whose bound is 0 stops there, runs out of iterations, and takes the id
     of one map tap under the bounce's full guards at its last position
     (JAX ``_final_idx``); a ray that never reaches one leaves as far.
     edge_demo's one sphere keeps the camera outside the grid's box."""
-    _, tc = _pair(j_lib.edge_demo())
-    params = _params(tc)
-    prog = build_program(tc.spec, "baked")
-    bv = bake(tc.spec, params)
-    table = program_table(prog, params, True, bv)
-    vals = table.tolist()
+    tc, prog, bv, vals, ro, rd, checks = _march_setup(j_lib.edge_demo())
     grid = tdg.make_dist_grid(tc.spec, bv, tau=0.0)
     count = {}
     map_fn = make_map_program(prog, vals, count)
-    ys, xs = torch.meshgrid(torch.arange(16, dtype=torch.int32),
-                            torch.arange(32, dtype=torch.int32), indexing="ij")
-    _, ro, rd = camera_rays(xs, ys, 0, 1.0, 2.0, width=32, height=16)
-    checks, _ = program_bounds(prog, table, ro, rd, True)
     t, idx = cast_grid(prog, map_fn, ro, rd, checks,
                        tdg.make_grid_tap(tc.spec, grid, vals), 0.0,
                        count=count)
@@ -269,3 +296,28 @@ def test_ray_out_of_iterations_takes_the_full_map_id():
     # Stuck rays sit within one cell's diagonal of a surface, never inside.
     d, _ = map_fn(ro + rd * t, checks[0])
     assert bool((d[stuck] > -MHD).all())
+
+
+def test_ray_stopping_on_its_last_iteration_keeps_its_tap_id(monkeypatch):
+    """A ray that hits, goes far or spends its exact taps on its last
+    allowed iteration ends with its last exact tap's id, as the kernel's
+    march_grid returns inside its loop; only a ray still marching takes the
+    full map's id.  With every tap exact (tau = inf) and the iteration cap
+    patched down to the exact-tap budget, the grid march is the t-culled
+    march step for step: the same t, the same ids and no extra map tap."""
+    monkeypatch.setattr(tprog, "STEPS", 12)
+    monkeypatch.setattr(tprog, "GRID_MAX_ITERS", 12)
+    tc, prog, bv, vals, ro, rd, checks = _march_setup(
+        j_lib.benchmark_scene(16))
+    grid = tdg.make_dist_grid(tc.spec, bv)
+    c_grid, c_tcull = {}, {}
+    t, idx = cast_grid(prog, make_map_program(prog, vals, c_grid), ro, rd,
+                       checks, tdg.make_grid_tap(tc.spec, grid, vals),
+                       float("inf"), count=c_grid)
+    t_ref, idx_ref = cast_tcull(prog, make_map_program(prog, vals, c_tcull),
+                                ro, rd, checks)
+    # Some rays stop on the last iteration without a hit.
+    assert int(((t <= FP) & (idx >= 0)).sum()) > 0
+    assert int(c_grid.get("grid_cheap", 0)) == 0
+    assert int(c_grid["taps"]) == int(c_tcull["taps"])
+    assert torch.equal(t, t_ref) and torch.equal(idx, idx_ref)
