@@ -52,6 +52,19 @@ and the modes of the same two kernels that the last bench.py rows run:
   with the grid march's warp statistics;
 * multi-frame accumulation (``render_accumulated_megakernel``) through K1
   and K2, bit for bit the frames one at a time;
+* debug 4 on K2's binary (its STATS kernel: per-warp march statistics)
+  against the plain reducer (kernels/megakernel.py:MarchStats), all three
+  channels bit for bit, on four scenes over geometry, t_cull and
+  ``analytic_unboxed``, with partial warps at 200x45, and at 1080p against
+  the statistics of the plain pass that also checks K2's 1080p frame; its
+  time beside K2's debug-0 time, the warp SIMT share, and its main path,
+  ``app/profiling.py:measured_frame_cost`` at 1080p;
+* the march probes (kernels/probes.py, ``csrc/march_probes.cu``: dense,
+  capped, ILP seq and fused) against their plain versions on four scenes
+  at 320x180 and on the 1080p primary rays, dense and ILP also against K3's
+  exact march, bit for bit; their main paths, the measurement scripts of
+  ``compute_path_tracer_tpu_torch/benchmarks/`` at 1080p, time them beside
+  K3's t-culled and exact marches;
 
 and the fused train step through K4 (train_fused): the whole step (loss,
 gradient, image) with K4 against the same with its plain version at
@@ -97,6 +110,11 @@ GRID = dict(MARCH, dist_grid=True)
 GRID_RES = (8, 16, 32)
 GRID_TAU_WIDE = 16e-3
 ACC_FRAMES = 3
+# Debug 4's partial-warp check: a width that is not a multiple of 16 and an
+# odd height.
+D4_PARTIAL = (200, 45)
+# The operation counts per executed item, the card's FP32 peak and the bound
+# are app/profiling.py's.
 SOA = dict(geometry="baked", analytic_soa=True)
 SOA_PRIMS = (256, 512)
 OMEGA = 1.6
@@ -116,41 +134,6 @@ TOP_FLOOR = 1e-6
 # gradient's direction must hold.
 EXACT_COS = 1e-2
 
-# The bound: the larger of the bytes each
-# kernel must move over HBM3's rate and the FP32 operations its inputs need
-# over the card's FP32 peak (132 SMs x 128 lanes x 2 x the max SM clock).
-# Operations per executed item, counted from the kernels' sources (each add,
-# sub, mul, div, sqrt, min, max, abs and compare one): the slab test of one
-# AABB per ray segment, one map tap (the point, the step, its tests), one
-# baked leaf with its fold, by kind (sphere, cube, plane, octahedron), and
-# K1's closed-form test of a leaf without a box.  Integer guard bookkeeping,
-# loads and K1's tests of the boxed leaves a ray enters are not counted, so
-# the bound is a lower one.
-# K4's work beyond the map taps and leaves above, per item, read off
-# train_fused.cu (the same counting rules): one bounce's replay with its
-# adjoint (replay_adjoint), one leaf's slot partials by kind
-# (leaf_partials), one leaf of the secondary exclusion fold by kind, and the
-# per-pixel edge bookkeeping (slope, sigmoid, seed).
-REPLAY_OPS = 180
-PARTIAL_OPS = {0: 14, 1: 75, 2: 8, 3: 70}
-EXCL_OPS = {0: 11, 1: 38, 2: 6, 3: 31}
-EDGE_RAY_OPS = 40
-HBM_BYTES_PER_S = 3.35e12
-SLAB_OPS = 26
-TAP_OPS = 11
-LEAF_OPS = {0: 12, 1: 39, 2: 7, 3: 32}
-ANALYTIC_LEAF_OPS = {0: 22, 1: 70, 2: 16, 3: 113}
-# The grid march (csg_program.cuh:grid_tap, march_grid), counted from
-# cast_grid's tally: every grid tap the cell index (3 subs, 3 muls, 3
-# floors, 6 clamps), the box test (6 compares), the near test and, per
-# smooth node, the dip (a mul and a sub); a tap outside the box the
-# fallback (the box distance, 12 ops, and the root, 6) and each plane row
-# (3 muls, 3 adds and a min); a cheap step the point (3 muls, 3 adds), the
-# step, the cap's min and the far test.  An exact step's point and step are
-# in TAP_OPS.
-GRID_TAP_OPS, GRID_DIP_OPS = 22, 2
-GRID_OUTSIDE_OPS, GRID_PLANE_OPS = 18, 7
-GRID_CHEAP_OPS = 9
 # The fused train step K4: its three 1080p configurations (bench.py:462,
 # :424, :433; the first is the main one), its checks against its plain
 # version at CHECK_W x CHECK_H, and their gates: loss, the 20 largest
@@ -173,75 +156,6 @@ FUSED_LOSS_REL, FUSED_TOP_REL, FUSED_COS = 1e-5, 1e-2, 1e-6
 # vecmath.div_exact), so every case is held to the gates above.  Before
 # that, an ulp in a primary ray flipped a lamp's edge pixel and moved the
 # secondary edge term's slots by up to 1.9e-2 (PERF.md).
-
-
-def _gpu_line(query="name,power.limit") -> str:
-    out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
-def _fp32_peak() -> float:
-    """FP32 operations per second at the card's max SM clock."""
-    mhz = float(_gpu_line("clocks.max.sm").split()[0])
-    return 132 * 128 * 2 * mhz * 1e6
-
-
-def _bound_ms(n_bytes, ops, peak):
-    """(bound ms, what sets it)."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def _march_ops(count, prog) -> float:
-    """FP32 operations of the march work in ``count`` (make_map_program's
-    tally, with "segments")."""
-    return (count["segments"] * prog.n_boxed * SLAB_OPS
-            + count["taps"] * TAP_OPS
-            + sum(int(count.get(k, 0)) * v for k, v in LEAF_OPS.items()))
-
-
-def _analytic_ops(segments, prog) -> float:
-    free = [op[1] for op in prog.ops.tolist() if op[0] == 1 and op[3] < 0]
-    return segments * (prog.n_boxed * SLAB_OPS
-                       + sum(ANALYTIC_LEAF_OPS[k] for k in free))
-
-
-def _cap_ops(count, prog) -> float:
-    """FP32 operations of the analytic_unboxed cap: its closed form over the
-    program's cap list, once per ray segment that computes it."""
-    return count.get("cap_segments", 0) * sum(
-        ANALYTIC_LEAF_OPS[k] for k in prog.caps[:, 0].tolist())
-
-
-def _grid_ops(count, spec) -> float:
-    """FP32 operations of the grid march in ``count`` (cast_grid's tally),
-    beyond its exact taps."""
-    from compute_path_tracer_tpu_torch.render.distgrid import _grid_static
-
-    _b, planes, k_offs = _grid_static(spec)
-    return (int(count.get("grid_taps", 0))
-            * (GRID_TAP_OPS + GRID_DIP_OPS * len(k_offs))
-            + int(count.get("grid_outside", 0))
-            * (GRID_OUTSIDE_OPS + GRID_PLANE_OPS * len(planes))
-            + int(count.get("grid_cheap", 0)) * GRID_CHEAP_OPS)
-
-
-def _soa_ops(segments, layout) -> float:
-    """K1's operations per frame read off the packed tables (K5: no program
-    holds 512 guarded shapes): per ray segment, every guarded shape's slab
-    test and its valid ancestor slabs, and the closed form of every
-    unguarded shape; the closed forms of the guarded shapes a ray enters
-    are not counted, as in _analytic_ops."""
-    per = 0
-    for kd in layout.kinds:
-        guard = layout.i_const[kd.i_guard:kd.i_guard + kd.n]
-        anc = layout.i_const[kd.i_anc_valid:kd.i_anc_valid + kd.n * kd.a]
-        per += (int(guard.sum()) * SLAB_OPS + int(anc.sum()) * SLAB_OPS
-                + int((guard == 0).sum()) * ANALYTIC_LEAF_OPS[kd.kind])
-    return segments * per
 
 
 def _clobber_scene():
@@ -268,22 +182,6 @@ def _stamp(start, phase):
     """Prints the seconds since ``start`` as ``phase`` begins: the script
     must end well inside its time limit."""
     print(f"[{time.perf_counter() - start:.1f} s] {phase}", flush=True)
-
-
-def _cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _compare(name, kernel_img, plain_img, limit=SHARE_LIMIT, exact=False):
@@ -363,19 +261,21 @@ def _drive_session(mk, key, sess, label, gpu, prims=N_PRIMS):
     return counts[key]
 
 
-def _main_shape_check(mk, key, spec, params, mode, label=None, count=None):
+def _main_shape_check(mk, key, spec, params, mode, label=None, count=None,
+                      stats=None):
     """The kernel against the plain version at the main path's own shape
     (frame 0, fresh accumulator), bit for bit; returns (share, max |diff|,
     plain ms).
     ``count``, a dict, takes the plain frame's tally of the kernel's work
-    for the bound, and its time then includes the counting."""
+    for the bound, and its time then includes the counting; ``stats``, a
+    MarchStats, takes the same pass's debug-4 statistics."""
     import torch
 
     kw = dict(width=MAIN_W, height=MAIN_H, bounces=BOUNCES, **mode)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain = mk.render_frame_megakernel_plain(spec, params, None, 0, 0,
-                                             count=count, **kw)
+                                             count=count, stats=stats, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     before = mk.LAUNCHES[key]
@@ -672,22 +572,6 @@ def _fused_step(tm, spec, params, target, width, height, bounces, **kw):
     return float(loss), grad, img
 
 
-def _fused_ops(count, prog, analytic):
-    """FP32 operations of K4's work in ``count`` (fused_planes_plain's
-    tally)."""
-    seg = count.get("segments", 0)
-    ops = (_analytic_ops(seg, prog) if analytic
-           else seg * prog.n_boxed * SLAB_OPS)
-    ops += count.get("taps", 0) * TAP_OPS + sum(
-        int(count.get(k, 0)) * v for k, v in LEAF_OPS.items())
-    ops += count.get("edge_rays", 0) * (prog.n_boxed * SLAB_OPS + EDGE_RAY_OPS)
-    ops += count.get("replays", 0) * REPLAY_OPS
-    ops += sum(int(count.get(("partials", k), 0)) * v
-               for k, v in PARTIAL_OPS.items())
-    ops += sum(int(count.get(("excl", k), 0)) * v for k, v in EXCL_OPS.items())
-    return ops
-
-
 def _k4_main_check(tm, spec, params, target, label, kw):
     """One fused step at the main path's shape with K4 and one with its
     plain version, held as the 320x180 cases are; the plain version also
@@ -863,13 +747,19 @@ def main() -> int:
 
     import numpy as np
 
+    from compute_path_tracer_tpu_torch.app import profiling as pf
     from compute_path_tracer_tpu_torch.app.config import Settings
+    from compute_path_tracer_tpu_torch.benchmarks import (
+        analytic_probe, dense_probe, ilp_probe)
+    from compute_path_tracer_tpu_torch.benchmarks.common import (
+        cuda_ms, probe_rays)
     from compute_path_tracer_tpu_torch.diff import (
         optimize_to_target, render_image_diff)
     from compute_path_tracer_tpu_torch.io.png import load_png_rgba
     from compute_path_tracer_tpu_torch.kernels import build
     from compute_path_tracer_tpu_torch.kernels import march as km
     from compute_path_tracer_tpu_torch.kernels import megakernel as mk
+    from compute_path_tracer_tpu_torch.kernels import probes as pr
     from compute_path_tracer_tpu_torch.kernels import train as tm
     from compute_path_tracer_tpu_torch.render.reference import camera_rays
     from compute_path_tracer_tpu_torch.render.baked import bake
@@ -883,7 +773,7 @@ def main() -> int:
         benchmark_scene, blend_demo, compile_scene, csg_demo, edge_demo,
         glass_demo, params_from_numpy, sphere_and_plane)
 
-    gpu = _gpu_line()
+    gpu = pf.gpu_line()
     dev = torch.device("cuda")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
@@ -944,6 +834,7 @@ def main() -> int:
     # -- K2b (analytic_unboxed, omega) and K5 (analytic_soa) against their
     # plain versions, on the card --------------------------------------------
     cube = compiled(_cube_scene())
+    sap = compiled(sphere_and_plane())
     k2b_cases = []
     for name, scene in ((f"benchmark_scene({N_PRIMS})", bench),
                         ("csg_demo, subtraction tree", csg),
@@ -997,7 +888,6 @@ def main() -> int:
 
     _stamp(start, "K6 checks and accumulation")
     # -- K6 (dist_grid) against its plain version, on the card --------------
-    sap = compiled(sphere_and_plane())
     k6_cases = []
     for name, scene in ((f"benchmark_scene({N_PRIMS})", bench),
                         ("csg_demo, subtraction", csg),
@@ -1056,6 +946,38 @@ def main() -> int:
             raise AssertionError(f"render_accumulated_megakernel ({key})")
     del acc, one
 
+    _stamp(start, "debug 4 checks")
+    # -- debug 4 (K2's STATS kernel) against the plain reducer, on the card:
+    # every channel bit for bit, over geometry, t_cull and analytic_unboxed
+    # on four scenes, and partial warps at D4_PARTIAL.
+    d4_cases = []
+    for name, scene, modes in (
+            (f"benchmark_scene({N_PRIMS})", bench,
+             (MARCH, UNBOXED, dict(geometry="faithful", t_cull=True),
+              dict(geometry="baked"))),
+            ("csg_demo, subtraction", csg,
+             (MARCH, UNBOXED, dict(geometry="faithful", t_cull=True),
+              dict(geometry="faithful"))),
+            ("guard-less cube", cube, (MARCH, UNBOXED)),
+            ("sphere_and_plane", sap, (MARCH, UNBOXED))):
+        for mode in modes:
+            d4_cases.append((f"K2 debug 4 {name} {mode}", scene,
+                             dict(mode, bounces=BOUNCES, debug=4), None,
+                             SHARE_LIMIT))
+    d4_err = _check_cases(mk, "megakernel_march", d4_cases)
+    pw, ph = D4_PARTIAL
+    kw = dict(width=pw, height=ph, bounces=BOUNCES, debug=4, **MARCH)
+    before = mk.LAUNCHES["megakernel_march"]
+    k = mk.render_frame_megakernel(*bench, **kw)
+    p = mk.render_frame_megakernel_plain(*bench, **kw)
+    torch.cuda.synchronize()
+    if mk.LAUNCHES["megakernel_march"] - before != 1:
+        raise AssertionError("debug 4 at the partial-warp size did not launch")
+    d4_err = max(d4_err, _compare(f"K2 debug 4 benchmark_scene({N_PRIMS}) "
+                                  f"{pw}x{ph}, partial warps", k, p,
+                                  exact=True)[1])
+    del k, p
+
     _stamp(start, "K1 main path")
     # -- K1 main path: RenderSession at 1080p, full-analytic ---------------
     sess = RenderSession(benchmark_scene(N_PRIMS), MAIN_W, MAIN_H,
@@ -1074,10 +996,10 @@ def main() -> int:
         return pack_soa_smem(layout, bake(spec, sp), sp)
 
     with torch.no_grad():
-        bake_ms = _cuda_ms(bake_pack, 20)
+        bake_ms = cuda_ms(bake_pack, 20)
         soa_f, soa_i = bake_pack()
     scratch = sess.accum.clone()
-    k1_ms = _cuda_ms(lambda: mk.launch_megakernel(
+    k1_ms = cuda_ms(lambda: mk.launch_megakernel(
         layout, soa_f, soa_i, scratch, frame=1, last_clear=1, bounces=BOUNCES,
         fov=sess.settings.fov, aspect=sess.aspect, debug=0), 5)
     k1_count = {}
@@ -1128,37 +1050,84 @@ def main() -> int:
     sp = sess.params
     prog = build_program(spec, "baked")
     with torch.no_grad():
-        table_ms = _cuda_ms(lambda: program_table(prog, sp, True), 20)
+        table_ms = cuda_ms(lambda: program_table(prog, sp, True), 20)
         table = program_table(prog, sp, True)
     scratch = sess.accum.clone()
-    k2_ms = _cuda_ms(lambda: mk.launch_march(
-        prog, table, scratch, frame=1, last_clear=1, bounces=BOUNCES,
-        fov=sess.settings.fov, aspect=sess.aspect, debug=0, t_cull=True), 5)
+    run = dict(frame=1, last_clear=1, bounces=BOUNCES, fov=sess.settings.fov,
+               aspect=sess.aspect, t_cull=True)
+    k2_ms = cuda_ms(lambda: mk.launch_march(prog, table, scratch, debug=0,
+                                             **run), 5)
+    d4_ms = cuda_ms(lambda: mk.launch_march(prog, table, scratch, debug=4,
+                                             **run), 5)
+    # One plain pass gives K2's frame, its work count and debug 4's
+    # statistics: debug 4 traces debug 0's paths.
     k2_count = {}
+    d4_stats = mk.MarchStats()
     k2_share, k2_main_err, k2_plain_ms = _main_shape_check(
-        mk, "megakernel_march", spec, sp, MARCH, count=k2_count)
+        mk, "megakernel_march", spec, sp, MARCH, count=k2_count,
+        stats=d4_stats)
     k2_err = max(k2_err, k2_main_err)
     print(f"K2 layers at {MAIN_W}x{MAIN_H}: program table {table_ms:.3f} ms, "
           f"kernel {k2_ms:.3f} ms, plain torch frame {k2_plain_ms:.3f} ms "
-          f"while counting [{gpu}]")
+          f"while counting and taking debug 4's statistics [{gpu}]")
+    before = mk.LAUNCHES["megakernel_march"]
+    d4 = mk.render_frame_megakernel(spec, sp, None, 0, 0, width=MAIN_W,
+                                    height=MAIN_H, bounces=BOUNCES, debug=4,
+                                    **MARCH)
+    torch.cuda.synchronize()
+    if mk.LAUNCHES["megakernel_march"] - before != 1:
+        raise AssertionError("debug 4 at 1080p did not launch K2")
+    d4_share, err = _compare(f"K2 debug 4 {MAIN_W}x{MAIN_H}, bounces "
+                             f"{BOUNCES} frame 0, against the plain pass",
+                             d4, d4_stats.image(), exact=True)
+    d4_err = max(d4_err, err)
+    warps = pf.group_stats(d4)
+    lane_steps, lane_shapes, lane_aux = d4_stats.lanes_xyz.tolist()
+    simt = lane_shapes / (32 * warps[:, 1].sum())
+    print(f"K2 debug 4 at {MAIN_W}x{MAIN_H}: kernel {d4_ms:.3f} ms against "
+          f"debug 0's {k2_ms:.3f} ms in this call (x{d4_ms / k2_ms:.3f}); "
+          f"{warps.shape[0]} warps, steps per warp mean "
+          f"{warps[:, 0].mean():.1f} max {warps[:, 0].max():.0f}; warp SIMT "
+          f"share of the march's guarded-leaf slots {simt:.4f} ({lane_shapes} "
+          f"lane evaluations of {32 * warps[:, 1].sum():.0f}), of its "
+          f"iterations {lane_steps / (32 * warps[:, 0].sum()):.4f}, of the "
+          f"normal taps' slots {lane_aux / (32 * warps[:, 2].sum()):.4f} "
+          f"[{gpu}]")
+    del d4, d4_stats
+    # Debug 4's main path: the measured work of a frame (app/profiling.py).
+    for k in mk.LAUNCHES:
+        mk.LAUNCHES[k] = 0
+    cost = pf.measured_frame_cost(spec, sp, width=MAIN_W, height=MAIN_H,
+                                  bounces=BOUNCES)
+    torch.cuda.synchronize()
+    d4_launches = mk.LAUNCHES["megakernel_march"]
+    if dict(mk.LAUNCHES) != {"megakernel_analytic": 0, "megakernel_march": 1}:
+        raise AssertionError(f"measured_frame_cost launched "
+                             f"{dict(mk.LAUNCHES)}")
+    if not cost["march_steps_total"] > 0 or not cost["aux_evals"] > 0:
+        raise AssertionError(f"measured_frame_cost: {cost}")
+    print(f"main path debug 4, measured_frame_cost at {MAIN_W}x{MAIN_H}, "
+          f"{BOUNCES} bounces: {cost} [{gpu}]")
 
     # -- work counts and bounds of K1 and K2 per main-path frame -----------
-    peak = _fp32_peak()
+    peak = pf.fp32_peak()
     frame_bytes = MAIN_H * MAIN_W * 3 * 4 * 2  # the accumulator, read and written
-    k1_bound, k1_by = _bound_ms(frame_bytes + 4 * layout.f_len,
-                                _analytic_ops(k1_count["segments"], prog), peak)
-    k2_bound, k2_by = _bound_ms(frame_bytes + 4 * prog.f_len,
-                                _march_ops(k2_count, prog), peak)
+    k1_bound, k1_by = pf.bound_ms(frame_bytes + 4 * layout.f_len,
+                                  pf.analytic_ops(k1_count["segments"], prog),
+                                  peak)
+    k2_bound, k2_by = pf.bound_ms(frame_bytes + 4 * prog.f_len,
+                                  pf.march_ops(k2_count, prog), peak)
+    # Debug 4 does debug 0's work and writes the accumulator once.
+    d4_bound, d4_by = pf.bound_ms(frame_bytes // 2 + 4 * prog.f_len,
+                                  pf.march_ops(k2_count, prog), peak)
     print(f"work per {MAIN_W}x{MAIN_H} frame: K1 {k1_count['segments']} ray "
           f"segments, bound {k1_bound:.4f} ms ({k1_by}); K2 "
           f"{k2_count['segments']} segments, {k2_count['taps']} map taps, "
           f"leaves by kind { {k: int(v) for k, v in k2_count.items() if isinstance(k, int)} }, "
           f"bound {k2_bound:.4f} ms ({k2_by}); FP32 peak {peak / 1e12:.2f} "
           f"TFLOP/s [{gpu}]")
-    k2_omega_ms = _cuda_ms(lambda: mk.launch_march(
-        prog, table, scratch, frame=1, last_clear=1, bounces=BOUNCES,
-        fov=sess.settings.fov, aspect=sess.aspect, debug=0, t_cull=True,
-        omega=OMEGA), 5)
+    k2_omega_ms = cuda_ms(lambda: mk.launch_march(
+        prog, table, scratch, debug=0, omega=OMEGA, **run), 5)
     print(f"K2 with omega {OMEGA} at {MAIN_W}x{MAIN_H}: kernel "
           f"{k2_omega_ms:.3f} ms [{gpu}]")
     del sess, scratch
@@ -1178,17 +1147,17 @@ def main() -> int:
     scratch = sess.accum.clone()
     run = dict(frame=1, last_clear=1, bounces=BOUNCES, fov=sess.settings.fov,
                aspect=sess.aspect, debug=0, t_cull=True)
-    k2b_ms = _cuda_ms(lambda: mk.launch_march(uprog, utable, scratch, **run), 5)
-    k2_same_call_ms = _cuda_ms(lambda: mk.launch_march(prog, table, scratch,
+    k2b_ms = cuda_ms(lambda: mk.launch_march(uprog, utable, scratch, **run), 5)
+    k2_same_call_ms = cuda_ms(lambda: mk.launch_march(prog, table, scratch,
                                                        **run), 5)
     k2b_count = {}
     k2b_share, k2b_main_err, k2b_plain_ms = _main_shape_check(
         mk, "megakernel_march", spec, sp, UNBOXED, "K2b analytic_unboxed",
         k2b_count)
     k2b_err = max(k2b_err, k2b_main_err)
-    k2b_bound, k2b_by = _bound_ms(frame_bytes + 4 * uprog.f_len,
-                                  _march_ops(k2b_count, uprog)
-                                  + _cap_ops(k2b_count, uprog), peak)
+    k2b_bound, k2b_by = pf.bound_ms(frame_bytes + 4 * uprog.f_len,
+                                    pf.march_ops(k2b_count, uprog)
+                                    + pf.cap_ops(k2b_count, uprog), peak)
     print(f"K2b layers at {MAIN_W}x{MAIN_H}: kernel {k2b_ms:.3f} ms (the "
           f"t-culled K2 {k2_same_call_ms:.3f} ms in this call), plain torch "
           f"frame {k2b_plain_ms:.3f} ms while counting; work "
@@ -1213,7 +1182,7 @@ def main() -> int:
         with torch.no_grad():
             nf, ni = pack_soa_smem(nlayout, bake(nspec, nparams), nparams)
         scratch = sess.accum.clone()
-        ms = _cuda_ms(lambda: mk.launch_megakernel(
+        ms = cuda_ms(lambda: mk.launch_megakernel(
             nlayout, nf, ni, scratch, frame=1, last_clear=1, bounces=BOUNCES,
             fov=sess.settings.fov, aspect=sess.aspect, debug=0), 5)
         count = {}
@@ -1221,8 +1190,8 @@ def main() -> int:
             mk, "megakernel_analytic", nspec, nparams, SOA,
             f"K5 analytic_soa, {n} prims", count)
         k5_err[n] = max(k5_err[n], main_err)
-        bound, by = _bound_ms(frame_bytes + 4 * nlayout.f_len,
-                              _soa_ops(count["segments"], nlayout), peak)
+        bound, by = pf.bound_ms(frame_bytes + 4 * nlayout.f_len,
+                                pf.soa_ops(count["segments"], nlayout), peak)
         k5[n] = (launches, ms, plain_ms, bound, by, share)
         print(f"K5 layers at {MAIN_W}x{MAIN_H}, {n} prims: kernel {ms:.3f} ms, "
               f"plain torch frame {plain_ms:.3f} ms while counting; "
@@ -1243,23 +1212,23 @@ def main() -> int:
         bv = bake(spec, sp)
         table = program_table(prog, sp, True, bv)
         utable = program_table(uprog, sp, True, bv)
-        grid_ms = _cuda_ms(lambda: make_dist_grid(spec, bake(spec, sp)), 20)
+        grid_ms = cuda_ms(lambda: make_dist_grid(spec, bake(spec, sp)), 20)
     scratch = sess.accum.clone()
     run = dict(frame=1, last_clear=1, bounces=BOUNCES, fov=sess.settings.fov,
                aspect=sess.aspect, debug=0, t_cull=True)
-    rows = {"K2 (t_cull)": _cuda_ms(lambda: mk.launch_march(
+    rows = {"K2 (t_cull)": cuda_ms(lambda: mk.launch_march(
                 prog, table, scratch, **run), 5),
-            "K2b (analytic_unboxed)": _cuda_ms(lambda: mk.launch_march(
+            "K2b (analytic_unboxed)": cuda_ms(lambda: mk.launch_march(
                 uprog, utable, scratch, **run), 5)}
     for r in GRID_RES:
         grid = make_dist_grid(spec, bv, (r, r, r))
-        rows[f"K6 {r}^3"] = _cuda_ms(lambda: mk.launch_march(
+        rows[f"K6 {r}^3"] = cuda_ms(lambda: mk.launch_march(
             prog, table, scratch, grid=grid, **run), 5)
     grid = make_dist_grid(spec, bv, (16, 16, 16), GRID_TAU_WIDE)
-    rows[f"K6 16^3, grid_tau {GRID_TAU_WIDE}"] = _cuda_ms(
+    rows[f"K6 16^3, grid_tau {GRID_TAU_WIDE}"] = cuda_ms(
         lambda: mk.launch_march(prog, table, scratch, grid=grid, **run), 5)
     grid = make_dist_grid(spec, bv)
-    rows["K6 16^3 + analytic_unboxed"] = _cuda_ms(lambda: mk.launch_march(
+    rows["K6 16^3 + analytic_unboxed"] = cuda_ms(lambda: mk.launch_march(
         uprog, utable, scratch, grid=grid, **run), 5)
     k6_ms = rows["K6 16^3"]
     print(f"K6 kernel-only times at {MAIN_W}x{MAIN_H}, {BOUNCES} bounces, "
@@ -1278,9 +1247,9 @@ def main() -> int:
         mk, "megakernel_march", spec, sp, GRID, "K6 dist_grid", k6_count)
     k6_err = max(k6_err, k6_main_err)
     gcells = 16 ** 3
-    k6_bound, k6_by = _bound_ms(frame_bytes + 4 * (prog.f_len + 9 + gcells),
-                                _march_ops(k6_count, prog)
-                                + _grid_ops(k6_count, spec), peak)
+    k6_bound, k6_by = pf.bound_ms(
+        frame_bytes + 4 * (prog.f_len + 9 + gcells),
+        pf.march_ops(k6_count, prog) + pf.grid_ops(k6_count, spec), peak)
     print(f"K6 layers at {MAIN_W}x{MAIN_H}: kernel {k6_ms:.3f} ms, plain "
           f"torch frame {k6_plain_ms:.3f} ms while counting; work "
           f"{k6_count['segments']} segments, {int(k6_count['grid_taps'])} "
@@ -1321,6 +1290,140 @@ def main() -> int:
           f"{k3_primary_ms:.3f} ms, plain {k3_primary_plain_ms:.3f} ms "
           f"(host clock, one call each) [{gpu}]")
     del pro, prd, ro, rd
+
+    _stamp(start, "march probes")
+    # -- the march probes (dense, capped, ILP seq and fused) against their
+    # plain versions and K3's exact march, on the card, bit for bit ---------
+    def ray_diff(pairs):
+        """(max |kernel - plain| of the hit t, share of rays not bit-equal)
+        over the (kernel, plain) pairs of flat per-ray outputs; a ray is off
+        when any of its outputs is (t or idx), and equal t (inf included)
+        count 0."""
+        err, off = 0.0, None
+        for k, p in pairs:
+            if k.is_floating_point():
+                d = torch.where(k == p, 0.0, (k.double() - p.double()).abs())
+                err = max(err, float(d.max()))
+            off = (k != p) if off is None else off | (k != p)
+        return err, float(off.float().mean())
+
+    def probe_checks(label, sspec, sparams, ro, rd, rejects=False,
+                     count_exact=None, count_capped=None):
+        """Returns the plain versions' host ms (exact march, capped) and
+        each probe's ``ray_diff`` against its plain version."""
+        sprog = build_program(sspec, "baked")
+        stable = program_table(sprog, sparams, True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pt, pi = pr.march_dense_plain(sprog, stable, ro, rd, count_exact)
+        torch.cuda.synchronize()
+        exact_ms = (time.perf_counter() - t0) * 1e3
+        before = dict(pr.LAUNCHES)
+        kt, ki = pr.march_dense(sprog, stable, ro, rd)
+        seq = pr.march_ilp(sprog, stable, ro, rd)
+        fused = pr.march_ilp(sprog, stable, ro, rd, interleave=True)
+        k3t, k3i = km.march_rays(sprog, stable, ro, rd, t_cull=False,
+                                 with_normal=False)
+        eq = torch.equal
+        ok = {"dense": eq(kt, pt) and eq(ki, pi),
+              "dense = K3 exact": eq(kt, k3t) and eq(ki, k3i),
+              "ilp seq": eq(seq, pt), "ilp fused": eq(fused, pt),
+              "ilp = K3 exact": eq(seq, k3t) and eq(fused, k3t)}
+        diffs = {"dense_probe": ray_diff([(kt, pt), (ki, pi)]),
+                 "ilp_probe": ray_diff([(seq, pt), (fused, pt)])}
+        capped_ms = None
+        if rejects:
+            try:
+                pr.capped_program(sspec)
+                ok["capped rejects a guard-less cube"] = False
+            except ValueError:
+                ok["capped rejects a guard-less cube"] = True
+        else:
+            cprog = pr.capped_program(sspec)
+            ctable = program_table(cprog, sparams, True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pc = pr.march_capped_plain(cprog, ctable, ro, rd, count_capped)
+            torch.cuda.synchronize()
+            capped_ms = (time.perf_counter() - t0) * 1e3
+            kc = pr.march_capped(cprog, ctable, ro, rd)
+            ok["capped"] = eq(kc, pc)
+            diffs["analytic_probe"] = ray_diff([(kc, pc)])
+        torch.cuda.synchronize()
+        launched = {k: pr.LAUNCHES[k] - before[k] for k in before}
+        ok["one launch each"] = launched == {
+            "march_dense": 1, "march_capped": 0 if rejects else 1,
+            "march_ilp_seq": 1, "march_ilp_fused": 1}
+        print(f"check probes, {label}: "
+              + ", ".join(f"{k} {'yes' if v else 'NO'}" for k, v in ok.items())
+              + f"; hits {float((pt <= 100.0).float().mean()):.4f}")
+        if not all(ok.values()):
+            raise AssertionError(f"probes, {label}: {ok}")
+        return exact_ms, capped_ms, diffs
+
+    cro, crd = probe_rays(CHECK_W, CHECK_H, dev)
+    for name, (sspec, sparams), rejects in (
+            (f"benchmark_scene({N_PRIMS})", bench, False),
+            ("csg_demo, subtraction", csg, False),
+            ("guard-less cube", cube, True),
+            ("sphere_and_plane", sap, False)):
+        probe_checks(f"{name} {CHECK_W}x{CHECK_H}", sspec, sparams, cro, crd,
+                     rejects)
+    n_main = MAIN_W * MAIN_H
+    pro, prd = probe_rays(MAIN_W, MAIN_H, dev)
+    exact_count, capped_count = {"segments": n_main}, {"segments": n_main}
+    exact_plain_ms, capped_plain_ms, probe_diffs = probe_checks(
+        f"benchmark_scene({N_PRIMS}) {MAIN_W}x{MAIN_H}", spec, sp, pro, prd,
+        count_exact=exact_count, count_capped=capped_count)
+    del pro, prd, cro, crd
+    cprog = pr.capped_program(spec)
+    ray_bytes = n_main * (24 + 4)
+    # dense returns the exact march's (t, idx), so its bound is the exact
+    # march's guarded work; evaluating every leaf is the probe's method,
+    # printed below as the work it does.
+    probe_bounds = {
+        "dense_probe": pf.bound_ms(ray_bytes + 4 * n_main + 4 * prog.f_len,
+                                   pf.march_ops(exact_count, prog), peak),
+        "analytic_probe": pf.bound_ms(
+            ray_bytes + 4 * cprog.f_len,
+            pf.march_ops(capped_count, cprog)
+            + pf.cap_ops(capped_count, cprog),
+            peak),
+        "ilp_probe": pf.bound_ms(ray_bytes + 4 * prog.f_len,
+                                 pf.march_ops(exact_count, prog), peak)}
+    dense_done = pf.dense_ops(exact_count, prog)
+    print(f"probe work on the {n_main} primary rays: exact march "
+          f"{int(exact_count['taps'])} taps (plain {exact_plain_ms:.1f} ms "
+          f"while counting), capped {int(capped_count['taps'])} taps (plain "
+          f"{capped_plain_ms:.1f} ms); dense evaluates every leaf on every "
+          f"tap: {dense_done:.4e} FP32 ops, "
+          f"{dense_done / pf.march_ops(exact_count, prog):.2f}x the guarded "
+          f"march's; bounds "
+          + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
+                      for k, v in probe_bounds.items()) + f" [{gpu}]")
+    # The probes' main paths: each script's measurement at 1080p, every
+    # kernel count set to 0 just before and read just after.
+    probe_runs = {}
+    for mod, keys in ((dense_probe, ("march_dense",)),
+                      (analytic_probe, ("march_capped",)),
+                      (ilp_probe, ("march_ilp_seq", "march_ilp_fused"))):
+        name = mod.__name__.rsplit(".", 1)[1]
+        for counts in (pr.LAUNCHES, km.LAUNCHES, mk.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        out = mod.measure()
+        torch.cuda.synchronize()
+        launches = {k: pr.LAUNCHES[k] for k in keys}
+        others = [k for k, v in pr.LAUNCHES.items() if v and k not in keys]
+        if not all(launches.values()) or others or any(mk.LAUNCHES.values()):
+            raise AssertionError(f"{name} launched {dict(pr.LAUNCHES)}, "
+                                 f"{dict(mk.LAUNCHES)}")
+        probe_runs[name] = (launches, out)
+        print(f"main path {name}, {MAIN_W}x{MAIN_H} primary rays, "
+              f"{N_PRIMS} prims, CUDA events: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in out["rows"].items())
+              + f"; {out['summary']}; launches {launches}, K3 "
+              f"{km.LAUNCHES['march_rays']} [{gpu}]")
 
     _stamp(start, "gradients through K3")
     # -- gradients through K3 ------------------------------------------------
@@ -1399,9 +1502,9 @@ def main() -> int:
         km.march_rays_plain(kprog, ktable, kro, krd, count=count, **kw)
         torch.cuda.synchronize()
         k3_plain_ms += (time.perf_counter() - t0) * 1e3
-        k3_ops += _march_ops(count, kprog)
+        k3_ops += pf.march_ops(count, kprog)
         k3_bytes += kro.x.shape[0] * (24 + 8 + (12 if kw["with_normal"] else 0))
-    k3_bound, k3_by = _bound_ms(k3_bytes, k3_ops, peak)
+    k3_bound, k3_by = pf.bound_ms(k3_bytes, k3_ops, peak)
     print(f"K3 per training step: kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.3f} "
           f"ms over the same {len(kept)} launches' rays while counting, bound {k3_bound:.4f} "
           f"ms ({k3_by}: {k3_ops:.4e} FP32 ops, {k3_bytes} bytes) [{gpu}]")
@@ -1503,8 +1606,8 @@ def main() -> int:
     k4_launches, k4_ms = fused[FUSED_CONFIGS[0][0]][:2]
     layout = build_soa_smem_layout(spec)
     k4_bytes = MAIN_W * MAIN_H * 3 * 4 * 2 + 4 * (prog.f_len + layout.f_len)
-    k4_ops = _fused_ops(k4_count, prog, True)
-    k4_bound, k4_by = _bound_ms(k4_bytes, k4_ops, peak)
+    k4_ops = pf.fused_ops(k4_count, prog, True)
+    k4_bound, k4_by = pf.bound_ms(k4_bytes, k4_ops, peak)
     print(f"K4 per main-configuration step: kernel {k4_ms:.3f} ms, plain "
           f"{k4_plain_ms:.1f} ms, bound {k4_bound:.4f} ms ({k4_by}: "
           f"{k4_ops:.4e} FP32 ops, {k4_bytes} bytes; work "
@@ -1520,9 +1623,10 @@ def main() -> int:
     k4b_share, main_err, k4b_plain_ms, k4b_count = _k4_main_check(
         tm, spec, sp, target0, "analytic_unboxed", FUSED_UNBOXED)
     k4b_err = max(k4b_err, main_err)
-    k4b_ops = _fused_ops(k4b_count, uprog, False) + _cap_ops(k4b_count, uprog)
-    k4b_bound, k4b_by = _bound_ms(MAIN_W * MAIN_H * 3 * 4 * 2 + 4 * uprog.f_len,
-                                  k4b_ops, peak)
+    k4b_ops = (pf.fused_ops(k4b_count, uprog, False)
+               + pf.cap_ops(k4b_count, uprog))
+    k4b_bound, k4b_by = pf.bound_ms(
+        MAIN_W * MAIN_H * 3 * 4 * 2 + 4 * uprog.f_len, k4b_ops, peak)
     print(f"K4 per analytic_unboxed step: kernel {k4b_ms:.3f} ms, plain "
           f"{k4b_plain_ms:.1f} ms, bound {k4b_bound:.4f} ms ({k4b_by}: "
           f"{k4b_ops:.4e} FP32 ops; work "
@@ -1651,7 +1755,29 @@ def main() -> int:
          "launches": k6_launches, "max_abs_err": k6_err,
          "main_shape_share_off": k6_share, "ms": k6_ms,
          "plain_ms": k6_plain_ms, "bound_ms": k6_bound, "bound_by": k6_by,
-         "library_ms": None}]}
+         "library_ms": None},
+        {"name": "debug4", "route": "cuda",
+         "source": csrc + "megakernel_march.cu", "replaces": replaces,
+         "launches": d4_launches, "max_abs_err": d4_err,
+         "main_shape_share_off": d4_share, "ms": d4_ms,
+         "plain_ms": k2_plain_ms, "bound_ms": d4_bound, "bound_by": d4_by,
+         "library_ms": None}] + [
+        {"name": name, "route": "cuda", "source": csrc + "march_probes.cu",
+         "replaces": f"benchmarks/{name}.py:{line}",
+         "launches": sum(probe_runs[name][0].values()),
+         "launches_by_kernel": probe_runs[name][0],
+         "max_abs_err": probe_diffs[name][0],
+         "main_shape_share_off": probe_diffs[name][1],
+         "ms": probe_runs[name][1]["rows"][row],
+         "plain_ms": plain, "bound_ms": probe_bounds[name][0],
+         "bound_by": probe_bounds[name][1], "library_ms": None, **extra}
+        for name, line, row, plain, extra in (
+            ("dense_probe", 119, "dense plain-map", exact_plain_ms, {}),
+            ("analytic_probe", 194, "analytic-capped march", capped_plain_ms,
+             {}),
+            ("ilp_probe", 184, "fused interleaved rays", exact_plain_ms,
+             {"seq_ms": probe_runs["ilp_probe"][1]["rows"][
+                 "sequential rays (dep-chain baseline)"]}))]}
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(gpu)
     print(json.dumps(report))

@@ -111,6 +111,15 @@ def load_library() -> ctypes.CDLL:
     fn = lib.cpt_march_rays
     fn.argtypes = [p, i, p, i, i, i, i, i, i] + [p] * 12
     fn.restype = ctypes.c_int
+    fn = lib.cpt_march_dense
+    fn.argtypes = [p, i, p, i, i, i] + [p] * 9
+    fn.restype = ctypes.c_int
+    fn = lib.cpt_march_capped
+    fn.argtypes = [p, i, p, i, i, i, i] + [p] * 8
+    fn.restype = ctypes.c_int
+    fn = lib.cpt_march_ilp
+    fn.argtypes = [p, i, p, i, i, i, i] + [p] * 8
+    fn.restype = ctypes.c_int
     fn = lib.cpt_train_fused
     fn.argtypes = ([p, i, i, p, i, p, i, i, i, p, i, p, p, p, p, i] + [p] * 10
                    + [i] * 7 + [f] * 3 + [i, f, f, p])

@@ -1,8 +1,9 @@
 // The CSG program interpreter shared by the marching kernels
 // (megakernel_march.cu, K2; march_rays.cu, K3; train_fused.cu, K4): one
 // bounce's AABB guards and t-cull intervals, the leaf SDFs, the fold, the
-// scene map over the op list of render/program.py, the 80-step march (with
-// the closed-form cap of analytic_unboxed, and over-relaxed), the
+// scene map over the op list of render/program.py (guarded, dense, or
+// counting for debug 4), the 80-step march (with the closed-form cap of
+// analytic_unboxed, over-relaxed, and in warp lockstep for debug 4), the
 // distance-grid march (dist_grid, K6) with its grid tap, the 6-tap normal,
 // and the cap's closed form over the program's cap list.  The parity
 // decisions are in the note at the head of megakernel_march.cu; everything
@@ -182,10 +183,29 @@ __device__ __forceinline__ void fold(int op, float k, float& acc_d, int& acc_i, 
   }
 }
 
-// The scene map at p: interprets the program.  With CULLED a guarded shape
-// marked in box_cull is evaluated only while its interval holds t.
-template <bool BAKED, bool TCULL, bool CULLED>
-__device__ float map_scene(const Scene& S, const Guards<TCULL>& g, V3 p, float t, int& id) {
+// How map_scene treats a guarded shape: GUARDED skips it where its guard
+// fails; DENSE (the dense march probe, march_probes.cu) evaluates every leaf
+// at every tap and lets the guard select the fold's operand, with no branch;
+// the two COUNT modes (debug 4, megakernel_march.cu STATS) are GUARDED and
+// add one to *tally for each shape that at least one live lane of the warp
+// evaluates: the guarded shapes only (COUNT_BOXED, the march) or every shape
+// (COUNT_ALL, the normal taps).  The COUNT modes take one __ballot_sync
+// over the full warp per shape, so every lane of the warp must walk the
+// program together; a lane that is not live evaluates nothing.
+enum MapMode { GUARDED = 0, DENSE = 1, COUNT_BOXED = 2, COUNT_ALL = 3 };
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// The scene map at p in mode MAP: interprets the program.  With CULLED a
+// guarded shape marked in box_cull is evaluated only while its interval
+// holds t.  live and tally serve the COUNT modes only.  GUARDED keeps its
+// own guard branch, and map_scene and calc_grad their own signatures, so
+// that the kernels without the other modes compile to the same SASS as
+// before they existed: one merged guard test for every mode cost K4's
+// marching configurations 9-11 % on an H100.
+template <bool BAKED, bool TCULL, bool CULLED, int MAP>
+__device__ __forceinline__ float map_ops(const Scene& S, const Guards<TCULL>& g, V3 p, float t,
+                                         int& id, bool live, unsigned* tally) {
+  constexpr bool kCount = MAP == COUNT_BOXED || MAP == COUNT_ALL;
   float st_d[kMaxDepth];
   int st_i[kMaxDepth];
   V3 st_p[BAKED ? 1 : kMaxDepth];
@@ -209,12 +229,28 @@ __device__ float map_scene(const Scene& S, const Guards<TCULL>& g, V3 p, float t
       acc_i = -1;
     } else if (opc == OPC_SHAPE) {
       const int box = __ldg(op + 3);
-      if (box >= 0) {
-        bool pass = g.check(box);
-        if constexpr (CULLED) {
-          if (pass && __ldg(op + 7)) pass = g.lo[box] <= t && g.hi[box] >= t;
+      if constexpr (MAP == GUARDED) {
+        if (box >= 0) {
+          bool pass = g.check(box);
+          if constexpr (CULLED) {
+            if (pass && __ldg(op + 7)) pass = g.lo[box] <= t && g.hi[box] >= t;
+          }
+          if (!pass) continue;
         }
-        if (!pass) continue;
+      }
+      bool pass = true;
+      if constexpr (MAP != GUARDED) {
+        if constexpr (kCount) pass = live;
+        if (pass && box >= 0) {
+          pass = g.check(box);
+          if constexpr (CULLED) {
+            if (pass && __ldg(op + 7)) pass = g.lo[box] <= t && g.hi[box] >= t;
+          }
+        }
+        if constexpr (kCount) {
+          if ((MAP == COUNT_ALL || box >= 0) && __ballot_sync(kFullWarp, pass)) ++*tally;
+        }
+        if (MAP != DENSE && !pass) continue;
       }
       const int kind = __ldg(op + 1);
       const float* __restrict__ r = F + __ldg(op + 2);
@@ -225,7 +261,15 @@ __device__ float map_scene(const Scene& S, const Guards<TCULL>& g, V3 p, float t
         d = leaf_sdf(kind, xform(p, r), r + 11) * __ldg(r);
       }
       const int k = __ldg(op + 6);
-      fold(__ldg(op + 5), k >= 0 ? __ldg(F + k) : 0.0f, acc_d, acc_i, d, __ldg(op + 4));
+      if constexpr (MAP == DENSE) {
+        float fd = acc_d;
+        int fi = acc_i;
+        fold(__ldg(op + 5), k >= 0 ? __ldg(F + k) : 0.0f, fd, fi, d, __ldg(op + 4));
+        acc_d = pass ? fd : acc_d;
+        acc_i = pass ? fi : acc_i;
+      } else {
+        fold(__ldg(op + 5), k >= 0 ? __ldg(F + k) : 0.0f, acc_d, acc_i, d, __ldg(op + 4));
+      }
     } else {  // OPC_LEAVE
       float d = BAKED ? acc_d : acc_d * __ldg(F + __ldg(op + 1));
       int i = acc_i;
@@ -241,11 +285,18 @@ __device__ float map_scene(const Scene& S, const Guards<TCULL>& g, V3 p, float t
   return acc_d;
 }
 
+// The scene map at p (GUARDED, or DENSE for the dense probe).
+template <bool BAKED, bool TCULL, bool CULLED, int MAP = GUARDED>
+__device__ float map_scene(const Scene& S, const Guards<TCULL>& g, V3 p, float t, int& id) {
+  return map_ops<BAKED, TCULL, CULLED, MAP>(S, g, p, t, id, true, nullptr);
+}
+
 // The 80-step march of one ray (cast_ray, or cast_tcull with TCULL);
 // returns t, and the id of the last map tap in idx (-1 when far).  A finite
 // t_cap (analytic_unboxed) stops the ray on it: t = min(t, t_cap), done once
-// t >= t_cap; the default INFINITY leaves the march as it is.
-template <bool BAKED, bool TCULL>
+// t >= t_cap; the default INFINITY leaves the march as it is.  MAP DENSE is
+// the dense probe's map (the same values).
+template <bool BAKED, bool TCULL, int MAP = GUARDED>
 __device__ float march(const Scene& S, const Guards<TCULL>& g, V3 ro, V3 rd, int& idx,
                        float t_cap = INFINITY) {
   float t = 0.0f;
@@ -254,8 +305,8 @@ __device__ float march(const Scene& S, const Guards<TCULL>& g, V3 ro, V3 rd, int
   idx = -1;
   for (int step = 0; step < kSteps; ++step) {
     int mi;
-    float d = map_scene<BAKED, TCULL, TCULL>(S, g, v3(ro.x + rd.x * t, ro.y + rd.y * t,
-                                                      ro.z + rd.z * t), t, mi);
+    float d = map_scene<BAKED, TCULL, TCULL, MAP>(S, g, v3(ro.x + rd.x * t, ro.y + rd.y * t,
+                                                           ro.z + rd.z * t), t, mi);
     float ad = fabsf(d);
     float nt = TCULL ? t + nan_min(ad, nan_max(m - t, kMhd)) : t + ad;
     nt = nan_min(nt, t_cap);
@@ -264,6 +315,53 @@ __device__ float march(const Scene& S, const Guards<TCULL>& g, V3 ro, V3 rd, int
     t = nt;
     if (ad < kMhd || far || nt >= t_cap) break;
     if constexpr (TCULL) {
+      if (t >= m) m = next_entry(S, g, t);
+    }
+  }
+  return t;
+}
+
+// Debug 4's counters of one warp (megakernel_march.cu STATS), the same in
+// every lane: march iterations of the warp (x), guarded shapes evaluated by
+// at least one lane per iteration (y), and shapes evaluated by at least one
+// lane per normal tap (z, six taps a bounce).
+struct WarpStats {
+  unsigned steps, shapes, aux;
+};
+
+// march() of a warp in lockstep, with debug 4's counters: every lane runs
+// the loop while at least one lane of the warp marches (__any_sync over the
+// full warp, so the counts do not depend on how the compiler reconverges),
+// and a lane that is not live, or done, evaluates nothing.  A live lane's t
+// and idx are march()'s.  The counters move with TCULL only, as JAX counts
+// in its t-culled march only.
+template <bool BAKED, bool TCULL>
+__device__ float march_stats(const Scene& S, const Guards<TCULL>& g, V3 ro, V3 rd, int& idx,
+                             float t_cap, bool live, WarpStats& st) {
+  float t = 0.0f;
+  float m = kBig;
+  if constexpr (TCULL) {
+    if (live) m = next_entry(S, g, 0.0f);
+  }
+  idx = -1;
+  bool marching = live;
+  for (int step = 0; step < kSteps; ++step) {
+    if (!__any_sync(kFullWarp, marching)) break;
+    if constexpr (TCULL) ++st.steps;
+    int mi;
+    float d = map_ops<BAKED, TCULL, TCULL, TCULL ? COUNT_BOXED : GUARDED>(
+        S, g, v3(ro.x + rd.x * t, ro.y + rd.y * t, ro.z + rd.z * t), t, mi, marching,
+        &st.shapes);
+    if (!marching) continue;
+    float ad = fabsf(d);
+    float nt = TCULL ? t + nan_min(ad, nan_max(m - t, kMhd)) : t + ad;
+    nt = nan_min(nt, t_cap);
+    bool far = nt > kFar;
+    idx = far ? -1 : mi;
+    t = nt;
+    if (ad < kMhd || far || nt >= t_cap) {
+      marching = false;
+    } else if constexpr (TCULL) {
       if (t >= m) m = next_entry(S, g, t);
     }
   }
@@ -486,9 +584,11 @@ __device__ void closest_scan(const Scene& S, V3 ro, V3 rd, float& d_ca, float& t
 }
 
 // Central differences of the map, 6 taps under the bounce's full guards,
-// before normalisation (calc_grad, funcs.glsl:21-35).
-template <bool BAKED, bool TCULL>
-__device__ V3 calc_grad(const Scene& S, const Guards<TCULL>& g, V3 p) {
+// before normalisation (calc_grad, funcs.glsl:21-35), in map mode MAP
+// (COUNT_ALL: debug 4's z, live and tally as for map_ops).
+template <bool BAKED, bool TCULL, int MAP>
+__device__ __forceinline__ V3 grad_ops(const Scene& S, const Guards<TCULL>& g, V3 p, bool live,
+                                       unsigned* tally) {
   const float e = kNormalEps;
   int id;
   float d[6];
@@ -497,9 +597,15 @@ __device__ V3 calc_grad(const Scene& S, const Guards<TCULL>& g, V3 p) {
     float off = (k & 1) ? -e : e;
     V3 q = v3(p.x + (k / 2 == 0 ? off : 0.0f), p.y + (k / 2 == 1 ? off : 0.0f),
               p.z + (k / 2 == 2 ? off : 0.0f));
-    d[k] = map_scene<BAKED, TCULL, false>(S, g, q, 0.0f, id);
+    d[k] = MAP == GUARDED ? map_scene<BAKED, TCULL, false>(S, g, q, 0.0f, id)
+                          : map_ops<BAKED, TCULL, false, MAP>(S, g, q, 0.0f, id, live, tally);
   }
   return v3(d[0] - d[1], d[2] - d[3], d[4] - d[5]);
+}
+
+template <bool BAKED, bool TCULL>
+__device__ V3 calc_grad(const Scene& S, const Guards<TCULL>& g, V3 p) {
+  return grad_ops<BAKED, TCULL, GUARDED>(S, g, p, true, nullptr);
 }
 
 // Central-difference normal (calc_normal).

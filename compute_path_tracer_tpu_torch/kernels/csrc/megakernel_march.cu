@@ -76,6 +76,22 @@
 //   The grid (16 KiB at 16^3) is read with __ldg and stays in L1 and L2.
 //   The cheap step's fallback root is the build's -prec-sqrt=true sqrtf,
 //   the plain version's vecmath.sqrt_rn.
+// * debug 4 (the STATS kernel, :1390-1406, _path_trace_tile(stats=True)
+//   :1012-1193): JAX's three statistics of its lockstep unit, the tile, taken
+//   of this kernel's, the warp (16x2 pixels of a block), over the same paths
+//   as debug 0: x the warp's march iterations, y per iteration the guarded
+//   shapes at least one lane evaluated, z per bounce six times the shapes
+//   at least one lane evaluated in the normal taps (a guard-less shape counts
+//   1, a capped hit takes no taps; JAX's seventh, final-id tap has no
+//   counterpart: the id is carried).  x and y count only with t_cull, as in
+//   JAX.  The kernel keeps every thread of a warp to the end: an
+//   out-of-range or dead lane runs on as done, each loop runs while any lane
+//   of the warp needs it, and each count is one __ballot_sync over the full
+//   warp, so the counts do not depend on how the compiler reconverges
+//   (__activemask, as GRID_STATS uses, would).  Every pixel of a warp gets
+//   the warp's (x, y, z), held bit for bit by kernels/megakernel.py's
+//   MarchStats.  It costs a ballot per shape per tap and a warp-uniform
+//   loop, so it is a diagnostic, not a path to time frames with.
 #include "csg_program.cuh"
 
 namespace {
@@ -168,6 +184,63 @@ megakernel_march(Scene S, float* __restrict__ accum, int width, int height, int 
   write_pixel(accum, x, y, width, col, last_clear, debug);
 }
 
+// Debug 4: the frame's paths as debug 0 traces them, with the warp's
+// counters (csg_program.cuh:WarpStats) written to each in-range pixel.
+template <bool BAKED, bool TCULL>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+megakernel_stats(Scene S, float* __restrict__ accum, int width, int height, int frame,
+                 int bounces, float fov, float aspect) {
+  const int x = blockIdx.x * kBlockX + threadIdx.x;
+  const int y = blockIdx.y * kBlockY + threadIdx.y;
+  const bool inrange = x < width && y < height;
+  uint32_t rng = 0u;
+  V3 ro = splat(0.0f), rd = splat(0.0f);
+  if (inrange) primary_ray(x, y, frame, width, height, fov, aspect, rng, ro, rd);
+  Guards<TCULL> g;
+  V3 ret = v3(0.0f, 0.0f, 0.0f);
+  V3 thr = v3(1.0f, 1.0f, 1.0f);
+  WarpStats st = {0u, 0u, 0u};
+  bool alive = inrange;
+  for (int i = 0; i <= bounces; ++i) {
+    if (!__any_sync(kFullWarp, alive)) break;
+    float t_cap = INFINITY;
+    int j_cap = -1;
+    if (alive) {
+      compute_guards(S, ro, rd, g);
+      if (S.n_cap > 0) cap_scan(S, ro, rd, t_cap, j_cap);
+    }
+    int idx;
+    const float t = march_stats<BAKED, TCULL>(S, g, ro, rd, idx, t_cap, alive, st);
+    const bool hit = alive && !(t > kFar);
+    const bool capped = hit && t >= t_cap;
+    const V3 hp = ro + rd * t;
+    V3 n = normalize_safe(
+        grad_ops<BAKED, TCULL, COUNT_ALL>(S, g, hp, hit && !capped, &st.aux));
+    if (hit) {
+      if (capped) {
+        idx = cap_id(S, j_cap);
+        n = cap_normal(S, j_cap, hp);
+      }
+      const float* mt = idx >= 0 ? S.F + S.f_mat + kMatSize * idx : nullptr;
+      alive = scatter(rng, ro, rd, ret, thr, hp, n, mt);
+    } else {
+      alive = false;
+    }
+  }
+  if (inrange) {
+    write_pixel(accum, x, y, width, v3((float)st.steps, (float)st.shapes, (float)st.aux), 0, 4);
+  }
+}
+
+template <bool BAKED, bool TCULL>
+void launch_stats(const Scene& S, float* accum, int width, int height, int frame, int bounces,
+                  float fov, float aspect, cudaStream_t stream) {
+  dim3 block(kBlockX, kBlockY);
+  dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
+  megakernel_stats<BAKED, TCULL><<<grid, block, 0, stream>>>(S, accum, width, height, frame,
+                                                             bounces, fov, aspect);
+}
+
 template <bool BAKED, bool TCULL, int MODE>
 void launch(const Scene& S, float* accum, int width, int height, int frame, int last_clear,
             int bounces, float fov, float aspect, int debug, float omega, const Grid& G,
@@ -190,7 +263,8 @@ void launch(const Scene& S, float* accum, int width, int height, int frame, int 
 // f32[gz*gy*gx], grid_offs the n_planes plane-row and n_k smooth-k offsets
 // (render/distgrid.py:grid_code_on); it needs baked geometry, t_cull, debug
 // 0 or 3 and omega 1.  A non-null grid_stats (5 zeroed uint64) takes the
-// grid march's warp statistics.
+// grid march's warp statistics.  Debug 4 (omega 1, no grid) writes the
+// warp statistics of the march to the accumulator instead of a frame.
 extern "C" int cpt_megakernel_march(const int* code, int n_ops, const float* table,
                                     int n_boxed, int f_box, int f_mat, int n_cap, int baked,
                                     int t_cull, float omega, float* accum, int width, int height,
@@ -207,7 +281,20 @@ extern "C" int cpt_megakernel_march(const int* code, int n_ops, const float* tab
   if ((n_cap > 0 || relax) && (!t_cull || debug == 1 || debug == 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (grid_cells != nullptr) {
+  if (debug == 4) {
+    if (relax || grid_cells != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    if (baked) {
+      if (t_cull) {
+        launch_stats<true, true>(S, accum, width, height, frame, bounces, fov, aspect, st);
+      } else {
+        launch_stats<true, false>(S, accum, width, height, frame, bounces, fov, aspect, st);
+      }
+    } else if (t_cull) {
+      launch_stats<false, true>(S, accum, width, height, frame, bounces, fov, aspect, st);
+    } else {
+      launch_stats<false, false>(S, accum, width, height, frame, bounces, fov, aspect, st);
+    }
+  } else if (grid_cells != nullptr) {
     if (!baked || !t_cull || relax || debug == 1 || debug == 2 || gx < 1 || gy < 1 || gz < 1) {
       return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -14,7 +14,8 @@ package's ``render_frame_pallas`` and dispatches on its mode:
 * otherwise the marching modes: fill the CSG program's table
   (render/program.py) for ``geometry`` "faithful" or "baked", and one
   launch of ``csrc/megakernel_march.cu`` (K2) sphere-marches the frame,
-  with per-thread t-interval culling when ``t_cull``, in debug 0-3.  With
+  with per-thread t-interval culling when ``t_cull``, in debug 0-4 (debug
+  4: the march statistics per warp, ``MarchStats``).  With
   ``t_cull``, ``analytic_unboxed`` (baked, debug 0 or 3) intersects the
   guard-less shapes of ``analytic_eligible_ids`` in closed form and caps the
   march of the remaining program with them (``make_analytic_unboxed``), and
@@ -61,6 +62,7 @@ from ..render.distgrid import (
     make_grid_tap,
 )
 from ..render.program import (
+    OPC_SHAPE,
     Program,
     build_program,
     cast_grid,
@@ -144,17 +146,16 @@ def _kernel_for(spec: SceneSpec, geometry: str, debug: int, normals: str,
                              "t_cull=True")
         if debug in (1, 2):
             raise ValueError("analytic_unboxed supports the path-traced "
-                             "modes (debug 0/3)")
+                             "modes (debug 0/3/4)")
     not_yet = (
-        (debug == 4, "debug=4 (tile statistics)", "queue 1, item 6"),
         (normals != "central", f"normals={normals!r}", "queue 1, item 14"),
         (int(refresh_every) != 1, "refresh_every != 1", "queue 1, item 14"),
     )
     for hit, what, item in not_yet:
         if hit:
             raise NotImplementedError(f"{what} is not ported (ROADMAP {item})")
-    if debug not in (0, 1, 2, 3):
-        raise ValueError(f"debug must be in 0..=3, not {debug}")
+    if debug not in (0, 1, 2, 3, 4):
+        raise ValueError(f"debug must be in 0..=4, not {debug}")
     return "analytic" if analytic_all or analytic_soa else "march"
 
 
@@ -269,6 +270,81 @@ def _pixels(height: int, width: int, device):
     return xs, ys
 
 
+# The pixels of one warp of K2 (megakernel_march.cu: 16x16 blocks, thread
+# tx + 16 ty, warp = thread / 32), as (rows, columns).
+WARP = (2, 16)
+
+
+class MarchStats:
+    """Debug 4's statistics of a marching frame per group of pixels: JAX's
+    per tile (megakernel.py:1390-1406), the port's per warp of K2 (``WARP``),
+    its lockstep unit.  Per group, summed over the bounce loop:
+
+    * ``x``: the march iterations it executed, one for each step at which
+      at least one of its rays marches;
+    * ``y``: over those iterations, the guarded shapes at least one of its
+      marching rays evaluated (guard passed and, for a shape the t-culled
+      march may drop, its interval held t);
+    * ``z``: six times the shapes at least one of its rays evaluated in the
+      normal taps (a guard-less shape counts 1; a capped hit takes no taps).
+
+    x and y stay 0 without t_cull, as in JAX.  ``group=(1, 1)`` gives each
+    pixel's own numbers, a JAX tile shape JAX's grouping.
+
+    The plain frame fills it (``render_frame_megakernel_plain(...,
+    stats=)``): ``start``, then per bounce ``bounce`` with its lanes
+    (``path_trace``'s ``on_bounce``), ``march`` per step (``cast_tcull``'s
+    ``record``) and ``taps`` for the rays that take the normal taps.
+    ``image()`` is debug 4's (H, W, 3) float32 frame: every pixel holds its
+    group's (x, y, z), exact below 2^24.  ``lanes_xyz`` holds the same
+    three sums over the rays themselves (the work the lanes needed: their
+    march taps, guarded-leaf evaluations and normal-tap shapes), int64 on
+    the device."""
+
+    def __init__(self, group=WARP):
+        self.group = (int(group[0]), int(group[1]))
+
+    def start(self, prog: Program, height: int, width: int, device) -> None:
+        gh, gw = self.group
+        xs, ys = _pixels(height, width, device)
+        self.shape = (height, width)
+        self.gid = ((ys // gh) * -(-width // gw) + xs // gw).reshape(-1).long()
+        self.xyz = torch.zeros((3, int(self.gid.max()) + 1), dtype=torch.int64,
+                               device=device)
+        self.lanes_xyz = torch.zeros(3, dtype=torch.int64, device=device)
+        self.n_free = int(((prog.ops[:, 0] == OPC_SHAPE)
+                           & (prog.ops[:, 3] < 0)).sum())
+        self.lanes = None
+
+    def bounce(self, lanes) -> None:
+        self.lanes = lanes
+
+    def _union(self, sel, mask):
+        """The groups of the bounce's rays ``sel`` and, per group, the
+        columns of ``mask`` set for at least one of its rays."""
+        gid = self.gid[self.lanes[sel]]
+        groups, inv = torch.unique(gid, return_inverse=True)
+        any_ = torch.zeros((groups.shape[0], mask.shape[1]), dtype=torch.int32,
+                           device=gid.device).index_add_(0, inv, mask.int())
+        return groups, (any_ > 0).sum(1)
+
+    def march(self, live, active) -> None:
+        groups, n = self._union(live, active)
+        self.xyz[0].index_add_(0, groups, torch.ones_like(groups))
+        self.xyz[1].index_add_(0, groups, n)
+        self.lanes_xyz[0] += active.shape[0]
+        self.lanes_xyz[1] += active.sum()
+
+    def taps(self, sel, guard) -> None:
+        groups, n = self._union(sel, guard)
+        self.xyz[2].index_add_(0, groups, 6 * (n + self.n_free))
+        self.lanes_xyz[2] += 6 * (guard.sum() + self.n_free * guard.shape[0])
+
+    def image(self) -> torch.Tensor:
+        img = self.xyz[:, self.gid].T.reshape(*self.shape, 3)
+        return img.to(torch.float32)
+
+
 def _count_segments(count, bounds):
     """``bounds`` that adds the rays it is called on to ``count["segments"]``
     (the ray segments of a frame: one per live path per bounce)."""
@@ -299,7 +375,8 @@ def _analytic_plain(spec, params, xs, ys, frame, bounces, fov, aspect,
 
 
 def _march_plain(prog: Program, table, t_cull, xs, ys, frame, bounces, fov,
-                 aspect, count=None, omega=1.0, grid: DistGrid = None, **kw):
+                 aspect, count=None, omega=1.0, grid: DistGrid = None,
+                 stats: MarchStats = None, **kw):
     """K2's frame: the CSG program interpreted per tap, the exact or the
     per-thread t-culled march, 6-tap normals under the bounce's guards.
     A program with ``caps`` (``analytic_unboxed``) caps the t-culled march
@@ -308,15 +385,25 @@ def _march_plain(prog: Program, table, t_cull, xs, ys, frame, bounces, fov,
     (K6) replaces it with the distance-grid march (``cast_grid``).
     ``count`` accumulates its ray segments, map work (``make_map_program``),
     grid taps and, as ``"cap_segments"``, the segments the cap is computed
-    for."""
+    for.  ``stats`` (a started :class:`MarchStats`, not with ``grid``)
+    records the march steps and normal taps of the frame's rays."""
     vals = table.tolist()
     map_fn = make_map_program(prog, vals, count)
+    if stats is not None and grid is not None:
+        raise ValueError("debug 4's statistics take the march without "
+                         "dist_grid")
+    record = stats.march if stats is not None and t_cull else None
 
     def map_checked(p, checks):
         return map_fn(p, checks[0])
 
     def normal(p, _idx, c):
         return calc_normal(map_checked, p, c[:1])
+
+    def taps(sel, c):
+        """The rays ``sel`` of the bounce take the 6 normal taps."""
+        if stats is not None:
+            stats.taps(sel, c[0][sel])
 
     if grid is not None:
         tap = make_grid_tap(prog.spec, grid, vals)
@@ -326,7 +413,7 @@ def _march_plain(prog: Program, table, t_cull, xs, ys, frame, bounces, fov,
                              count)
     else:
         def march(ro, rd, c, t_cap=None):
-            return cast_tcull(prog, map_fn, ro, rd, c, t_cap, omega)
+            return cast_tcull(prog, map_fn, ro, rd, c, t_cap, omega, record)
 
     if prog.caps.shape[0]:
         cap_fn, cap_normal, _ = make_analytic_unboxed(prog.spec)
@@ -340,24 +427,30 @@ def _march_plain(prog: Program, table, t_cull, xs, ys, frame, bounces, fov,
             t, idx = march(ro, rd, c, t_cap)
             lanes = torch.nonzero(~(t > FP)).flatten()
             hp = Vec3(*(v[lanes] for v in ro + rd * t))
-            idx, n_h = capped_winners(
-                t, t_cap, idx, cap_idx, hp, cap_normal, bv, 1.0,
-                lambda tp: normal(Vec3(*(v[tp] for v in hp)), None,
-                                  take_lanes(c, lanes[tp])))
+
+            def tap(tp):
+                taps(lanes[tp], c)
+                return normal(Vec3(*(v[tp] for v in hp)), None,
+                              take_lanes(c, lanes[tp]))
+
+            idx, n_h = capped_winners(t, t_cap, idx, cap_idx, hp, cap_normal,
+                                      bv, 1.0, tap)
             zero = torch.zeros_like(t)
             return t, idx, Vec3(*(zero.index_put((lanes,), v) for v in n_h))
-    elif t_cull:
-        cast = march
     else:
         def cast(ro, rd, c):
-            return cast_ray(map_checked, ro, rd, c)
+            t, idx = (march(ro, rd, c) if t_cull
+                      else cast_ray(map_checked, ro, rd, c))
+            taps(~(t > FP), c)
+            return t, idx
     mats = table[prog.f_mat:].view(prog.n_shapes, MAT_SIZE)
     return trace_pixels(
         _count_segments(count,
                         lambda ro, rd: program_bounds(prog, table, ro, rd, t_cull)),
         cast, normal,
         lambda idx: gather_material(mats, idx),
-        xs, ys, frame, bounces, fov, aspect, **kw)
+        xs, ys, frame, bounces, fov, aspect,
+        on_bounce=None if stats is None else stats.bounce, **kw)
 
 
 def _march_tables(spec: SceneSpec, params, geometry, t_cull,
@@ -396,12 +489,18 @@ def render_frame_megakernel_plain(
     analytic_all: bool = False,
     analytic_soa: bool = False,
     count: dict = None,
+    stats: MarchStats = None,
 ) -> torch.Tensor:
     """The kernels' frame in vectorized torch, on ``params``' device.
     ``count``, a dict, accumulates the work the kernel does for the frame:
     its ``"segments"`` (ray segments, one per live path per bounce) and, for
     the march, its map work (``render/program.py:make_map_program``), its
-    grid taps and the segments that compute the ``analytic_unboxed`` cap."""
+    grid taps and the segments that compute the ``analytic_unboxed`` cap.
+
+    ``debug=4`` returns :class:`MarchStats`' image of the frame's paths,
+    per ``WARP`` unless ``stats`` brings another group.  ``stats`` in debug 0
+    or 3 (the march, without ``dist_grid``) is filled as well: one pass
+    then gives the frame and its debug-4 statistics."""
     kernel = _kernel_for(spec, geometry, debug, normals, t_cull, omega,
                          analytic_unboxed, refresh_every, dist_grid,
                          analytic_all, analytic_soa)
@@ -410,7 +509,12 @@ def render_frame_megakernel_plain(
     device = params.device
     accum = _accum_for(accum, height, width, device)
     xs, ys = _pixels(height, width, device)
-    kw = dict(width=width, height=height, debug=debug)
+    if debug == 4 and stats is None:
+        stats = MarchStats()
+    if stats is not None and (kernel != "march" or debug in (1, 2)):
+        raise ValueError("debug 4's statistics take the march of debug 0, 3 "
+                         "or 4")
+    kw = dict(width=width, height=height, debug=0 if debug == 4 else debug)
     with torch.no_grad():
         if kernel == "analytic":
             col = _analytic_plain(
@@ -420,11 +524,13 @@ def render_frame_megakernel_plain(
             prog, table, grid = _march_tables(
                 spec, params, geometry, t_cull, analytic_unboxed, dist_grid,
                 grid_res, grid_tau)
+            if stats is not None:
+                stats.start(prog, height, width, device)
             col = _march_plain(prog, table, t_cull, xs, ys, frame, bounces,
                                fov, aspect, count,
                                _march_omega(omega, t_cull, debug, dist_grid),
-                               grid, **kw)
-        img = col.stack()
+                               grid, stats, **kw)
+        img = stats.image() if debug == 4 else col.stack()
         if debug != 0:
             return accum.copy_(img)
         return accum.copy_(running_mean(accum, img, last_clear))
@@ -504,9 +610,11 @@ def render_frame_megakernel(
     (``analytic_all=True`` or ``analytic_soa=True``) or K2 (the marching
     modes, ``analytic_unboxed``, ``omega`` and ``dist_grid`` included) on
     the current stream without synchronising, a CPU tensor runs
-    :func:`render_frame_megakernel_plain`.  Modes of ``render_frame_pallas``
-    that are not ported (``debug=4``, ``normals`` other than "central",
-    ``refresh_every`` != 1) raise ``NotImplementedError``; the combinations
+    :func:`render_frame_megakernel_plain`.  ``debug=4`` gives debug 4's
+    statistics per warp of K2 (:class:`MarchStats`).  Modes of
+    ``render_frame_pallas`` that are not ported (``normals`` other than
+    "central", ``refresh_every`` != 1) raise ``NotImplementedError``; the
+    combinations
     JAX rejects, and ``analytic_all`` / ``analytic_soa`` on a tree with a
     non-union op, raise ``ValueError``.
     """
@@ -647,17 +755,21 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
     """Launch K2 on a program's table (``program_table``) and a CUDA (H, W,
     3) float32 accumulator, on the current stream; counts the launch in
     ``LAUNCHES["megakernel_march"]``.  A program with ``caps`` caps the
-    march in closed form, and ``omega`` != 1 over-relaxes it; both need
-    ``t_cull`` and debug 0 or 3.  ``grid`` (K6, baked geometry, t_cull,
-    debug 0 or 3, omega 1) marches on the frame's distance grid;
+    march in closed form (t_cull, debug 0, 3 or 4), and ``omega`` != 1
+    over-relaxes it (t_cull, debug 0 or 3).  ``grid`` (K6, baked geometry,
+    t_cull, debug 0 or 3, omega 1) marches on the frame's distance grid;
     ``grid_stats``, a zeroed int64 CUDA tensor of 5, then takes the warp
-    statistics of the grid march (kernels/csrc/megakernel_march.cu)."""
-    if debug not in (0, 1, 2, 3):
-        raise ValueError(f"the kernel renders debug 0-3, not {debug}")
+    statistics of the grid march (kernels/csrc/megakernel_march.cu).
+    Debug 4 writes :class:`MarchStats`' image per warp, from the kernel's
+    STATS instantiation."""
+    if debug not in (0, 1, 2, 3, 4):
+        raise ValueError(f"the kernel renders debug 0-4, not {debug}")
     relax = float(omega) != 1.0
-    if (prog.caps.shape[0] or relax) and not (t_cull and debug in (0, 3)):
-        raise ValueError("the closed-form cap and omega need t_cull and "
-                         "debug 0 or 3")
+    if prog.caps.shape[0] and not (t_cull and debug in (0, 3, 4)):
+        raise ValueError("the closed-form cap needs t_cull and debug 0, 3 "
+                         "or 4")
+    if relax and not (t_cull and debug in (0, 3)):
+        raise ValueError("omega needs t_cull and debug 0 or 3")
     if grid is not None and not (prog.geometry == "baked" and t_cull
                                  and debug in (0, 3) and not relax):
         raise ValueError("the grid march needs baked geometry, t_cull, "

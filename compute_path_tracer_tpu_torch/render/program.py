@@ -415,7 +415,7 @@ def program_bounds(prog: Program, table, ro: Vec3, rd: Vec3, with_t: bool):
 
 
 def cast_tcull(prog: Program, map_fn, ro: Vec3, rd: Vec3, checks,
-               t_cap=None, omega: float = 1.0):
+               t_cap=None, omega: float = 1.0, record=None):
     """The kernel's t-culled march (JAX ``_march_while_tcull`` with the tile
     reduced to one ray, and the interval taken through a sphere that bounds
     the leaf, where the reference's box need not): a guarded shape with
@@ -432,7 +432,12 @@ def cast_tcull(prog: Program, map_fn, ro: Vec3, rd: Vec3, checks,
     0) steps ``min(omega |d|, clamp)``; when the unbounding spheres of two
     samples stop overlapping (``d_prev > 0`` and ``s_prev > d_prev + d``,
     signed) the ray reverts to ``t_prev + f_prev``, the step the exact march
-    would have taken there, and a hit needs no such overshoot."""
+    would have taken there, and a hit needs no such overshoot.
+
+    ``record(live, active)``, when given, receives at each step the indices
+    of the rays still marching and the (n, n_boxed) mask of the guarded
+    shapes each of them evaluates (debug 4's statistics,
+    kernels/megakernel.py:MarchStats)."""
     cull = _on_device(prog, ro.x.device).cull
     relax = float(omega) != 1.0
     om = float(np.float32(omega))
@@ -453,6 +458,8 @@ def cast_tcull(prog: Program, map_fn, ro: Vec3, rd: Vec3, checks,
                             torch.full_like(lo, BIG)).amin(1)
         else:
             m = torch.full_like(lt, BIG)
+        if record is not None:
+            record(live, active)
         d, mi = map_fn(ro + rd * lt, active)
         ad = torch.abs(d)
         clamp = torch.clamp(m - lt, min=MHD)

@@ -241,7 +241,7 @@ def calc_normal_autodiff(map_fn, p: Vec3, checks) -> Vec3:
 
 
 def path_trace(bounds_fn, cast_fn, normal_fn, gather_mat, ro: Vec3, rd: Vec3,
-               rng, bounces: int, remat: bool = False):
+               rng, bounces: int, remat: bool = False, on_bounce=None):
     """Monte-Carlo bounce loop (test_compute.glsl:91-166) over (n,) rays.
 
     Per bounce ``bounds_fn(ro, rd) -> checks`` is computed once and handed to
@@ -258,7 +258,10 @@ def path_trace(bounds_fn, cast_fn, normal_fn, gather_mat, ro: Vec3, rd: Vec3,
     checkpoints each bounce (``torch.utils.checkpoint``, JAX's
     ``jax.checkpoint`` of the bounce body): its forward is recomputed in the
     backward instead of taped, exactly, since the hash RNG is
-    deterministic."""
+    deterministic.  ``on_bounce(lanes)``, when given, receives at each
+    bounce the indices of the rays the bounce casts among the ``n`` it
+    started with (debug 4's statistics map the rays back to their pixels
+    with them)."""
     n = ro.x.shape[0]
     zero = torch.zeros_like(ro.x)
     ret = Vec3(zero, zero, zero)
@@ -302,6 +305,8 @@ def path_trace(bounds_fn, cast_fn, normal_fn, gather_mat, ro: Vec3, rd: Vec3,
     for i in range(bounces + 1):
         if lanes.numel() == 0:
             break
+        if on_bounce is not None:
+            on_bounce(lanes)
         state = (lanes, ro, rd, thr, rng)
         out = (checkpoint(bounce, *state, use_reentrant=False) if remat
                else bounce(*state))
@@ -346,17 +351,20 @@ def camera_rays(xs, ys, frame, fov: float, aspect: float, *, width: int,
 
 def trace_pixels(bounds_fn, cast_fn, normal_fn, gather_mat, xs, ys, frame,
                  bounces: int, fov: float, aspect: float, *, width: int,
-                 height: int, debug: int) -> Vec3:
+                 height: int, debug: int, on_bounce=None) -> Vec3:
     """One sample of the pixels ``(xs, ys)`` (int32, any shape; ``width`` /
     ``height`` are the full image's, seeding the RNG and the NDC mapping)
     through the given scene functions, in debug mode 0-3.
-    ``bounds_fn(ro, rd) -> (checks, dbg)``."""
+    ``bounds_fn(ro, rd) -> (checks, dbg)``; ``on_bounce`` goes to
+    :func:`path_trace` (debug 0 and 3), whose lanes are the pixels' flat
+    indices."""
     shape = xs.shape
     rng, ro, rd = camera_rays(xs, ys, frame, fov, aspect, width=width,
                               height=height)
     if debug in (0, 3):
         col, i_exit = path_trace(lambda o, d: bounds_fn(o, d)[0], cast_fn,
-                                 normal_fn, gather_mat, ro, rd, rng, bounces)
+                                 normal_fn, gather_mat, ro, rd, rng, bounces,
+                                 on_bounce=on_bounce)
         if debug == 3:
             col = Vec3.splat(div_exact(i_exit.to(torch.float32),
                                        float(bounces)))
