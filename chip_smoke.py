@@ -65,6 +65,17 @@ and the modes of the same two kernels that the last bench.py rows run:
   exact march, bit for bit; their main paths, the measurement scripts of
   ``compute_path_tracer_tpu_torch/benchmarks/`` at 1080p, time them beside
   K3's t-culled and exact marches;
+* the hardware probes (kernels/hw_probes.py, ``csrc/hw_probes.cu``:
+  vpu_peak's FMA chains at every width, gather_probe's four kernels with
+  the table in shared memory and through ``__ldg``, bf16_probe's three
+  marches, mxu_transform_probe's scalar and tensor-core transforms) against
+  their plain versions at one tile (the JAX probe's) and at the main
+  path's tile count, bit for bit but the tensor-core kernel, which is held
+  to ``hw_probes.mxu_tensor_diff``'s tolerance; their main paths, the
+  measurement scripts of ``compute_path_tracer_tpu_torch/benchmarks/``
+  (16 tiles of (64, 128); bf16 4 of (256, 128)), time them, and each
+  kernel's time at half its reps (a chain's at half its iterations) must
+  be about half its full time;
 
 and the fused train step through K4 (train_fused): the whole step (loss,
 gradient, image) with K4 against the same with its plain version at
@@ -176,6 +187,225 @@ def _clobber_scene():
     first.material.brightness.set(1.0)
     first.material.light_col.set(1.0, 0.5, 0.2)
     return Scene([root])
+
+
+# The hardware probes (kernels/hw_probes.py): each kernel against its plain
+# version at one tile (the JAX probe's) and at its main path's tile count,
+# bit for bit but mxu_tensor, held to hw_probes.mxu_tensor_diff's tolerance
+# (its reason there); their main paths are the measurement scripts'
+# measure().  A kernel's time at 64 reps (a chain's at 512 iterations) must
+# be REP_RATIO_MIN times its time at half: no rep is hoisted away.
+REP_RATIO_MIN = 1.6
+HW_KEYS = {
+    "vpu_peak": ("vpu_chains",),
+    "gather_probe": ("gather_once_smem", "gather_once_ldg", "gather128_smem",
+                     "gather128_ldg", "gather512_smem", "gather512_ldg",
+                     "gather_arith"),
+    "bf16_probe": ("bf16_f32", "bf16_map", "bf16_all"),
+    "mxu_transform_probe": ("mxu_scalar", "mxu_tensor"),
+}
+
+
+def _bit_diff(k, p):
+    """(max |k - p|, share of elements not bit-equal); equal values count
+    0."""
+    import torch
+
+    d = torch.where(k == p, 0.0, (k.double() - p.double()).abs())
+    return float(d.max()), float((k != p).double().mean())
+
+
+def _plain_timed(fn):
+    """``fn()`` and its host-clock ms, synchronised on both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _hw_probe_checks(hp, mods):
+    """Every hardware-probe kernel against its plain version on the card,
+    at one tile and at the main path's tile count.  Returns per probe
+    {"err": max |diff| over both, "off": the largest share off at the main
+    tile count, "plain_ms": {kernel: plain ms at the main tile count}}."""
+    import torch
+
+    res = {name: {"err": 0.0, "off": 0.0, "plain_ms": {}} for name in mods}
+    before = dict(hp.LAUNCHES)
+
+    def record(name, label, tiles, diff, limit=0.0, ms=None):
+        err, off = diff
+        r = res[name]
+        r["err"] = max(r["err"], err)
+        if tiles == mods[name].TILES:
+            r["off"] = max(r["off"], off)
+            r["plain_ms"][label] = ms
+        print(f"check {label}, {tiles} tile(s): max |diff| {err:.3e}, share "
+              f"off {off:.6f} (limit {limit or 'bit-equal'})"
+              + (f", plain {ms:.1f} ms" if ms is not None else ""))
+        if off > limit:
+            raise AssertionError(f"{label}, {tiles} tile(s): {off} off")
+
+    vpu, gat = mods["vpu_peak"], mods["gather_probe"]
+    bf, mxu = mods["bf16_probe"], mods["mxu_transform_probe"]
+    for tiles in (1, vpu.TILES):
+        x = vpu.inputs(tiles)
+        for w in hp.VPU_WIDTHS:
+            k = hp.vpu_chains(x, w)
+            p, ms = _plain_timed(lambda w=w: hp.vpu_chains_plain(x, w))
+            record("vpu_peak", f"vpu_chains {w} chains", tiles,
+                   _bit_diff(k, p), ms=ms)
+    for tiles in (1, gat.TILES):
+        inp = gat.inputs(tiles)
+        plain = {
+            "correct128": _plain_timed(lambda: hp.gather_once_plain(
+                inp["correct_tab"], inp["correct_idx"])),
+            "gather128": _plain_timed(lambda: hp.gather_chain_plain(
+                inp["tab"], inp["idx"])),
+            "gather512": _plain_timed(lambda: hp.gather_chain_plain(
+                inp["tab512"], inp["idx512"])),
+            "arith": _plain_timed(lambda: hp.gather_arith_plain(inp["idx"]))}
+        for label, fn in gat.kernels(inp).items():
+            p, ms = plain[label.replace("_ldg", "")]
+            record("gather_probe", label, tiles, _bit_diff(fn(), p), ms=ms)
+    for tiles in (1, bf.TILES):
+        ro, rd, sph = bf.inputs(tiles)
+        for v in hp.BF16_VARIANTS:
+            k = hp.bf16_march(ro, rd, sph, v)
+            p, ms = _plain_timed(
+                lambda v=v: hp.bf16_march_plain(ro, rd, sph, v))
+            if not bool(torch.isfinite(k).all()):
+                raise AssertionError(f"bf16_march {v}: non-finite t")
+            record("bf16_probe", f"bf16 {v}", tiles, _bit_diff(k, p), ms=ms)
+    for tiles in (1, mxu.TILES):
+        ro, rd, m, mat, off = mxu.inputs(tiles)
+        k = hp.mxu_scalar(ro, rd, m)
+        p, ms = _plain_timed(lambda: hp.mxu_scalar_plain(ro, rd, m))
+        record("mxu_transform_probe", "mxu scalar", tiles, _bit_diff(k, p),
+               ms=ms)
+        k = hp.mxu_tensor(ro, rd, mat, off)
+        p, ms = _plain_timed(lambda: hp.mxu_tensor_plain(ro, rd, mat, off))
+        err, share, flips = hp.mxu_tensor_diff(k, p, hp.MXU_REPS)
+        print(f"mxu tensor, {tiles} tile(s): hits flipped {flips:.6f}, rays "
+              f"not bit-equal {float((k != p).double().mean()):.4f}")
+        record("mxu_transform_probe", "mxu tensor", tiles, (err, share),
+               hp.MXU_SHARE_OFF, ms)
+    torch.cuda.synchronize()
+    missing = [k for k in hp.LAUNCHES if hp.LAUNCHES[k] == before[k]]
+    if missing:
+        raise AssertionError(f"hardware-probe checks launched no {missing}")
+    return res
+
+
+def _hw_probe_main(hp, mods, other_counts, gpu):
+    """Each measurement script's ``measure()``, with every kernel count set
+    to 0 just before and read just after: (launches by kernel, result) per
+    probe."""
+    import torch
+
+    runs = {}
+    for name, mod in mods.items():
+        for counts in (hp.LAUNCHES, *other_counts):
+            for k in counts:
+                counts[k] = 0
+        out = mod.measure()
+        torch.cuda.synchronize()
+        keys = HW_KEYS[name]
+        launches = {k: hp.LAUNCHES[k] for k in keys}
+        others = [k for k, v in hp.LAUNCHES.items() if v and k not in keys]
+        others += [k for c in other_counts for k, v in c.items() if v]
+        if not all(launches.values()) or others:
+            raise AssertionError(f"{name} launched {dict(hp.LAUNCHES)}; "
+                                 f"others {others}")
+        print(f"main path {name}, CUDA events: "
+              + json.dumps({k: v for k, v in out.items() if k != "summary"})
+              + f"; {json.dumps(out['summary'])}; launches {launches} [{gpu}]")
+        ratios = out.get("reps_ratio") or out["summary"].get("iters_ratio")
+        if ratios and min(ratios.values()) < REP_RATIO_MIN:
+            raise AssertionError(f"{name}: a kernel's time at half its reps "
+                                 f"is not about half: {ratios}")
+        runs[name] = (launches, out)
+    return runs
+
+
+def _hw_probe_rows(hp, pf, mods, checks, runs, peak):
+    """The kernels-line rows of the hardware probes: each probe's headline
+    kernel (vpu at its best width, gather128 from shared memory, bf16's
+    bf16 map, mxu on the tensor cores) with its bound, and the others'
+    times beside."""
+    csrc = "compute_path_tracer_tpu_torch/kernels/csrc/hw_probes.cu"
+    smem = pf.smem_rate()
+    vpu, gat = mods["vpu_peak"], mods["gather_probe"]
+    bf, mxu = mods["bf16_probe"], mods["mxu_transform_probe"]
+
+    def row(name, line, ms, plain_ms, bound, **extra):
+        launches = runs[name][0]
+        return {"name": name, "route": "cuda", "source": csrc,
+                "replaces": f"benchmarks/{name}.py:{line}",
+                "launches": sum(launches.values()),
+                "launches_by_kernel": launches,
+                "max_abs_err": checks[name]["err"],
+                "main_shape_share_off": checks[name]["off"], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None, **extra}
+
+    out = runs["vpu_peak"][1]
+    w = out["summary"]["best_chains"]
+    elems = vpu.TILES * hp.VPU_H * hp.LANES
+    rows = [row("vpu_peak", 47, out["rows"][w]["ms"],
+                checks["vpu_peak"]["plain_ms"][f"vpu_chains {w} chains"],
+                pf.bound_ms(8 * elems, pf.vpu_ops(elems, w, hp.VPU_ITERS),
+                            peak),
+                chains=w, attainable_tflops=out["summary"]["attainable_tflops"],
+                ms_by_chains={c: r["ms"] for c, r in out["rows"].items()})]
+
+    out = runs["gather_probe"][1]
+    lanes = gat.TILES * hp.GATHER_H * hp.LANES
+    bounds = {}
+    for k, kind, entries in (("correct128", "once", hp.LANES),
+                             ("gather128", "chain", hp.LANES),
+                             ("gather512", "chain", hp.GRID_ENTRIES),
+                             ("arith", "arith", 0)):
+        ops, words = pf.gather_work(kind, lanes, hp.GATHER_ITERS)
+        bounds[k] = pf.bound_ms(4 * lanes * (2 + entries // hp.LANES), ops,
+                                peak, words, smem)
+    rows.append(row(
+        "gather_probe", 132, out["rows"]["gather128"],
+        checks["gather_probe"]["plain_ms"]["gather128"], bounds["gather128"],
+        ms_by_kernel=out["rows"], bound_ms_by_kernel=bounds,
+        **{k: v for k, v in out["summary"].items() if k.endswith("maptap")}))
+
+    out = runs["bf16_probe"][1]
+    rays = bf.TILES * hp.BF16_H * hp.LANES
+    ray_bytes = 28 * rays + bf.TILES * hp.N_SPHERES * 16
+    bounds = {v: pf.bound_ms(ray_bytes, pf.bf16_ops(v, rays, hp.BF16_REPS,
+                                                    hp.BF16_STEPS), peak)
+              for v in hp.BF16_VARIANTS}
+    rows.append(row(
+        "bf16_probe", 116, out["ms"]["map"],
+        checks["bf16_probe"]["plain_ms"]["bf16 map"], bounds["map"],
+        ms_by_variant=out["ms"], bound_ms_by_variant=bounds,
+        reps_ratio=out["reps_ratio"],
+        speedup_vs_f32={r["variant"]: r["speedup_vs_f32"]
+                        for r in out["rows"] if "speedup_vs_f32" in r}))
+
+    out = runs["mxu_transform_probe"][1]
+    rays = mxu.TILES * hp.MXU_H * hp.LANES
+    rows.append(row(
+        "mxu_transform_probe", 107, out["ms"]["tensor"],
+        checks["mxu_transform_probe"]["plain_ms"]["mxu tensor"],
+        pf.bound_ms(28 * rays + mxu.TILES * hp.MXU_ROWS * 16,
+                    pf.mxu_ops(rays, hp.MXU_SHAPES, hp.MXU_REPS), peak),
+        scalar_ms=out["ms"]["scalar"],
+        scalar_plain_ms=checks["mxu_transform_probe"]["plain_ms"][
+            "mxu scalar"],
+        speedup_vs_scalar=out["ms"]["scalar"] / out["ms"]["tensor"],
+        reps_ratio=out["reps_ratio"],
+        hit_flip_share=out["rows"][1]["hit_flip_share"]))
+    return rows
 
 
 def _stamp(start, phase):
@@ -750,13 +980,15 @@ def main() -> int:
     from compute_path_tracer_tpu_torch.app import profiling as pf
     from compute_path_tracer_tpu_torch.app.config import Settings
     from compute_path_tracer_tpu_torch.benchmarks import (
-        analytic_probe, dense_probe, ilp_probe)
+        analytic_probe, bf16_probe, dense_probe, gather_probe, ilp_probe,
+        mxu_transform_probe, vpu_peak)
     from compute_path_tracer_tpu_torch.benchmarks.common import (
         cuda_ms, probe_rays)
     from compute_path_tracer_tpu_torch.diff import (
         optimize_to_target, render_image_diff)
     from compute_path_tracer_tpu_torch.io.png import load_png_rgba
     from compute_path_tracer_tpu_torch.kernels import build
+    from compute_path_tracer_tpu_torch.kernels import hw_probes as hp
     from compute_path_tracer_tpu_torch.kernels import march as km
     from compute_path_tracer_tpu_torch.kernels import megakernel as mk
     from compute_path_tracer_tpu_torch.kernels import probes as pr
@@ -1425,6 +1657,18 @@ def main() -> int:
               + f"; {out['summary']}; launches {launches}, K3 "
               f"{km.LAUNCHES['march_rays']} [{gpu}]")
 
+    _stamp(start, "hardware probes")
+    # -- the hardware-primitive probes (vpu_peak, gather, bf16, mxu) against
+    # their plain versions, and their measurement scripts as main paths -----
+    hw_mods = {"vpu_peak": vpu_peak, "gather_probe": gather_probe,
+               "bf16_probe": bf16_probe,
+               "mxu_transform_probe": mxu_transform_probe}
+    hw_checks = _hw_probe_checks(hp, hw_mods)
+    hw_runs = _hw_probe_main(hp, hw_mods, (pr.LAUNCHES, km.LAUNCHES,
+                                           mk.LAUNCHES, tm.LAUNCHES), gpu)
+    hw_rows = _hw_probe_rows(hp, pf, hw_mods, hw_checks, hw_runs, peak)
+    print("hardware probe rows: " + json.dumps(hw_rows))
+
     _stamp(start, "gradients through K3")
     # -- gradients through K3 ------------------------------------------------
     gkw = dict(geometry="baked")
@@ -1777,7 +2021,7 @@ def main() -> int:
              {}),
             ("ilp_probe", 184, "fused interleaved rays", exact_plain_ms,
              {"seq_ms": probe_runs["ilp_probe"][1]["rows"][
-                 "sequential rays (dep-chain baseline)"]}))]}
+                 "sequential rays (dep-chain baseline)"]}))] + hw_rows}
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(gpu)
     print(json.dumps(report))

@@ -5,16 +5,16 @@
 * ``FrameCost``: the JAX package's analytic estimate of a frame's work.
 * The operation counts per executed item, read off the CUDA sources, and
   ``bound_ms``: the least time the card could take for a work count, the
-  larger of its bytes over the memory rate and its FP32 operations over
-  ``fp32_peak``.  chip_smoke.py's bounds read them from here.
+  largest of its bytes over the memory rate, its FP32 operations over
+  ``fp32_peak`` and, for table taps, its shared-memory words over
+  ``smem_rate``.  chip_smoke.py's bounds read them from here.
 * ``measured_frame_cost``: a frame's executed work from debug 4, per warp of
   K2 (kernels/megakernel.py:MarchStats).
 * ``measure_frame_time``: the median time of a frame on the card.
 
 The JAX module's TPU figures are not carried over: its nominal VPU peak
-(3.9 TFLOP/s, v5e) gives way to ``fp32_peak``, read off the card, and its
-attainable rate (``ATTAINABLE_VPU_TFLOPS``, 1.56 TFLOP/s measured on a TPU)
-stays None until the port measures the card's own (the ``vpu_peak`` probe).
+gives way to ``fp32_peak``, read off the card, and its attainable rate
+(``ATTAINABLE_VPU_TFLOPS``) is the port's ``vpu_peak`` probe's on the card.
 """
 
 from __future__ import annotations
@@ -36,8 +36,12 @@ from ..kernels.megakernel import (
 )
 from ..render.program import OPC_SHAPE
 
-# The card's attainable FP32 rate on dependent chains: not measured yet.
-ATTAINABLE_VPU_TFLOPS = None
+# The card's attainable FP32 rate: the best of vpu_peak's chain widths
+# (python -m compute_path_tracer_tpu_torch.benchmarks.vpu_peak: 64 chains of
+# fused multiply-adds over 16 tiles of (64, 128)), 0.951 of fp32_peak's
+# 66.91 TFLOP/s, measured on an NVIDIA H100 80GB HBM3 at a power limit of
+# 700.00 W.
+ATTAINABLE_VPU_TFLOPS = 63.61
 
 # -- the analytic estimate (the JAX package's model) --------------------------
 
@@ -119,8 +123,28 @@ EDGE_RAY_OPS = 40
 GRID_TAP_OPS, GRID_DIP_OPS = 22, 2
 GRID_OUTSIDE_OPS, GRID_PLANE_OPS = 18, 7
 GRID_CHEAP_OPS = 9
-# FP32 lanes of one Hopper SM.
+# The hardware probes (csrc/hw_probes.cu), by the same rules: vpu_peak per
+# element, each chain's start (an add), two fused multiply-adds (two ops
+# each) per iteration and the chains' sum; gather_probe per tap the chain's
+# add (its index arithmetic is integer) and one shared-memory word, and per
+# iteration of the arithmetic map tap 12 shapes of a sub, a mul, two adds,
+# the root, a sub and a min, then x's step and the sum; bf16_probe per march
+# step (float32 ops, bf16 ops): the point (3 muls, 3 adds), per sphere 3
+# subs, 3 muls, 2 adds, the root (float32 in every variant), a sub and a
+# min, then the step's abs, test and add, and per rep the sum, per ray the
+# mean's division; mxu_transform_probe per shape three rows of the
+# transforms (oq: 3 muls, 3 adds; dq: 3 muls, 2 adds) and the slab (abs,
+# test, division, 2 subs, 2 muls, 2 mins, 2 maxes), the hit (2 tests, abs,
+# min), and per rep the sum.  Conversions and selects are not counted.
+GATHER_CHAIN_OPS = 1
+GATHER_ARITH_OPS = 12 * 7 + 2
+BF16_STEP_OPS = {"f32": (141, 0), "map": (20, 121), "all": (12, 129)}
+MXU_SHAPE_OPS = 3 * (6 + 5 + 11) + 4
+# FP32 lanes of one Hopper SM, and the words its shared memory serves a
+# clock: 32 banks of four bytes, one word each (NVIDIA's CUDA C++
+# Programming Guide, shared memory of compute capability 9.0).
 _SM_LANES = 128
+SMEM_WORDS_PER_SM_CLOCK = 32
 
 
 def gpu_line(query: str = "name,power.limit") -> str:
@@ -132,19 +156,35 @@ def gpu_line(query: str = "name,power.limit") -> str:
     return out.strip().splitlines()[0]
 
 
+def _sms_and_clock(device):
+    """The card's SM count and its max SM clock in Hz (``clocks.max.sm``)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms, float(gpu_line("clocks.max.sm").split()[0]) * 1e6
+
+
 def fp32_peak(device=0) -> float:
     """FP32 operations per second at the card's max SM clock: its SMs
     (``torch.cuda.get_device_properties``) x 128 lanes x 2 (a fused
     multiply-add) x the ``clocks.max.sm`` that nvidia-smi reports."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    mhz = float(gpu_line("clocks.max.sm").split()[0])
-    return sms * _SM_LANES * 2 * mhz * 1e6
+    sms, hz = _sms_and_clock(device)
+    return sms * _SM_LANES * 2 * hz
 
 
-def bound_ms(n_bytes, ops, peak):
-    """(bound ms, what sets it): the larger of the bytes over the memory
-    rate and the operations over ``peak``."""
+def smem_rate(device=0) -> float:
+    """Shared-memory words per second at the clock ``fp32_peak`` uses: its
+    SMs x 32 words x ``clocks.max.sm``."""
+    sms, hz = _sms_and_clock(device)
+    return sms * SMEM_WORDS_PER_SM_CLOCK * hz
+
+
+def bound_ms(n_bytes, ops, peak, smem_words=0, smem_words_per_s=None):
+    """(bound ms, what sets it): the largest of the bytes over the memory
+    rate, the operations over ``peak`` and the shared-memory words over
+    ``smem_words_per_s``; a load is an operation, so the last two are both
+    "operations"."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / peak
+    if smem_words:
+        t_ops = max(t_ops, smem_words / smem_words_per_s)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -223,6 +263,39 @@ def fused_ops(count, prog, analytic) -> float:
                for k, v in PARTIAL_OPS.items())
     ops += sum(int(count.get(("excl", k), 0)) * v for k, v in EXCL_OPS.items())
     return ops
+
+
+def vpu_ops(elems, width, iters) -> float:
+    """FP32 operations of vpu_peak's ``width`` chains on ``elems``
+    elements."""
+    return float(elems) * (width * (1 + 4 * iters) + width - 1)
+
+
+def gather_work(kind, elems, iters):
+    """(FP32 operations, shared-memory words) of a gather_probe kernel on
+    ``elems`` lanes: ``"once"`` (one tap), ``"chain"`` (``iters`` taps of
+    the 128- or 512-entry table) or ``"arith"``."""
+    if kind == "once":
+        return 0.0, float(elems)
+    if kind == "chain":
+        return float(elems) * iters * GATHER_CHAIN_OPS, float(elems) * iters
+    if kind == "arith":
+        return float(elems) * iters * GATHER_ARITH_OPS, 0.0
+    raise ValueError(f"unknown gather kind {kind!r}")
+
+
+def bf16_ops(variant, rays, reps, steps) -> float:
+    """bf16_probe's ``variant`` as float32 operations: its bf16 operations
+    count half, at the packed bf16 rate (two a lane a clock)."""
+    f32, bf = BF16_STEP_OPS[variant]
+    return float(rays) * (reps * (steps * (f32 + bf / 2) + 1) + 1)
+
+
+def mxu_ops(rays, n_shapes, reps) -> float:
+    """mxu_transform_probe's work, the same for the scalar and tensor-core
+    kernels (one function): the transforms as float32 multiply-adds, and
+    the slab fold."""
+    return float(rays) * reps * (n_shapes * MXU_SHAPE_OPS + 1)
 
 
 # -- traces and measured work -------------------------------------------------

@@ -4,6 +4,7 @@ probes' primary rays and CUDA-event timing."""
 from __future__ import annotations
 
 import sys
+import time
 
 import torch
 
@@ -51,6 +52,30 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn``'s launches in ms over ``reps`` calls after
+    one warm-up call, by CUDA events around calls queued behind a sleep on
+    the stream: the device starts them only once all are queued, so a call
+    shorter than its host-side launch cost (tens of microseconds) is timed
+    as the card runs it, not as the host issues it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # Sleep twice the host's time to issue every call, at up to 2 GHz.
+    torch.cuda._sleep(int(min(2 * reps * host_s, 1.0) * 2e9))
     start.record()
     for _ in range(reps):
         fn()

@@ -120,6 +120,21 @@ def load_library() -> ctypes.CDLL:
     fn = lib.cpt_march_ilp
     fn.argtypes = [p, i, p, i, i, i, i] + [p] * 8
     fn.restype = ctypes.c_int
+    fn = lib.cpt_vpu_chains
+    fn.argtypes = [p, i, i, i, p, p]
+    fn.restype = ctypes.c_int
+    fn = lib.cpt_gather
+    fn.argtypes = [i, i, p, p, i, i, p, p]
+    fn.restype = ctypes.c_int
+    fn = lib.cpt_bf16_march
+    fn.argtypes = [i, p, p, p, i, i, i, i, p, p]
+    fn.restype = ctypes.c_int
+    fn = lib.cpt_mxu_scalar
+    fn.argtypes = [p, p, p, i, i, i, i, p, p]
+    fn.restype = ctypes.c_int
+    fn = lib.cpt_mxu_tensor
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
+    fn.restype = ctypes.c_int
     fn = lib.cpt_train_fused
     fn.argtypes = ([p, i, i, p, i, p, i, i, i, p, i, p, p, p, p, i] + [p] * 10
                    + [i] * 7 + [f] * 3 + [i, f, f, p])
