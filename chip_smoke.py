@@ -337,11 +337,12 @@ def _hw_probe_rows(hp, pf, mods, checks, runs, peak):
     bf16 map, mxu on the tensor cores) with its bound, and the others'
     times beside."""
     csrc = "compute_path_tracer_tpu_torch/kernels/csrc/hw_probes.cu"
-    smem = pf.smem_rate()
     vpu, gat = mods["vpu_peak"], mods["gather_probe"]
     bf, mxu = mods["bf16_probe"], mods["mxu_transform_probe"]
 
     def row(name, line, ms, plain_ms, bound, **extra):
+        # A shared-memory word is an operation of the kernels line's
+        # "bound_by"; "bound_term" names the term that set the bound.
         launches = runs[name][0]
         return {"name": name, "route": "cuda", "source": csrc,
                 "replaces": f"benchmarks/{name}.py:{line}",
@@ -350,7 +351,8 @@ def _hw_probe_rows(hp, pf, mods, checks, runs, peak):
                 "max_abs_err": checks[name]["err"],
                 "main_shape_share_off": checks[name]["off"], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound[0],
-                "bound_by": bound[1], "library_ms": None, **extra}
+                "bound_by": "bytes" if bound[1] == "bytes" else "operations",
+                "bound_term": bound[1], "library_ms": None, **extra}
 
     out = runs["vpu_peak"][1]
     w = out["summary"]["best_chains"]
@@ -371,7 +373,7 @@ def _hw_probe_rows(hp, pf, mods, checks, runs, peak):
                              ("arith", "arith", 0)):
         ops, words = pf.gather_work(kind, lanes, hp.GATHER_ITERS)
         bounds[k] = pf.bound_ms(4 * lanes * (2 + entries // hp.LANES), ops,
-                                peak, words, smem)
+                                peak, words)
     rows.append(row(
         "gather_probe", 132, out["rows"]["gather128"],
         checks["gather_probe"]["plain_ms"]["gather128"], bounds["gather128"],
@@ -392,13 +394,21 @@ def _hw_probe_rows(hp, pf, mods, checks, runs, peak):
         speedup_vs_f32={r["variant"]: r["speedup_vs_f32"]
                         for r in out["rows"] if "speedup_vs_f32" in r}))
 
+    # Every rep computes the same t_min, so the bound (both kernels') is one
+    # rep's work and the reps' adds; repeating the rep is the probe's
+    # method, printed as the work it does.
     out = runs["mxu_transform_probe"][1]
     rays = mxu.TILES * hp.MXU_H * hp.LANES
+    need = pf.mxu_ops(rays, hp.MXU_SHAPES, hp.MXU_REPS)
+    done = hp.MXU_REPS * pf.mxu_ops(rays, hp.MXU_SHAPES, 1)
+    bound = pf.bound_ms(28 * rays + mxu.TILES * hp.MXU_ROWS * 16, need, peak)
+    print(f"mxu_transform_probe: bound {bound[0]:.6f} ms ({bound[1]}) for "
+          f"{need:.4e} FP32 ops; its {hp.MXU_REPS} reps do {done:.4e}, "
+          f"{done / need:.2f}x")
     rows.append(row(
         "mxu_transform_probe", 107, out["ms"]["tensor"],
-        checks["mxu_transform_probe"]["plain_ms"]["mxu tensor"],
-        pf.bound_ms(28 * rays + mxu.TILES * hp.MXU_ROWS * 16,
-                    pf.mxu_ops(rays, hp.MXU_SHAPES, hp.MXU_REPS), peak),
+        checks["mxu_transform_probe"]["plain_ms"]["mxu tensor"], bound,
+        ops_done=done,
         scalar_ms=out["ms"]["scalar"],
         scalar_plain_ms=checks["mxu_transform_probe"]["plain_ms"][
             "mxu scalar"],

@@ -177,16 +177,15 @@ def smem_rate(device=0) -> float:
     return sms * SMEM_WORDS_PER_SM_CLOCK * hz
 
 
-def bound_ms(n_bytes, ops, peak, smem_words=0, smem_words_per_s=None):
+def bound_ms(n_bytes, ops, peak, smem_words=0):
     """(bound ms, what sets it): the largest of the bytes over the memory
-    rate, the operations over ``peak`` and the shared-memory words over
-    ``smem_words_per_s``; a load is an operation, so the last two are both
-    "operations"."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / peak
+    rate ("bytes"), the operations over ``peak`` ("operations") and the
+    shared-memory words over ``smem_rate`` ("shared memory")."""
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S, "operations": ops / peak}
     if smem_words:
-        t_ops = max(t_ops, smem_words / smem_words_per_s)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+        terms["shared memory"] = smem_words / smem_rate()
+    by = max(terms, key=terms.get)
+    return terms[by] * 1e3, by
 
 
 def _leaf_ops(count) -> float:
@@ -292,10 +291,12 @@ def bf16_ops(variant, rays, reps, steps) -> float:
 
 
 def mxu_ops(rays, n_shapes, reps) -> float:
-    """mxu_transform_probe's work, the same for the scalar and tensor-core
-    kernels (one function): the transforms as float32 multiply-adds, and
-    the slab fold."""
-    return float(rays) * reps * (n_shapes * MXU_SHAPE_OPS + 1)
+    """The work mxu_transform_probe's output needs, the same for the scalar
+    and tensor-core kernels (one function): one rep's transforms as float32
+    multiply-adds and its slab fold, then ``reps`` adds.  Every rep computes
+    the same t_min; the kernels repeat it ``reps`` times, which is the
+    probe's method: that work is ``reps * mxu_ops(rays, n_shapes, 1)``."""
+    return float(rays) * (n_shapes * MXU_SHAPE_OPS + reps)
 
 
 # -- traces and measured work -------------------------------------------------

@@ -448,7 +448,8 @@ def test_probe_operation_counts():
     """Per item as the sources read: a chain's start and two fused
     multiply-adds of two operations each per iteration, the chains' sum;
     a tap's add and shared-memory word; bf16 operations at half cost; a
-    box shape's 70 operations and the rep's sum."""
+    box shape's 70 operations once (every rep computes the same t_min) and
+    each rep's sum."""
     assert pf.vpu_ops(1, 1, 1) == 5 and pf.vpu_ops(3, 2, 10) == 3 * 83
     assert pf.gather_work("once", 7, 9) == (0.0, 7.0)
     assert pf.gather_work("chain", 7, 9) == (63.0, 63.0)
@@ -457,13 +458,17 @@ def test_probe_operation_counts():
         pf.gather_work("grid", 1, 1)
     assert pf.bf16_ops("f32", 1, 1, 1) == 141 + 1 + 1
     assert pf.bf16_ops("map", 2, 1, 2) == 2 * (2 * (20 + 121 / 2) + 2)
-    assert pf.mxu_ops(1, 1, 1) == 71 and pf.mxu_ops(2, 32, 3) == 6 * 2241
+    assert pf.mxu_ops(1, 1, 1) == 71 and pf.mxu_ops(2, 32, 3) == 2 * 2243
+    assert pf.mxu_ops(1, 32, 64) - pf.mxu_ops(1, 32, 1) == 63
 
 
-def test_bound_takes_the_largest_term():
+def test_bound_takes_the_largest_term(monkeypatch):
     """Bytes over 3.35 TB/s, operations over the peak, shared-memory words
-    over their rate: a tap chain is bound by its words, not its adds."""
+    over their rate: a tap chain is bound by its words, not its adds, and
+    the bound says so."""
+    monkeypatch.setattr(pf, "smem_rate", lambda device=0: 2e12)
     assert pf.bound_ms(3.35e9, 1e9, 1e12) == (1.0, "bytes")
-    ms, by = pf.bound_ms(0, 1e9, 1e12, smem_words=4e9, smem_words_per_s=2e12)
-    assert (ms, by) == (2.0, "operations")
-    assert pf.bound_ms(3.35e9, 1e9, 1e12, 1e9, 2e12)[1] == "bytes"
+    ms, by = pf.bound_ms(0, 1e9, 1e12, smem_words=4e9)
+    assert (ms, by) == (2.0, "shared memory")
+    assert pf.bound_ms(0, 3e9, 1e12, smem_words=4e9) == (3.0, "operations")
+    assert pf.bound_ms(3.35e9, 1e9, 1e12, 1e9)[1] == "bytes"
