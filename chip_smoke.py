@@ -76,6 +76,20 @@ and the modes of the same two kernels that the last bench.py rows run:
   (16 tiles of (64, 128); bf16 4 of (256, 128)), time them, and each
   kernel's time at half its reps (a chain's at half its iterations) must
   be about half its full time;
+* the wavefront and gradient probes (kernels/wavefront.py,
+  kernels/grad_probes.py; ``csrc/wavefront.cu``, ``csrc/grad_probes.cu``):
+  the wavefront renderer's frame (one bounce kernel a bounce, the
+  compaction in torch) bit for bit its plain frame at 320x180 on the
+  benchmark scene and csg_demo and at 1080p, where it is also K2's
+  faithful exact frame bit for bit; the fused-bwd probe's loss within
+  FB_LOSS_TOL of its plain version (autograd through the implicit march)
+  at the JAX probe's tile and over the 1080p frame, both gradients all
+  zero and finite; the segment sum within SEGSUM_TOL of a float64 sum at
+  the JAX probe's shape and at K4's; their main paths, the measurement
+  scripts of ``compute_path_tracer_tpu_torch/benchmarks/``
+  (``frozen_wavefront``: 1080p frames, sorted and not, beside K2's;
+  ``probe_fused_bwd``: the tile and the frame beside K4's time a bounce;
+  ``probe_inkernel_segsum``: both shapes beside ``index_add_``);
 
 and the fused train step through K4 (train_fused): the whole step (loss,
 gradient, image) with K4 against the same with its plain version at
@@ -416,6 +430,193 @@ def _hw_probe_rows(hp, pf, mods, checks, runs, peak):
         reps_ratio=out["reps_ratio"],
         hit_flip_share=out["rows"][1]["hit_flip_share"]))
     return rows
+
+
+# The wavefront and gradient probes (kernels/wavefront.py,
+# kernels/grad_probes.py).  The fused-bwd kernel sums its pixels' loss
+# terms in float64 and rounds once; the plain version sums in float32 over
+# at most 2,073,600 positive terms, within about (64 + 21) 2**-24 = 5.1e-6
+# of the exact sum (a thread's serial run, then the tree), and both shade
+# every pixel alike (K3's exact march is its plain version's ray for ray).
+FB_LOSS_TOL = 1e-5
+# segsum adds with atomics in no fixed order: within 1e-5 of max |ref| of a
+# float64 sum, the JAX probe's own bound.
+SEGSUM_TOL = 1e-5
+
+
+def _counts_zero(*counts):
+    for c in counts:
+        for k in c:
+            c[k] = 0
+
+
+def _wavefront_phase(fw, wf, mk, pf, spec, sp, scenes, all_counts, peak,
+                     gpu):
+    """The wavefront bounce kernel: bit for bit its plain frame at
+    CHECK_W x CHECK_H on ``scenes``, and at 1080p bit for bit K2's faithful
+    exact frame and the plain frame that counts the work; then its main
+    path, the port's benchmarks/frozen_wavefront.py.  Returns its
+    kernels-line row."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.render.program import build_program
+
+    err = 0.0
+    kw = dict(bounces=BOUNCES, frame=1, last_clear=1)
+    for name, (sspec, sparams) in scenes:
+        before = wf.LAUNCHES["wavefront_bounce"]
+        k = fw.render_frame_wavefront(sspec, sparams, width=CHECK_W,
+                                      height=CHECK_H, **kw)
+        torch.cuda.synchronize()
+        if wf.LAUNCHES["wavefront_bounce"] - before != BOUNCES + 1:
+            raise AssertionError(f"wavefront {name}: not one launch a bounce")
+        p = fw.render_frame_wavefront(sspec, sparams, width=CHECK_W,
+                                      height=CHECK_H, count={}, **kw)
+        err = max(err, _compare(f"wavefront {name} {CHECK_W}x{CHECK_H}", k, p,
+                                exact=True)[1])
+    main = dict(width=MAIN_W, height=MAIN_H, **kw)
+    k = fw.render_frame_wavefront(spec, sp, **main)
+    k2 = mk.render_frame_megakernel(spec, sp, torch.zeros_like(k), **main)
+    count = {}
+    p, plain_ms = _plain_timed(lambda: fw.render_frame_wavefront(
+        spec, sp, count=count, **main))
+    _compare(f"wavefront {MAIN_W}x{MAIN_H} against K2's faithful exact frame",
+             k, k2, exact=True)
+    share, e = _compare(f"wavefront {MAIN_W}x{MAIN_H} against its plain frame",
+                        k, p, exact=True)
+    err = max(err, e)
+    del k, k2, p
+    prog = build_program(spec, "faithful")
+    ops, n_bytes = pf.wavefront_work(count, prog)
+    bound = pf.bound_ms(n_bytes, ops, peak)
+    _counts_zero(*all_counts)
+    out = fw.measure()
+    torch.cuda.synchronize()
+    launches = wf.LAUNCHES["wavefront_bounce"]
+    others = [k for c in all_counts for k, v in c.items()
+              if v and k not in ("wavefront_bounce", "megakernel_march")]
+    if not launches or others:
+        raise AssertionError(f"frozen_wavefront launched {launches} bounces; "
+                             f"others {others}")
+    wave, srt = out["rows"]["wavefront"], out["rows"]["wavefront sorted"]
+    print(f"main path frozen_wavefront, {MAIN_W}x{MAIN_H}, {N_PRIMS} prims, "
+          f"{BOUNCES} bounces: " + json.dumps(out) + f"; launches {launches}; "
+          f"plain frame {plain_ms:.1f} ms while counting {int(count['taps'])} "
+          f"taps; bound {bound[0]:.4f} ms ({bound[1]}: {ops:.4e} FP32 ops, "
+          f"{n_bytes:.4e} bytes) [{gpu}]")
+    return {"name": "wavefront_bounce", "route": "cuda",
+            "source": "compute_path_tracer_tpu_torch/kernels/csrc/wavefront.cu",
+            "replaces": "benchmarks/frozen_wavefront.py:182",
+            "launches": launches, "max_abs_err": err,
+            "main_shape_share_off": share, "ms": wave["bounce_kernels_ms"],
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None, "ms_per_frame": wave["ms_per_frame"],
+            "glue_ms": wave["glue_ms"],
+            "alive_per_bounce": wave["alive_per_bounce"],
+            "sorted_ms_per_frame": srt["ms_per_frame"],
+            "sorted_bounce_kernels_ms": srt["bounce_kernels_ms"],
+            "k2_faithful_ms_per_frame":
+                out["rows"]["K2 faithful exact"]["ms_per_frame"]}
+
+
+def _grad_probe_phase(gp, pf, fbm, sgm, spec, sp, all_counts, peak, gpu):
+    """fused_bwd at the probe's tile and over the 1080p frame, and segsum at
+    the probe's shape and K4's, against their plain versions; then each
+    measurement script's measure() as its main path.  Returns their
+    kernels-line rows."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.render.baked import bake
+
+    with torch.no_grad():
+        bv = bake(spec, sp)
+    fb = {}
+    for label, rect in (("tile", gp.TILE_RECT), ("frame", gp.FRAME_RECT)):
+        before = gp.LAUNCHES["fused_bwd"]
+        loss, grad = gp.fused_bwd(spec, sp, bv, rect)
+        (p_loss, p_grad), ms = _plain_timed(
+            lambda r=rect: gp.fused_bwd_plain(spec, sp, bv, r))
+        if gp.LAUNCHES["fused_bwd"] - before != 1:
+            raise AssertionError(f"fused_bwd {label} did not launch once")
+        rel = abs(float(loss[0]) - float(p_loss[0])) / abs(float(p_loss[0]))
+        zero = all(bool(torch.isfinite(g).all()) and not bool(g.any())
+                   for g in (grad, p_grad))
+        fb[label] = dict(loss=float(loss[0]), plain_loss=float(p_loss[0]),
+                         rel=rel, plain_ms=ms)
+        print(f"check fused_bwd {label} {rect}: loss {float(loss[0]):.6f}, "
+              f"plain {float(p_loss[0]):.6f}, relative diff {rel:.3e} (limit "
+              f"{FB_LOSS_TOL}); gradients of {grad.shape[0]} slots all zero "
+              f"and finite: {zero}; plain {ms:.1f} ms")
+        if rel > FB_LOSS_TOL or not zero or p_grad.shape != grad.shape:
+            raise AssertionError(f"fused_bwd {label}")
+    prog, table = gp.fused_bwd_tables(spec, sp, bv)
+    _, ro, rd = gp.fused_bwd_rays(gp.FRAME_RECT, sp.device)
+    fb_bound = pf.bound_ms(4 * prog.f_len + 8 + 4 * bv.shape[0],
+                           pf.fused_bwd_ops(prog, table, ro, rd), peak)
+    del ro, rd
+    seg = {}
+    for label, shape in (("probe", sgm.PROBE), ("K4", sgm.k4_shape())):
+        idx, cot = sgm.inputs(shape, sp.device)
+        before = gp.LAUNCHES["segsum"]
+        got = gp.segsum(idx, cot, shape["n_seg"])
+        ref = gp.segsum_plain(idx, cot.double(), shape["n_seg"])
+        _, ms = _plain_timed(lambda: gp.segsum_plain(idx, cot,
+                                                     shape["n_seg"]))
+        if gp.LAUNCHES["segsum"] - before != 1:
+            raise AssertionError(f"segsum {label} did not launch once")
+        err = float((got.double() - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        seg[label] = dict(err=err, rel=rel, plain_ms=ms, bound=pf.bound_ms(
+            pf.segsum_bytes(shape["n_b"], shape["h"] * shape["w"],
+                            shape["n_ch"], shape["n_seg"]), 0.0, peak))
+        print(f"check segsum {label} {shape}: max |diff| {err:.3e}, of max "
+              f"|ref| {rel:.3e} (limit {SEGSUM_TOL}); plain {ms:.2f} ms")
+        if rel > SEGSUM_TOL or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"segsum {label}")
+        del idx, cot, got, ref
+    runs = {}
+    for name, mod, key, allowed in (
+            ("probe_fused_bwd", fbm, "fused_bwd", ("train_fused",)),
+            ("probe_inkernel_segsum", sgm, "segsum", ())):
+        _counts_zero(*all_counts)
+        out = mod.measure()
+        torch.cuda.synchronize()
+        others = [k for c in all_counts for k, v in c.items()
+                  if v and k != key and k not in allowed]
+        if not gp.LAUNCHES[key] or others:
+            raise AssertionError(f"{name} launched {gp.LAUNCHES[key]}; "
+                                 f"others {others}")
+        runs[name] = (gp.LAUNCHES[key], out)
+        print(f"main path {name}: " + json.dumps(out) + f"; launches "
+              f"{gp.LAUNCHES[key]} [{gpu}]")
+    fbo = runs["probe_fused_bwd"][1]
+    sgo = runs["probe_inkernel_segsum"][1]["rows"]
+    csrc = "compute_path_tracer_tpu_torch/kernels/csrc/grad_probes.cu"
+    return [
+        {"name": "fused_bwd", "route": "cuda", "source": csrc,
+         "replaces": "benchmarks/probe_fused_bwd.py:87",
+         "launches": runs["probe_fused_bwd"][0],
+         "max_abs_err": max(abs(r["loss"] - r["plain_loss"])
+                            for r in fb.values()),
+         "loss_rel_diff": {k: r["rel"] for k, r in fb.items()},
+         "ms": fbo["rows"]["frame"], "plain_ms": fb["frame"]["plain_ms"],
+         "bound_ms": fb_bound[0], "bound_by": fb_bound[1],
+         "library_ms": None, "tile_ms": fbo["rows"]["tile"],
+         "tile_plain_ms": fb["tile"]["plain_ms"],
+         "k4_bounce_ms": fbo["rows"]["K4 per bounce"],
+         "summary": fbo["summary"]},
+        {"name": "segsum", "route": "cuda", "source": csrc,
+         "replaces": "benchmarks/probe_inkernel_segsum.py:55",
+         "launches": runs["probe_inkernel_segsum"][0],
+         "max_abs_err": max(r["err"] for r in seg.values()),
+         "max_err_of_max_ref": {k: r["rel"] for k, r in seg.items()},
+         "ms": sgo["K4"]["ms"], "plain_ms": seg["K4"]["plain_ms"],
+         "bound_ms": seg["K4"]["bound"][0], "bound_by": seg["K4"]["bound"][1],
+         "library_ms": sgo["K4"]["index_add_ms"],
+         "probe_shape": {"ms": sgo["probe"]["ms"],
+                         "plain_ms": seg["probe"]["plain_ms"],
+                         "bound_ms": seg["probe"]["bound"][0],
+                         "library_ms": sgo["probe"]["index_add_ms"]}}]
 
 
 def _stamp(start, phase):
@@ -990,19 +1191,22 @@ def main() -> int:
     from compute_path_tracer_tpu_torch.app import profiling as pf
     from compute_path_tracer_tpu_torch.app.config import Settings
     from compute_path_tracer_tpu_torch.benchmarks import (
-        analytic_probe, bf16_probe, dense_probe, gather_probe, ilp_probe,
-        mxu_transform_probe, vpu_peak)
+        analytic_probe, bf16_probe, dense_probe, frozen_wavefront,
+        gather_probe, ilp_probe, mxu_transform_probe, probe_fused_bwd,
+        probe_inkernel_segsum, vpu_peak)
     from compute_path_tracer_tpu_torch.benchmarks.common import (
         cuda_ms, probe_rays)
     from compute_path_tracer_tpu_torch.diff import (
         optimize_to_target, render_image_diff)
     from compute_path_tracer_tpu_torch.io.png import load_png_rgba
     from compute_path_tracer_tpu_torch.kernels import build
+    from compute_path_tracer_tpu_torch.kernels import grad_probes as gp
     from compute_path_tracer_tpu_torch.kernels import hw_probes as hp
     from compute_path_tracer_tpu_torch.kernels import march as km
     from compute_path_tracer_tpu_torch.kernels import megakernel as mk
     from compute_path_tracer_tpu_torch.kernels import probes as pr
     from compute_path_tracer_tpu_torch.kernels import train as tm
+    from compute_path_tracer_tpu_torch.kernels import wavefront as wf
     from compute_path_tracer_tpu_torch.render.reference import camera_rays
     from compute_path_tracer_tpu_torch.render.baked import bake
     from compute_path_tracer_tpu_torch.render.distgrid import make_dist_grid
@@ -1679,6 +1883,21 @@ def main() -> int:
     hw_rows = _hw_probe_rows(hp, pf, hw_mods, hw_checks, hw_runs, peak)
     print("hardware probe rows: " + json.dumps(hw_rows))
 
+    _stamp(start, "wavefront and gradient probes")
+    # -- the wavefront bounce, fused_bwd and segsum against their plain
+    # versions, and their measurement scripts as main paths ----------------
+    all_counts = (pr.LAUNCHES, km.LAUNCHES, mk.LAUNCHES, tm.LAUNCHES,
+                  hp.LAUNCHES, wf.LAUNCHES, gp.LAUNCHES)
+    wave_row = _wavefront_phase(
+        frozen_wavefront, wf, mk, pf, spec, sp,
+        ((f"benchmark_scene({N_PRIMS})", bench), ("csg_demo", csg)),
+        all_counts, peak, gpu)
+    grad_rows = _grad_probe_phase(gp, pf, probe_fused_bwd,
+                                  probe_inkernel_segsum, spec, sp, all_counts,
+                                  peak, gpu)
+    print("wavefront and gradient probe rows: "
+          + json.dumps([wave_row] + grad_rows))
+
     _stamp(start, "gradients through K3")
     # -- gradients through K3 ------------------------------------------------
     gkw = dict(geometry="baked")
@@ -2031,7 +2250,8 @@ def main() -> int:
              {}),
             ("ilp_probe", 184, "fused interleaved rays", exact_plain_ms,
              {"seq_ms": probe_runs["ilp_probe"][1]["rows"][
-                 "sequential rays (dep-chain baseline)"]}))] + hw_rows}
+                 "sequential rays (dep-chain baseline)"]}))] + hw_rows
+        + [wave_row] + grad_rows}
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(gpu)
     print(json.dumps(report))

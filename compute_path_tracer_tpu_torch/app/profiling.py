@@ -28,6 +28,7 @@ import time
 import numpy as np
 import torch
 
+from ..kernels.march import march_rays_plain
 from ..kernels.megakernel import (
     WARP,
     MarchStats,
@@ -140,6 +141,14 @@ GATHER_CHAIN_OPS = 1
 GATHER_ARITH_OPS = 12 * 7 + 2
 BF16_STEP_OPS = {"f32": (141, 0), "map": (20, 121), "all": (12, 129)}
 MXU_SHAPE_OPS = 3 * (6 + 5 + 11) + 4
+# The wavefront renderer's bytes (csrc/wavefront.cu and the compaction of
+# benchmarks/frozen_wavefront.py): the kernel reads and writes a live ray's
+# state (9 floats and the RNG word) and writes its add (3 floats) and alive
+# flag; the compaction moves each survivor's state and its int64 pixel id,
+# read once and written once.
+WAVE_STATE_BYTES = 40
+WAVE_BOUNCE_BYTES = 2 * WAVE_STATE_BYTES + 16
+WAVE_COMPACT_BYTES = 2 * (WAVE_STATE_BYTES + 8)
 # FP32 lanes of one Hopper SM, and the words its shared memory serves a
 # clock: 32 banks of four bytes, one word each (NVIDIA's CUDA C++
 # Programming Guide, shared memory of compute capability 9.0).
@@ -262,6 +271,33 @@ def fused_ops(count, prog, analytic) -> float:
                for k, v in PARTIAL_OPS.items())
     ops += sum(int(count.get(("excl", k), 0)) * v for k, v in EXCL_OPS.items())
     return ops
+
+
+def wavefront_work(count, prog):
+    """(FP32 operations, bytes) of the wavefront frame whose plain bounces
+    filled ``count`` (``wavefront_bounce_plain``: segments, survivors and
+    the faithful map's tally): the march and normal work as K2's, and the
+    bytes the bounces and the compactions move."""
+    return (march_ops(count, prog),
+            float(count["segments"]) * WAVE_BOUNCE_BYTES
+            + float(count["survivors"]) * WAVE_COMPACT_BYTES)
+
+
+def fused_bwd_ops(prog, table, ro, rd) -> float:
+    """FP32 operations of the fused-bwd probe on the rays ``(ro, rd)``: the
+    guards and exact march of each ray and the 6 normal taps of each hit,
+    counted by K3's plain march (``march_rays_plain``) over the probe's
+    baked program; the shading is not counted."""
+    count = {"segments": ro.x.shape[0]}
+    march_rays_plain(prog, table, ro, rd, t_cull=False, with_normal=True,
+                     count=count)
+    return march_ops(count, prog)
+
+
+def segsum_bytes(n_b, n, n_ch, n_seg) -> float:
+    """Bytes of the segment sum: each element's id and its ``n_ch``
+    cotangents read once, the (n_seg, n_ch) sums written once."""
+    return float(n_b) * n * (4 + 4 * n_ch) + 4.0 * n_seg * n_ch
 
 
 def vpu_ops(elems, width, iters) -> float:

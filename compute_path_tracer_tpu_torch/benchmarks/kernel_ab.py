@@ -1,15 +1,16 @@
-"""A/B of the marching kernels of two checkouts on one card.
+"""A/B of the megakernels and the fused step's kernel of two checkouts on
+one card.
 
 Builds this checkout (B) and another one (A, a directory holding an
 unpacked commit, e.g. from ``git archive``) and times, in one process per
-run, alternated A B B A, the kernel launches of K2 (faithful and baked
-t-culled), K2b (``analytic_unboxed``), K6 (``dist_grid``) and K4 (the four
-fused configurations of ``bench.py``) at 1920x1080, 8 bounces, on the
-64-primitive benchmark scene, by CUDA events around each launch (a warm-up
-call first).  It also tells, for each kernel function of the two builds,
-whether its SASS (``cuobjdump -sass``) is the same, so a change to shared
-device code can be seen to leave a kernel alone.  Run on a machine with an
-NVIDIA GPU and the CUDA toolkit:
+run, alternated A B B A, the kernel launches of K1 (``analytic_all``), K2
+(faithful and baked t-culled), K2b (``analytic_unboxed``), K6
+(``dist_grid``) and K4 (the four fused configurations of ``bench.py``) at
+1920x1080, 8 bounces, on the 64-primitive benchmark scene, by CUDA events
+around each launch (a warm-up call first).  It also tells, for each kernel
+function of the two builds, whether its SASS (``cuobjdump -sass``) is the
+same, so a change to shared device code can be seen to leave a kernel
+alone.  Run on a machine with an NVIDIA GPU and the CUDA toolkit:
 
     python -m compute_path_tracer_tpu_torch.benchmarks.kernel_ab OTHER_DIR
 """
@@ -29,7 +30,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 W, H, BOUNCES, N_PRIMS, REPS = 1920, 1080, 8, 64, 5
 MARCH = dict(geometry="baked", t_cull=True)
-FRAMES = (("K2 faithful", dict(geometry="faithful")),
+FRAMES = (("K1 analytic_all", dict(geometry="baked", analytic_all=True)),
+          ("K2 faithful", dict(geometry="faithful")),
           ("K2", MARCH),
           ("K2b analytic_unboxed", dict(MARCH, analytic_unboxed=True)),
           ("K6 dist_grid", dict(MARCH, dist_grid=True)))
@@ -104,7 +106,9 @@ def _times(root: str) -> dict:
 
     out = {}
     for key, mode in FRAMES:
-        out[key] = launches(mk, "launch_march", lambda: mk.render_frame_megakernel(
+        launcher = ("launch_megakernel" if mode.get("analytic_all")
+                    else "launch_march")
+        out[key] = launches(mk, launcher, lambda: mk.render_frame_megakernel(
             cs.spec, params, width=W, height=H, bounces=BOUNCES, **mode))
     target = torch.zeros((H, W, 3), device=dev)
     for key, kw in STEPS:

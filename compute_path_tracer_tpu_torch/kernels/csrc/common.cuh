@@ -127,12 +127,16 @@ __device__ __forceinline__ bool slab_box(const float* __restrict__ box, V3 ro, V
 }
 
 // One hit's scatter + emission (shade_bounce: test_compute.glsl:118-149 plus
-// the refraction extension) and the Russian roulette on the max throughput
-// channel (test_compute.glsl:153-159), as path_trace applies them.  `mt` is
-// the winner's 18-float material row, or nullptr for the all-zero MDEF
-// material of a tap without a winner.  Returns false when the path dies.
-__device__ __forceinline__ bool scatter(uint32_t& rng, V3& ro, V3& rd, V3& ret, V3& thr, V3 hit,
-                                        V3 n, const float* __restrict__ mt) {
+// the refraction extension): the next ray and the hit's emission, throughput
+// factor and branch probability.  `mt` is the winner's 18-float material
+// row, or nullptr for the all-zero MDEF material of a tap without a winner.
+struct Shade {
+  V3 ro, rd, emit, thr_factor;
+  float ray_prob;
+};
+
+__device__ __forceinline__ Shade shade_bounce(uint32_t& rng, V3 rd, V3 hit, V3 n,
+                                              const float* __restrict__ mt) {
   float m[kMatSize];
 #pragma unroll
   for (int c = 0; c < kMatSize; ++c) m[c] = mt ? mt[c] : 0.0f;
@@ -166,14 +170,26 @@ __device__ __forceinline__ bool scatter(uint32_t& rng, V3& ro, V3& rd, V3& ret, 
   V3 refr = kk >= 0.0f ? rd * eta - n_eff * (eta * cosi + root) : reflect(rd, n_eff);
   V3 trans_diffuse = normalize_safe(-n_eff + ruv);
   refr = normalize_safe(vmix(refr, trans_diffuse, m_refr_rough * m_refr_rough));
-  V3 new_rd = do_spec ? spec_dir : (do_refr ? refr : diffuse_dir);
+  Shade s;
+  s.rd = do_spec ? spec_dir : (do_refr ? refr : diffuse_dir);
   V3 offset_n = do_refr ? -n_eff : n;
-  ro = hit + offset_n * kOffset;
-  V3 emit = normalize_safe(m_light) * m_brightness;
-  V3 thr_factor = do_spec ? m_spec_col : (do_refr ? m_refr_col : m_col);
-  rd = new_rd;
-  ret = ret + emit * thr;
-  V3 new_thr = (thr * thr_factor) / ray_prob;
+  s.ro = hit + offset_n * kOffset;
+  s.emit = normalize_safe(m_light) * m_brightness;
+  s.thr_factor = do_spec ? m_spec_col : (do_refr ? m_refr_col : m_col);
+  s.ray_prob = ray_prob;
+  return s;
+}
+
+// shade_bounce and the Russian roulette on the max throughput channel
+// (test_compute.glsl:153-159), as path_trace applies them.  Returns false
+// when the path dies.
+__device__ __forceinline__ bool scatter(uint32_t& rng, V3& ro, V3& rd, V3& ret, V3& thr, V3 hit,
+                                        V3 n, const float* __restrict__ mt) {
+  const Shade s = shade_bounce(rng, rd, hit, n, mt);
+  ro = s.ro;
+  rd = s.rd;
+  ret = ret + s.emit * thr;
+  V3 new_thr = (thr * s.thr_factor) / s.ray_prob;
 
   float p_rr = nan_max(new_thr.x, nan_max(new_thr.y, new_thr.z));
   float r_rr = random_float01(rng);

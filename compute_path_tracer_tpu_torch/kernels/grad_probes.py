@@ -1,0 +1,197 @@
+"""The gradient probes of the JAX package's ``benchmarks/`` on the card
+(``csrc/grad_probes.cu``), and their plain torch versions.
+
+* ``fused_bwd(spec, params, bv, rect)`` (``benchmarks/probe_fused_bwd.py:
+  run``): one bounce of the probe's camera (1920x1080, frame 1, fov 1) over
+  the pixels ``rect = (x0, y0, width, height)``, the probe's (64, 128) tile
+  by default: the baked guards, the exact march, the 6-tap normal, the
+  material from ``params`` and ``shade_bounce``.  Returns ``(loss, grad)``:
+  the (1,) float32 sum over the hits of emit + thr_factor / ray_prob, and
+  its gradient in the baked vector ``bv``, which is identically zero (the
+  loss reads the hit mask and the materials only; see the note in
+  ``csrc/grad_probes.cu``).  The kernel writes that zero; the plain version
+  computes it with autograd, through ``diff/vjp.py:make_implicit_cast``.
+* ``segsum(idx, cot, n_seg)`` (``benchmarks/probe_inkernel_segsum.py:
+  main``): ``out[s, c]`` = the sum of ``cot[b, c, i]`` over the ``(b, i)``
+  with ``idx[b, i] == s``, ``idx == -1`` dropping out; idx (B, n) int32,
+  cot (B, C, n) float32, out (n_seg, C) float32.  Its plain version is the
+  fused step's ``index_add_`` per bounce (kernels/train.py); atomics add in
+  no fixed order, so the kernel agrees with it to rounding.
+
+On CUDA tensors each launches its kernel on the current stream without
+synchronising and counts the launch in ``LAUNCHES``; on CPU tensors it runs
+its plain version; on any other device it raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..constants import FP
+from ..diff.vjp import make_implicit_cast
+from ..render.baked import baked_layout, make_bounds_baked, make_map_baked
+from ..render.program import build_program, program_code_on, program_table
+from ..render.reference import (
+    calc_normal,
+    camera_rays,
+    gather_material,
+    shade_bounce,
+)
+from ..render.scenegen import material_slot_matrix
+from ..scene.compile import SceneSpec
+from ..vecmath import Vec3, vwhere
+from .build import load_library
+from .train import _segment_matmul
+
+# Launches per kernel since import (or since a caller reset them).
+LAUNCHES = {"fused_bwd": 0, "segsum": 0}
+
+# The probe's camera: frame 1 of the 1920x1080 view, fov 1.
+CAMERA_W, CAMERA_H, CAMERA_FRAME, CAMERA_FOV = 1920, 1080, 1, 1.0
+CAMERA_ASPECT = float(np.float32(CAMERA_W / CAMERA_H))
+TILE_RECT = (0, 0, 128, 64)                  # the probe's (64, 128) tile
+FRAME_RECT = (0, 0, CAMERA_W, CAMERA_H)
+# segsum's grid: 4 blocks of 256 threads on each of 132 SMs, whatever the
+# size: a block flushes only its partial's nonzero entries, so a small input
+# spread over many blocks costs few global atomics, and each thread's chain
+# of shared-memory atomics stays short.
+SEGSUM_BLOCKS = 528
+
+
+def _check_rect(rect):
+    x0, y0, w, h = (int(v) for v in rect)
+    if w < 1 or h < 1 or x0 < 0 or y0 < 0 or x0 + w > CAMERA_W \
+            or y0 + h > CAMERA_H:
+        raise ValueError(f"rect {rect} is not inside the {CAMERA_W}x"
+                         f"{CAMERA_H} camera")
+    return x0, y0, w, h
+
+
+def fused_bwd_rays(rect, device):
+    """The probe camera's ``(rng, ro, rd)`` over ``rect``, flat in
+    row-major order."""
+    x0, y0, w, h = _check_rect(rect)
+    ys, xs = torch.meshgrid(
+        torch.arange(y0, y0 + h, dtype=torch.int32, device=device),
+        torch.arange(x0, x0 + w, dtype=torch.int32, device=device),
+        indexing="ij")
+    return camera_rays(xs, ys, CAMERA_FRAME, CAMERA_FOV, CAMERA_ASPECT,
+                       width=CAMERA_W, height=CAMERA_H)
+
+
+def fused_bwd_plain(spec: SceneSpec, params, bv, rect=TILE_RECT):
+    """The probe's bounce loss over ``rect`` and its autograd gradient in
+    ``bv``: the march is ``make_implicit_cast`` over the baked map (its
+    backward the implicit gradient), the normal the 6-tap ``calc_normal``
+    (checkpointed: its tape would hold the map six times over, and no
+    cotangent reaches it), the guards boolean, so taken without a tape."""
+    map_fn, bounds = make_map_baked(spec), make_bounds_baked(spec)
+    slots = torch.as_tensor(material_slot_matrix(spec), dtype=torch.int64,
+                            device=params.device)
+    mats = params.detach()[slots]
+    gv = bv.detach().requires_grad_()
+    rng, ro, rd = fused_bwd_rays(rect, params.device)
+    with torch.no_grad():
+        checks, _ = bounds(ro, rd, gv)
+    with torch.enable_grad():
+        t, idx = make_implicit_cast(map_fn, gv)(ro, rd, checks)
+        hit = ro + rd * t
+
+        def normal(x, y, z, g):
+            return tuple(calc_normal(lambda p, c: map_fn(p, g, c),
+                                     Vec3(x, y, z), checks))
+
+        n = Vec3(*checkpoint(normal, *hit, gv, use_reentrant=False))
+        _, _, _, emit, thr_f, ray_p = shade_bounce(
+            rng, rd, hit, n, gather_material(mats, idx))
+        col = vwhere(t <= FP, emit + thr_f / ray_p, Vec3.splat(t * 0.0))
+        loss = torch.sum(col.x + col.y + col.z)
+        (grad,) = torch.autograd.grad(loss, gv)
+    return loss.detach().reshape(1), grad
+
+
+def fused_bwd_tables(spec: SceneSpec, params, bv):
+    """The kernel's program (baked) and its table over ``bv``."""
+    prog = build_program(spec, "baked")
+    with torch.no_grad():
+        return prog, program_table(prog, params, False, bv)
+
+
+def launch_fused_bwd(prog, table, rect, n_grad: int):
+    """One launch of the fused_bwd kernel on a program and its table
+    (``fused_bwd_tables``); returns ``(loss, grad)`` as :func:`fused_bwd`."""
+    x0, y0, w, h = _check_rect(rect)
+    device = table.device
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    if table.dtype != torch.float32 or table.shape != (prog.f_len,) \
+            or not table.is_contiguous():
+        raise ValueError(f"table must be contiguous float32 ({prog.f_len},)")
+    acc = torch.zeros(1, dtype=torch.float64, device=device)
+    grad = torch.empty(n_grad, dtype=torch.float32, device=device)
+    code = program_code_on(prog, device)
+    with torch.cuda.device(device):
+        err = load_library().cpt_fused_bwd(
+            code.data_ptr(), prog.ops.shape[0], table.data_ptr(),
+            prog.n_boxed, prog.f_box, prog.f_mat, x0, y0, w, h, CAMERA_W,
+            CAMERA_H, CAMERA_FRAME, CAMERA_FOV, CAMERA_ASPECT,
+            acc.data_ptr(), grad.data_ptr(),
+            n_grad, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_bwd launch failed: CUDA error {err}")
+    LAUNCHES["fused_bwd"] += 1
+    return acc.to(torch.float32), grad
+
+
+def fused_bwd(spec: SceneSpec, params, bv, rect=TILE_RECT):
+    """The probe's ``(loss, grad)`` over ``rect`` (see the module note)."""
+    if params.device.type == "cpu":
+        return fused_bwd_plain(spec, params, bv, rect)
+    if params.device.type != "cuda":
+        raise ValueError(f"no kernel for device {params.device}")
+    if bv.shape != (baked_layout(spec).n_slots,):
+        raise ValueError(f"bv must be the baked vector of "
+                         f"{baked_layout(spec).n_slots} slots")
+    prog, table = fused_bwd_tables(spec, params, bv)
+    return launch_fused_bwd(prog, table, rect, bv.shape[0])
+
+
+def segsum_plain(idx, cot, n_seg: int):
+    """The segment sum in torch, in ``cot``'s dtype: one ``index_add_`` of
+    the kept lanes per b (kernels/train.py:_segment_matmul)."""
+    return _segment_matmul(idx, cot, n_seg)
+
+
+def _check_segsum(idx, cot):
+    if idx.dim() != 2 or cot.dim() != 3 or idx.dtype != torch.int32 \
+            or cot.dtype != torch.float32 or cot.shape[0] != idx.shape[0] \
+            or cot.shape[2] != idx.shape[1] or cot.device != idx.device:
+        raise ValueError(f"idx must be (B, n) int32 and cot (B, C, n) float32 "
+                         f"on one device, got {idx.dtype} {tuple(idx.shape)}, "
+                         f"{cot.dtype} {tuple(cot.shape)}")
+
+
+def segsum(idx, cot, n_seg: int):
+    """(n_seg, C) float32 segment sums of ``cot`` by ``idx`` (see the module
+    note)."""
+    _check_segsum(idx, cot)
+    if idx.device.type == "cpu":
+        return segsum_plain(idx, cot, n_seg)
+    if idx.device.type != "cuda":
+        raise ValueError(f"no kernel for device {idx.device}")
+    n_b, n_ch, n = cot.shape
+    out = torch.zeros((n_seg, n_ch), dtype=torch.float32, device=idx.device)
+    if n_b * n == 0:
+        return out
+    idx, cot = idx.contiguous(), cot.contiguous()
+    with torch.cuda.device(idx.device):
+        err = load_library().cpt_segsum(
+            idx.data_ptr(), cot.data_ptr(), n_b, n, n_seg, n_ch,
+            out.data_ptr(), SEGSUM_BLOCKS,
+            torch.cuda.current_stream(idx.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"segsum launch failed: CUDA error {err}")
+    LAUNCHES["segsum"] += 1
+    return out

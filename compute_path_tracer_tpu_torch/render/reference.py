@@ -240,6 +240,20 @@ def calc_normal_autodiff(map_fn, p: Vec3, checks) -> Vec3:
                   for c, gc in zip(p, g))).normalize_safe()
 
 
+def roulette(rng, new_thr: Vec3):
+    """Russian roulette on the max throughput channel
+    (test_compute.glsl:153-159): returns ``(rng, survives, new_thr / p)``,
+    ``p`` the largest channel (the throughput is zero where ``p`` is not
+    positive)."""
+    p_rr = new_thr.max_component()
+    rng, r_rr = random_float01(rng)
+    p_pos = p_rr > 0.0
+    inv_p = torch.where(p_pos, 1.0 / torch.where(p_pos, p_rr,
+                                                 torch.ones_like(p_rr)),
+                        torch.zeros_like(p_rr))
+    return rng, ~(r_rr > p_rr), new_thr * inv_p
+
+
 def path_trace(bounds_fn, cast_fn, normal_fn, gather_mat, ro: Vec3, rd: Vec3,
                rng, bounces: int, remat: bool = False, on_bounce=None):
     """Monte-Carlo bounce loop (test_compute.glsl:91-166) over (n,) rays.
@@ -287,20 +301,9 @@ def path_trace(bounds_fn, cast_fn, normal_fn, gather_mat, ro: Vec3, rd: Vec3,
         rng, ro, rd, emit, thr_factor, ray_prob = shade_bounce(
             rng, rd, hit_pos, n_, mat)
         gain = emit * thr
-        new_thr = thr * thr_factor / ray_prob
-
-        # Russian roulette on the max throughput channel
-        # (test_compute.glsl:153-159).
-        p_rr = new_thr.max_component()
-        rng, r_rr = random_float01(rng)
-        dead = r_rr > p_rr
-        p_pos = p_rr > 0.0
-        inv_p = torch.where(p_pos, 1.0 / torch.where(p_pos, p_rr,
-                                                     torch.ones_like(p_rr)),
-                            torch.zeros_like(p_rr))
-        surv = ~dead
-        return (missed, lanes, gain, lanes[dead], lanes[surv], _sel(ro, surv),
-                _sel(rd, surv), rng[surv], _sel(new_thr * inv_p, surv))
+        rng, surv, new_thr = roulette(rng, thr * thr_factor / ray_prob)
+        return (missed, lanes, gain, lanes[~surv], lanes[surv], _sel(ro, surv),
+                _sel(rd, surv), rng[surv], _sel(new_thr, surv))
 
     for i in range(bounces + 1):
         if lanes.numel() == 0:

@@ -98,8 +98,58 @@ def test_no_frame_time_without_a_card():
         pf.measure_frame_time(lambda: None)
 
 
+def test_wavefront_work_is_k2s_march_and_the_compactions_bytes():
+    """The wavefront frame marches K2's faithful exact frame's rays: the
+    same segments, taps and leaves; its bytes are the bounces' and the
+    compactions'."""
+    from compute_path_tracer_tpu_torch.benchmarks import frozen_wavefront as fw
+
+    _, tc = pair("bench16")
+    pv = torch.from_numpy(tc.params)
+    kw = dict(width=W, height=H, bounces=BOUNCES)
+    count, k2 = {}, {}
+    fw.render_frame_wavefront(tc.spec, pv, count=count, **kw)
+    mk.render_frame_megakernel_plain(tc.spec, pv, count=k2, **kw)
+    prog = build_program(tc.spec, "faithful")
+    ops, n_bytes = pf.wavefront_work(count, prog)
+    assert ops == pf.march_ops(k2, prog)
+    assert 0 < int(count["survivors"]) < count["segments"] <= W * H * 3
+    assert n_bytes == (count["segments"] * 96
+                       + int(count["survivors"]) * 96)
+
+
+def test_fused_bwd_ops_are_the_march_and_the_hits_normal_taps():
+    from compute_path_tracer_tpu_torch.kernels import grad_probes as gp
+    from compute_path_tracer_tpu_torch.kernels.march import march_rays_plain
+
+    _, tc = pair("bench16")
+    pv = torch.from_numpy(tc.params)
+    prog = build_program(tc.spec, "baked")
+    table = program_table(prog, pv)
+    _, ro, rd = gp.fused_bwd_rays((896, 520, 32, 16), "cpu")
+    count = {"segments": 512}
+    t, _ = march_rays_plain(prog, table, ro, rd, t_cull=False,
+                            with_normal=False, count=count)
+    hits = int((t <= 100.0).sum())
+    assert 0 < hits < 512
+    ops = pf.fused_bwd_ops(prog, table, ro, rd)
+    assert ops > pf.march_ops(count, prog)
+    count["taps"] += 6 * hits
+    assert ops < pf.march_ops(count, prog) + 6 * hits * prog.n_boxed * 39
+
+
+def test_segsum_bytes_at_k4s_shape():
+    """(4 + 4 C) bytes an element and the sums: about 1.05 GB, 0.31 ms at
+    K4's main shape (9 bounces of 1080p, 13 channels, 64 shapes)."""
+    n_bytes = pf.segsum_bytes(9, 1920 * 1080, 13, 64)
+    assert n_bytes == 9 * 1920 * 1080 * 56 + 4 * 64 * 13
+    assert pf.bound_ms(n_bytes, 0.0, 1e12) == (pytest.approx(0.3120, abs=1e-4),
+                                                "bytes")
+
+
 @pytest.mark.parametrize("name", ["diagnose", "dense_probe", "analytic_probe",
-                                  "ilp_probe", "kernel_ab"])
+                                  "ilp_probe", "kernel_ab", "frozen_wavefront",
+                                  "probe_fused_bwd", "probe_inkernel_segsum"])
 def test_card_measurements_exit_without_a_card(name):
     """The port's measurements run on the card only: without one each
     exits 1 and prints no result."""
