@@ -16,15 +16,21 @@ scene with 8 bounces (the JAX package's bench.py rows):
   (``geometry="baked", analytic_all=True``);
 * K2, megakernel_march: the sphere march (``geometry="baked", t_cull=True``,
   bench.py's marching row); its checks cover faithful and baked geometry,
-  subtraction, smooth union, refraction, the first-shape clobber and debug
-  0-3.
+  subtraction, smooth union, refraction, the first-shape clobber, debug
+  0-3, and ``benchmark_scene(256)`` (more than one ballot chunk of records
+  and of box words, the largest shared-memory staging).  Its plain march
+  walks per-warp lists of the program (csg_program.cuh:build_warp_list):
+  each bounce's summed list length and list count at 1080p must be the
+  plain model's (render/program.py:warp_records), and their means per
+  bounce are printed with ptxas's registers and stack frame of the walk
+  kernels (K2's and K3's).
 
 and the training path through the ray march K3 (march_rays): K3 against its
-plain version on scattered rays over three scenes and every mode, and on the
-1080p primary rays; the gradient of ``make_loss`` through K3 against the same
-with K3's plain version and against the plain march at 320x180, and the
-implicit backward on a loss of the hit distance (checked, and timed at
-1080p); three timed
+plain version on scattered rays over three scenes and every mode, on a ray
+count that is not a multiple of 32, and on the 1080p primary rays; the
+gradient of ``make_loss`` through K3 against the same with K3's plain
+version and against the plain march at 320x180, and the implicit backward
+on a loss of the hit distance (checked, and timed at 1080p); three timed
 training steps (``make_loss(..., geometry="baked", march="kernel",
 normals="kernel")``, backward, Adam) at 1920x1080 with 8 bounces (bench.py's
 fast-gradient row); ``optimize_to_target`` on a small scene and the CLI's
@@ -147,6 +153,8 @@ OMEGA = 1.6
 TRAIN = dict(geometry="baked", march="kernel", normals="kernel")
 TIMED_STEPS = 3
 K3_RAYS = CHECK_W * CHECK_H      # scattered rays per K3 check
+K3_RAGGED = K3_RAYS - 13         # ... and a count that leaves a partial warp
+WALK_PRIMS = 256                 # K2's check with the largest staging
 T_TOL = 1e-3                     # a K3 ray differs when its id or its hit t does
 GRAD_BOUNCES = 2
 # Gradient through K3 against the same with K3's plain version: K3 matches
@@ -617,6 +625,30 @@ def _grad_probe_phase(gp, pf, fbm, sgm, spec, sp, all_counts, peak, gpu):
                          "plain_ms": seg["probe"]["plain_ms"],
                          "bound_ms": seg["probe"]["bound"][0],
                          "library_ms": sgo["probe"]["index_add_ms"]}}]
+
+
+def _short(name):
+    """A walk kernel's mangled name as ``kernel<template args>``."""
+    import re
+
+    m = re.search(r"\d+(megakernel_walk|march_rays)I(.+?)EEv", name)
+    args = re.findall(r"Lb(\d)", m.group(2))
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def _ptxas_walk(build):
+    """ptxas's figures of the walk kernels (K2's megakernel_walk, K3's
+    march_rays), printed; returns them by short name."""
+    figs = {_short(k): v for k, v in build.ptxas_figures().items()
+            if "megakernel_walk" in k or "march_rays" in k}
+    for k, v in sorted(figs.items()):
+        print(f"ptxas {k}: {v['registers']} registers, {v.get('stack', 0)} "
+              f"bytes stack frame, {v.get('spill_stores', 0)} bytes spill "
+              f"stores, {v.get('spill_loads', 0)} bytes spill loads")
+    if len(figs) != 12:
+        raise AssertionError(f"ptxas figures of {len(figs)} walk kernels, "
+                             f"expected 12")
+    return figs
 
 
 def _stamp(start, phase):
@@ -1196,6 +1228,7 @@ def main() -> int:
         probe_inkernel_segsum, vpu_peak)
     from compute_path_tracer_tpu_torch.benchmarks.common import (
         cuda_ms, probe_rays)
+    from compute_path_tracer_tpu_torch.constants import DEFAULT_FOV
     from compute_path_tracer_tpu_torch.diff import (
         optimize_to_target, render_image_diff)
     from compute_path_tracer_tpu_torch.io.png import load_png_rgba
@@ -1230,6 +1263,7 @@ def main() -> int:
     lib_path = build.build(verbose=True)
     mk.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path}")
+    walk_ptxas = _ptxas_walk(build)
 
     def compiled(scene):
         cs = compile_scene(scene)
@@ -1259,6 +1293,7 @@ def main() -> int:
     _stamp(start, "K2 checks")
     # -- K2 against its plain version, on the card --------------------------
     csg, blend = compiled(csg_demo()), compiled(blend_demo())
+    soa_scenes = {n: compiled(benchmark_scene(n)) for n in SOA_PRIMS}
     k2_cases = []
     for name, scene, mode in (
             ("csg_demo faithful", csg, dict(geometry="faithful")),
@@ -1274,6 +1309,9 @@ def main() -> int:
     k2_cases.append(("K2 csg_demo faithful t_cull frame 3, running mean", csg,
                      dict(geometry="faithful", t_cull=True, bounces=BOUNCES,
                           frame=3, last_clear=3), prior, SHARE_LIMIT))
+    k2_cases.append((f"K2 benchmark_scene({WALK_PRIMS}) baked t_cull",
+                     soa_scenes[WALK_PRIMS], dict(MARCH, bounces=BOUNCES),
+                     None, SHARE_LIMIT))
     k2_err = _check_cases(mk, "megakernel_march", k2_cases)
 
     _stamp(start, "K2b and K5 checks")
@@ -1316,7 +1354,6 @@ def main() -> int:
         if not equal:
             raise AssertionError(f"omega=1.0 changed the {name} frame")
 
-    soa_scenes = {n: compiled(benchmark_scene(n)) for n in SOA_PRIMS}
     k5_err = {n: _check_cases(mk, "megakernel_analytic", (
         (f"K5 analytic_soa benchmark_scene({n})", soa_scenes[n],
          dict(SOA, bounces=BOUNCES), None, SHARE_LIMIT),)) for n in SOA_PRIMS}
@@ -1513,6 +1550,24 @@ def main() -> int:
         mk, "megakernel_march", spec, sp, MARCH, count=k2_count,
         stats=d4_stats)
     k2_err = max(k2_err, k2_main_err)
+    # The same frame's per-warp lists: the kernel's summed lengths and list
+    # counts per bounce against the plain pass's model of them.
+    walk = torch.zeros(2 * (BOUNCES + 1), dtype=torch.int64, device=dev)
+    mk.launch_march(prog, table, torch.zeros_like(scratch), frame=0,
+                    last_clear=0, bounces=BOUNCES, fov=DEFAULT_FOV,
+                    aspect=MAIN_W / MAIN_H, debug=0, t_cull=True,
+                    walk_stats=walk)
+    walk_k = walk.view(BOUNCES + 1, 2).tolist()
+    walk_p = d4_stats.walk_lists().tolist()
+    walk_p += [[0, 0]] * (BOUNCES + 1 - len(walk_p))
+    walk_mean = [a / b if b else 0.0 for a, b in walk_k]
+    print(f"K2 per-warp lists at {MAIN_W}x{MAIN_H}, frame 0, per bounce "
+          f"(summed length, lists): kernel {walk_k}, plain model {walk_p}; "
+          f"mean list length "
+          + ", ".join(f"{m:.2f}" for m in walk_mean)
+          + f" of {prog.ops.shape[0]} records [{gpu}]")
+    if walk_k != walk_p:
+        raise AssertionError("K2's per-warp lists differ from the plain model")
     print(f"K2 layers at {MAIN_W}x{MAIN_H}: program table {table_ms:.3f} ms, "
           f"kernel {k2_ms:.3f} ms, plain torch frame {k2_plain_ms:.3f} ms "
           f"while counting and taking debug 4's statistics [{gpu}]")
@@ -1721,6 +1776,12 @@ def main() -> int:
                         km, f"K3 {sname} {geometry} t_cull={t_cull} "
                         f"normal={with_normal}, {K3_RAYS} scattered rays",
                         sprog, stable, ro, rd, t_cull, with_normal)[1])
+    ro, rd = _scattered_rays(K3_RAGGED, 2, dev)
+    sprog = build_program(spec, "baked")
+    k3_err = max(k3_err, _k3_check(
+        km, f"K3 benchmark_scene({N_PRIMS}) baked t_cull=True normal=True, "
+        f"{K3_RAGGED} scattered rays (a partial warp)", sprog,
+        program_table(sprog, bench[1], True), ro, rd, True, True)[1])
     with torch.no_grad():
         ys, xs = torch.meshgrid(
             torch.arange(MAIN_H, dtype=torch.int32, device=dev),
@@ -2189,14 +2250,19 @@ def main() -> int:
          "launches": k2_launches, "max_abs_err": k2_err,
          "main_shape_share_off": k2_share, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": None},
+         "library_ms": None, "state": "redesigned, PR 11",
+         "mean_list_per_bounce": walk_mean,
+         "ptxas": {k: v for k, v in walk_ptxas.items()
+                   if k.startswith("megakernel")}},
         {"name": "march_rays", "route": "cuda",
          "source": csrc + "march_rays.cu",
          "replaces": "compute_path_tracer_tpu/kernels/march.py:123",
          "launches": k3_launches, "max_abs_err": k3_err,
          "main_shape_share_off": k3_share, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": None},
+         "library_ms": None, "state": "redesigned, PR 11",
+         "ptxas": {k: v for k, v in walk_ptxas.items()
+                   if k.startswith("march")}},
         {"name": "train_fused", "route": "cuda",
          "source": csrc + "train_fused.cu",
          "replaces": "compute_path_tracer_tpu/kernels/train.py:1018",
@@ -2209,7 +2275,8 @@ def main() -> int:
          "replaces": replaces, "launches": k2b_launches,
          "max_abs_err": k2b_err, "main_shape_share_off": k2b_share,
          "ms": k2b_ms, "plain_ms": k2b_plain_ms,
-         "bound_ms": k2b_bound, "bound_by": k2b_by, "library_ms": None},
+         "bound_ms": k2b_bound, "bound_by": k2b_by, "library_ms": None,
+         "state": "redesigned, PR 11 (analytic_unboxed; omega kept)"},
         {"name": "train_fused (K2b: analytic_unboxed)", "route": "cuda",
          "source": csrc + "train_fused.cu",
          "replaces": "compute_path_tracer_tpu/kernels/train.py:1018",

@@ -11,6 +11,9 @@ and a rename so that concurrent first uses do not clash.
 The floating-point flags are part of the kernels' semantics: no FMA
 contraction and IEEE division and square root, so the kernels round like
 their plain torch versions (see the note in each source).
+
+``ptxas -v``'s report (registers, stack frame, spills of every function)
+is kept beside the library as ``ptxas.log``; ``ptxas_figures`` reads it.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -83,8 +87,11 @@ def build(verbose: bool = False) -> Path:
         failed = [f"{name} ({rc}):\n{log}" for name, log, rc in logs if rc]
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        text = "".join(log for _, log, _ in logs)
         if verbose:
-            print("".join(log for _, log, _ in logs), end="")
+            print(text, end="")
+        with open(os.path.join(tmp, "ptxas.log"), "w") as f:
+            f.write(text)
         lib = os.path.join(tmp, LIB_NAME)
         res = subprocess.run([nvcc, "-shared", "-o", lib,
                               *[obj for _, obj, _ in jobs]],
@@ -92,7 +99,42 @@ def build(verbose: bool = False) -> Path:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{res.stdout}\n{res.stderr}")
+        os.replace(os.path.join(tmp, "ptxas.log"), out.parent / "ptxas.log")
         os.replace(lib, out)
+    return out
+
+
+def ptxas_figures(lib: Path = None) -> dict:
+    """:func:`parse_ptxas` of the report kept beside ``lib`` (the built
+    library by default); empty when there is none."""
+    log = Path(lib or library_path()).parent / "ptxas.log"
+    return parse_ptxas(log.read_text()) if log.exists() else {}
+
+
+def parse_ptxas(text: str) -> dict:
+    """{kernel's mangled name: {"registers", "stack", "spill_stores",
+    "spill_loads"}} from ``ptxas -v``'s report."""
+    out, props = {}, {}
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            props[name] = dict(zip(("stack", "spill_stores", "spill_loads"),
+                                   map(int, m.groups())))
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry] = {"registers": int(m.group(1))}
+    for k, v in out.items():
+        v.update(props.get(k, {}))
     return out
 
 
@@ -106,10 +148,10 @@ def load_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.cpt_megakernel_march
     fn.argtypes = ([p, i, p, i, i, i, i, i, i, f, p, i, i, i, i, i, f, f, i]
-                   + [p, p, i, i, i, p, i, i, f, p, p])
+                   + [p, p, i, i, i, p, i, i, f, p, i, p, p])
     fn.restype = ctypes.c_int
     fn = lib.cpt_march_rays
-    fn.argtypes = [p, i, p, i, i, i, i, i, i] + [p] * 12
+    fn.argtypes = [p, i, p, i, i, i, i, i, i] + [p] * 11 + [i, p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_march_dense
     fn.argtypes = [p, i, p, i, i, i] + [p] * 9

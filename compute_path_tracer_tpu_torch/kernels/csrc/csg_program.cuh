@@ -9,6 +9,21 @@
 // decisions are in the note at the head of megakernel_march.cu; everything
 // here has internal linkage, so each kernel's translation unit carries its
 // own copy.
+//
+// Two walks of the program.  map_ops reads every op record of the program
+// from global memory at every map tap and tests each guarded shape's bit
+// per lane: a tap of the 64-primitive benchmark scene loads and skips some
+// 60 records whose box no lane of the warp hits, integer and load work the
+// operation count of app/profiling.py does not see.  K4, K6, the
+// over-relaxed march, debug 4, the probes and the wavefront kernel keep that
+// walk.  K2's plain march (debug 0-3, analytic_unboxed) and K3 take the
+// per-warp walk at the end of this file: the block stages the decoded
+// records and the leaf table in shared memory once (stage_walk), each warp
+// compacts the records its live lanes can need into a list after the
+// bounce's guards (build_warp_list), and the map and the normal walk that
+// list (map_walk, march_walk, normal_walk) with the same per-lane guard
+// tests and the same arithmetic in the same order, so every lane folds the
+// shapes it folded before and every frame and ray stays bit for bit.
 
 #pragma once
 
@@ -612,6 +627,232 @@ __device__ V3 calc_grad(const Scene& S, const Guards<TCULL>& g, V3 p) {
 template <bool BAKED, bool TCULL>
 __device__ V3 calc_normal(const Scene& S, const Guards<TCULL>& g, V3 p) {
   return normalize_safe(calc_grad<BAKED, TCULL>(S, g, p));
+}
+
+// -- the per-warp walk (K2's plain march, K3) -------------------------------
+//
+// Shared memory of a block of W warps, from its base (16-byte aligned):
+//   n_ops decoded records (int4), the program in walk order;
+//   W lists of n_ops records, one per warp;
+//   the leaf table F[0, f_leaf) (f_leaf = the program's f_box: every node
+//   record or baked slot the walk reads), behind up to 3 floats of padding
+//   that give it the table's own alignment modulo 16 bytes.
+// render/program.py:walk_smem_bytes is the same arithmetic on the host; the
+// launchers check that the two agree.
+//
+// A decoded record is one 16-byte shared load:
+//   x: opc | kind << 2 | (fold + 1) << 5 | cull << 9 | (box + 1) << 16
+//      (box + 1 = 0 for ENTER, LEAVE and a guard-less shape);
+//   y: ENTER the faithful node record (xform) offset; SHAPE the leaf's
+//      record (faithful) or slots (baked) offset;
+//   z: ENTER the seed value (F[init], or MAX_DIST); SHAPE the shape id;
+//      LEAVE the faithful un-scale F[scale] (float bits);
+//   w: SHAPE and LEAVE the fold's smooth k, F[k] (0 when none; float bits).
+
+constexpr int kWalkCull = 1 << 9;
+
+__host__ __device__ constexpr int walk_table_offset(int n_ops, int warps) {
+  return 16 * n_ops * (1 + warps);
+}
+
+__host__ __device__ constexpr int walk_smem_bytes(int n_ops, int f_leaf, int warps) {
+  return walk_table_offset(n_ops, warps) + 16 * ((f_leaf + 3 + 3) / 4);
+}
+
+__device__ __forceinline__ int walk_box(int4 r) { return (r.x >> 16) - 1; }
+
+// The program staged in a block's shared memory.
+struct Walk {
+  const int4* prog;  // n_ops decoded records
+  int4* lists;       // warps x n_ops
+  const float* F;    // the leaf table
+  int n_ops;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+
+// Stages the program for a block of nthreads threads (thread tid): the leaf
+// table by 16-byte cp.async (the unaligned head and tail by hand), and each
+// op record decoded once, its table values read from global memory.  Ends
+// with __syncthreads(), so every thread of the block must call it.
+__device__ __forceinline__ Walk stage_walk(const Scene& S, int f_leaf, int warps,
+                                           int4* __restrict__ smem, int tid, int nthreads) {
+  int4* prog = smem;
+  const int n_ops = S.n_ops;
+  float* base = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) +
+                                         walk_table_offset(n_ops, warps));
+  const uintptr_t src = reinterpret_cast<uintptr_t>(S.F);
+  float* F = base + ((src >> 2) & 3);
+  const int head = min(static_cast<int>(((16 - (src & 15)) & 15) >> 2), f_leaf);
+  const int nvec = (f_leaf - head) >> 2;
+  for (int v = tid; v < nvec; v += nthreads) cp_async16(F + head + 4 * v, S.F + head + 4 * v);
+  for (int j = tid; j < head; j += nthreads) F[j] = S.F[j];
+  for (int j = head + 4 * nvec + tid; j < f_leaf; j += nthreads) F[j] = S.F[j];
+  for (int pc = tid; pc < n_ops; pc += nthreads) {
+    const int* __restrict__ op = S.code + OP_WIDTH * pc;
+    const int opc = __ldg(op);
+    int4 r;
+    if (opc == OPC_ENTER) {
+      const int init = __ldg(op + 2);
+      r = make_int4(OPC_ENTER, __ldg(op + 1), __float_as_int(init >= 0 ? __ldg(S.F + init) : kMaxDist), 0);
+    } else if (opc == OPC_SHAPE) {
+      const int k = __ldg(op + 6);
+      r = make_int4(OPC_SHAPE | __ldg(op + 1) << 2 | (__ldg(op + 5) + 1) << 5 |
+                        (__ldg(op + 7) ? kWalkCull : 0) | (__ldg(op + 3) + 1) << 16,
+                    __ldg(op + 2), __ldg(op + 4), __float_as_int(k >= 0 ? __ldg(S.F + k) : 0.0f));
+    } else {
+      const int scale = __ldg(op + 1);
+      const int k = __ldg(op + 3);
+      r = make_int4(opc | (__ldg(op + 2) + 1) << 5, 0,
+                    __float_as_int(scale >= 0 ? __ldg(S.F + scale) : 1.0f),
+                    __float_as_int(k >= 0 ? __ldg(S.F + k) : 0.0f));
+    }
+    prog[pc] = r;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  return Walk{prog, smem + n_ops, F, n_ops};
+}
+
+// The list of warp `warp` for this bounce: the records, in walk order, that
+// a live lane of the warp can need (every ENTER, LEAVE and guard-less shape,
+// and each guarded shape whose box bit is set for at least one live lane).
+// A warp collective: all 32 lanes call it, `live` or not; a lane that is not
+// live adds no bits.  The OR of the lanes' guard words ends with lane w
+// holding word w; then each 32 records are compacted by a ballot prefix.
+// Returns the list's length, the same in every lane.
+template <bool TCULL>
+__device__ __forceinline__ int build_warp_list(const Walk& P, int n_boxed, const Guards<TCULL>& g,
+                                               bool live, int warp, int lane) {
+  uint32_t word_of_lane = 0u;
+  for (int w = 0; w * 32 < n_boxed; ++w) {
+    const uint32_t v = __reduce_or_sync(kFullWarp, live ? g.bits[w] : 0u);
+    if (lane == w) word_of_lane = v;
+  }
+  int4* __restrict__ list = P.lists + warp * P.n_ops;
+  __syncwarp();  // no lane still reads the previous bounce's list
+  int n = 0;
+  for (int base = 0; base < P.n_ops; base += 32) {
+    const int pc = base + lane;
+    int4 r = make_int4(0, 0, 0, 0);
+    if (pc < P.n_ops) r = P.prog[pc];
+    const int box = walk_box(r);
+    const uint32_t word = __shfl_sync(kFullWarp, word_of_lane, box >= 0 ? box >> 5 : 0);
+    const bool keep = pc < P.n_ops && (box < 0 || ((word >> (box & 31)) & 1u));
+    const uint32_t m = __ballot_sync(kFullWarp, keep);
+    if (keep) list[n + __popc(m & ((1u << lane) - 1u))] = r;
+    n += __popc(m);
+  }
+  __syncwarp();
+  return n;
+}
+
+// map_scene over a warp's list: map_ops' GUARDED arithmetic, record for
+// record, over the records the list holds (the others fail every live
+// lane's guard, so map_ops would skip them).  Each lane still tests its own
+// guard bit and, with CULLED, its own interval.
+template <bool BAKED, bool TCULL, bool CULLED>
+__device__ __forceinline__ float map_walk(const int4* __restrict__ list, int n,
+                                          const float* __restrict__ F, const Guards<TCULL>& g,
+                                          V3 p, float t, int& id) {
+  float st_d[kMaxDepth];
+  int st_i[kMaxDepth];
+  V3 st_p[BAKED ? 1 : kMaxDepth];
+  int sp = 0;
+  float acc_d = kMaxDist;
+  int acc_i = -1;
+  for (int e = 0; e < n; ++e) {
+    const int4 r = list[e];
+    const int opc = r.x & 3;
+    if (opc == OPC_ENTER) {
+      st_d[sp] = acc_d;
+      st_i[sp] = acc_i;
+      if (!BAKED) {
+        st_p[sp] = p;
+        p = xform(p, F + r.y);
+      }
+      ++sp;
+      acc_d = __int_as_float(r.z);
+      acc_i = -1;
+    } else if (opc == OPC_SHAPE) {
+      const int box = walk_box(r);
+      if (box >= 0) {
+        bool pass = g.check(box);
+        if constexpr (CULLED) {
+          if (pass && (r.x & kWalkCull)) pass = g.lo[box] <= t && g.hi[box] >= t;
+        }
+        if (!pass) continue;
+      }
+      const int kind = (r.x >> 2) & 7;
+      const float* __restrict__ gr = F + r.y;
+      float d;
+      if (BAKED) {
+        d = leaf_baked(kind, gr, p);
+      } else {
+        d = leaf_sdf(kind, xform(p, gr), gr + 11) * gr[0];
+      }
+      fold(((r.x >> 5) & 15) - 1, __int_as_float(r.w), acc_d, acc_i, d, r.z);
+    } else {  // OPC_LEAVE
+      float d = BAKED ? acc_d : acc_d * __int_as_float(r.z);
+      int i = acc_i;
+      --sp;
+      acc_d = st_d[sp];
+      acc_i = st_i[sp];
+      if (!BAKED) p = st_p[sp];
+      fold(((r.x >> 5) & 15) - 1, __int_as_float(r.w), acc_d, acc_i, d, i);
+    }
+  }
+  id = acc_i;
+  return acc_d;
+}
+
+// march() over a warp's list.
+template <bool BAKED, bool TCULL>
+__device__ float march_walk(const Scene& S, const int4* __restrict__ list, int n,
+                            const float* __restrict__ F, const Guards<TCULL>& g, V3 ro, V3 rd,
+                            int& idx, float t_cap = INFINITY) {
+  float t = 0.0f;
+  float m = kBig;
+  if constexpr (TCULL) m = next_entry(S, g, 0.0f);
+  idx = -1;
+  for (int step = 0; step < kSteps; ++step) {
+    int mi;
+    float d = map_walk<BAKED, TCULL, TCULL>(list, n, F, g, v3(ro.x + rd.x * t, ro.y + rd.y * t,
+                                                             ro.z + rd.z * t), t, mi);
+    float ad = fabsf(d);
+    float nt = TCULL ? t + nan_min(ad, nan_max(m - t, kMhd)) : t + ad;
+    nt = nan_min(nt, t_cap);
+    bool far = nt > kFar;
+    idx = far ? -1 : mi;
+    t = nt;
+    if (ad < kMhd || far || nt >= t_cap) break;
+    if constexpr (TCULL) {
+      if (t >= m) m = next_entry(S, g, t);
+    }
+  }
+  return t;
+}
+
+// calc_normal() over a warp's list: 6 taps under the full guards.
+template <bool BAKED, bool TCULL>
+__device__ V3 normal_walk(const int4* __restrict__ list, int n, const float* __restrict__ F,
+                          const Guards<TCULL>& g, V3 p) {
+  const float e = kNormalEps;
+  int id;
+  float d[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    float off = (k & 1) ? -e : e;
+    V3 q = v3(p.x + (k / 2 == 0 ? off : 0.0f), p.y + (k / 2 == 1 ? off : 0.0f),
+              p.z + (k / 2 == 2 ? off : 0.0f));
+    d[k] = map_walk<BAKED, TCULL, false>(list, n, F, g, q, 0.0f, id);
+  }
+  return normalize_safe(v3(d[0] - d[1], d[2] - d[3], d[4] - d[5]));
 }
 
 }  // namespace

@@ -11,17 +11,32 @@
 // or the albedo (:1407-1443).  The result overwrites (debug 1-3) or is
 // averaged into (debug 0) the (H, W, 3) float32 accumulator.
 //
-// What bounds it on an H100: per-thread ALU work and the latency of uniform
-// table loads.  Every march step evaluates the whole CSG program (about 64
-// leaf SDFs of 10-40 flops on the benchmark scene, times up to 80 steps and
-// 9 bounces, plus 6 normal taps per hit), against ~25 MB of accumulator
-// traffic per 1080p frame, so memory bandwidth is idle.  The design keeps the
-// per-ray state in registers, reads the program and its table with loads
-// that are uniform across a warp (one transaction, L1-resident: about 2 KB
-// of ops and 4-6 KB of floats at 64 shapes), and lets a guarded leaf be
-// skipped by the lanes whose guard fails, a whole warp at once when no lane
-// needs it.  The guard bits and t-cull intervals live in per-thread local
-// memory, touched only for the boxes a ray hits.
+// What bounds it on an H100: neither the card's memory (about 25 MB of
+// accumulator traffic per 1080p frame) nor its FP32 rate (the counted work
+// of the benchmark scene is about 0.12 ms of it), but the interpreter and
+// the lanes' fill.  A walk that loaded and tested all 66 op records of the
+// 64-primitive benchmark scene at every map tap, though a warp's lanes hit
+// few of its 61 boxes, took most of the frame's time; with the per-warp
+// walk below, a tap walks 6 to 11 records on average, and the frame takes
+// about a third of the time (PERF.md).  What is left is mostly the lanes'
+// fill: a warp marches until its slowest ray is done, and lanes fill 37 %
+// of their warps' march iterations.
+//
+// The plain march (megakernel_walk: debug 0-3, analytic_unboxed) cuts the
+// walk.  The block stages the decoded op records and the leaf table in
+// shared memory once (csg_program.cuh:stage_walk, 16-byte cp.async); each
+// bounce, after the guards, each warp ORs its live lanes' box bits and
+// compacts the records they can need into its own list in shared memory
+// (build_warp_list: every ENTER, LEAVE and guard-less shape, and the
+// guarded shapes whose box some live lane hits), and the march and the
+// normal walk that list, one 16-byte shared load a record.  A tap of the
+// benchmark scene walks 5 + k records, k the boxes the warp's rays hit.
+// The list is a warp collective, so the kernel keeps every lane of a warp
+// to the end: out-of-range and finished lanes run on as not live, and the
+// bounce loop runs while any lane of the warp is alive.  The guard bits and
+// t-cull intervals stay in per-thread local memory.  The over-relaxed
+// march, the grid march (K6) and debug 4 keep megakernel_march's walk of
+// the whole program from global memory, unchanged.
 //
 // A program, not generated code: the CSG tree arrives as the int32 op list
 // of render/program.py (ENTER / SHAPE / LEAVE records) and its per-frame
@@ -99,9 +114,12 @@ namespace {
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 16;
 
-// The march of debug 0 and 3: K2's (PLAIN), over-relaxed (RELAX), or on the
-// distance grid (GRID, and GRID_STATS, which also counts warp statistics).
-enum MarchMode { PLAIN = 0, RELAX = 1, GRID = 2, GRID_STATS = 3 };
+constexpr int kWarps = kBlockX * kBlockY / 32;
+
+// The marches that keep the walk of the whole program from global memory:
+// over-relaxed (RELAX), or on the distance grid (GRID, and GRID_STATS, which
+// also counts warp statistics).  The plain march is megakernel_walk's.
+enum MarchMode { RELAX = 1, GRID = 2, GRID_STATS = 3 };
 
 template <bool BAKED, bool TCULL, int MODE>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
@@ -118,6 +136,8 @@ megakernel_march(Scene S, float* __restrict__ accum, int width, int height, int 
   Guards<TCULL> g;
   V3 col;
 
+  // No launch brings debug 1 or 2 here any more (megakernel_walk takes
+  // them); the branch stays so that these kernels compile as they did.
   if (debug == 1 || debug == 2) {
     float dbg = compute_guards(S, ro, rd, g);
     int idx;
@@ -149,10 +169,8 @@ megakernel_march(Scene S, float* __restrict__ accum, int width, int height, int 
       float t;
       if constexpr (MODE == RELAX) {
         t = march_relax<BAKED>(S, g, ro, rd, idx, omega, t_cap);
-      } else if constexpr (MODE == GRID || MODE == GRID_STATS) {
-        t = march_grid<BAKED, MODE == GRID_STATS>(S, g, G, ro, rd, idx, t_cap, st);
       } else {
-        t = march<BAKED, TCULL>(S, g, ro, rd, idx, t_cap);
+        t = march_grid<BAKED, MODE == GRID_STATS>(S, g, G, ro, rd, idx, t_cap, st);
       }
       if (t > kFar) {
         i_exit = i;
@@ -182,6 +200,107 @@ megakernel_march(Scene S, float* __restrict__ accum, int width, int height, int 
     col = debug == 3 ? splat((float)i_exit / (float)bounces) : ret;
   }
   write_pixel(accum, x, y, width, col, last_clear, debug);
+}
+
+// Adds a warp's list length at bounce i to walk_stats (when not null): the
+// sum of the lengths, then the number of lists.
+__device__ __forceinline__ void record_list(unsigned long long* __restrict__ walk_stats, int i,
+                                            int n, int lane) {
+  if (walk_stats != nullptr && lane == 0) {
+    atomicAdd(walk_stats + 2 * i, static_cast<unsigned long long>(n));
+    atomicAdd(walk_stats + 2 * i + 1, 1ull);
+  }
+}
+
+// The plain march of debug 0-3 (and analytic_unboxed's cap) over per-warp
+// lists of the program staged in shared memory (csg_program.cuh:stage_walk,
+// build_warp_list).  Every lane of a warp runs to the end: a lane out of
+// the frame, or whose path has ended, runs on as not live, so that each
+// bounce's list is built by the whole warp.  A non-null walk_stats (debug 0
+// and 3: 2 (bounces + 1) zeroed uint64) takes record_list's figures.
+template <bool BAKED, bool TCULL>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+megakernel_walk(Scene S, int f_leaf, float* __restrict__ accum, int width, int height, int frame,
+                int last_clear, int bounces, float fov, float aspect, int debug,
+                unsigned long long* __restrict__ walk_stats) {
+  extern __shared__ int4 walk_smem[];
+  const int tid = threadIdx.x + kBlockX * threadIdx.y;
+  const int warp = tid >> 5, lane = tid & 31;
+  const Walk P = stage_walk(S, f_leaf, kWarps, walk_smem, tid, kBlockX * kBlockY);
+  const int4* __restrict__ list = P.lists + warp * P.n_ops;
+  const int x = blockIdx.x * kBlockX + threadIdx.x;
+  const int y = blockIdx.y * kBlockY + threadIdx.y;
+  const bool inrange = x < width && y < height;
+
+  uint32_t rng = 0u;
+  V3 ro = splat(0.0f), rd = splat(0.0f);
+  if (inrange) primary_ray(x, y, frame, width, height, fov, aspect, rng, ro, rd);
+  Guards<TCULL> g;
+  V3 col = splat(0.0f);
+
+  if (debug == 1 || debug == 2) {
+    float dbg = 0.0f;
+    if (inrange) dbg = compute_guards(S, ro, rd, g);
+    const int n = build_warp_list(P, S.n_boxed, g, inrange, warp, lane);
+    if (inrange) {
+      int idx;
+      float t = march_walk<BAKED, TCULL>(S, list, n, P.F, g, ro, rd, idx);
+      if (debug == 1) {
+        // normals + AABB tint (test_compute.glsl:170-179)
+        if (t > kFar) {
+          col = splat(dbg);
+        } else {
+          V3 nrm = normal_walk<BAKED, TCULL>(list, n, P.F, g, ro + rd * t);
+          col = (normalize_safe(nrm) * 0.5f + splat(0.5f)) * 0.2f + splat(dbg);
+        }
+      } else {
+        // first-hit albedo (test_compute.glsl:183-195)
+        const float* mt = S.F + S.f_mat + kMatSize * idx;
+        col = idx >= 0 ? v3(mt[0], mt[1], mt[2]) : splat(0.0f);
+      }
+    }
+  } else {
+    V3 ret = v3(0.0f, 0.0f, 0.0f);
+    V3 thr = v3(1.0f, 1.0f, 1.0f);
+    int i_exit = -1;
+    bool alive = inrange;
+    for (int i = 0; i <= bounces; ++i) {
+      if (!__any_sync(kFullWarp, alive)) break;
+      float t_cap = INFINITY;
+      int j_cap = -1;
+      if (alive) {
+        compute_guards(S, ro, rd, g);
+        if (S.n_cap > 0) cap_scan(S, ro, rd, t_cap, j_cap);
+      }
+      const int n = build_warp_list(P, S.n_boxed, g, alive, warp, lane);
+      record_list(walk_stats, i, n, lane);
+      if (!alive) continue;
+      int idx;
+      const float t = march_walk<BAKED, TCULL>(S, list, n, P.F, g, ro, rd, idx, t_cap);
+      if (t > kFar) {
+        i_exit = i;
+        alive = false;
+        continue;
+      }
+      V3 hit = ro + rd * t;
+      V3 nrm;
+      if (t >= t_cap) {
+        idx = cap_id(S, j_cap);
+        nrm = cap_normal(S, j_cap, hit);
+      } else {
+        nrm = normal_walk<BAKED, TCULL>(list, n, P.F, g, hit);
+      }
+      const float* mt = idx >= 0 ? S.F + S.f_mat + kMatSize * idx : nullptr;
+      if (!scatter(rng, ro, rd, ret, thr, hit, nrm, mt)) {
+        i_exit = i;
+        alive = false;
+      }
+    }
+    if (i_exit < 0) i_exit = bounces + 1;
+    // debug 3: the bounce heatmap (test_compute.glsl:163).
+    col = debug == 3 ? splat((float)i_exit / (float)bounces) : ret;
+  }
+  if (inrange) write_pixel(accum, x, y, width, col, last_clear, debug);
 }
 
 // Debug 4: the frame's paths as debug 0 traces them, with the warp's
@@ -251,6 +370,25 @@ void launch(const Scene& S, float* accum, int width, int height, int frame, int 
       S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, stats);
 }
 
+template <bool BAKED, bool TCULL>
+int launch_walk(const Scene& S, int f_leaf, int smem_bytes, float* accum, int width, int height,
+                int frame, int last_clear, int bounces, float fov, float aspect, int debug,
+                unsigned long long* walk_stats, cudaStream_t stream) {
+  if (smem_bytes != walk_smem_bytes(S.n_ops, f_leaf, kWarps)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        megakernel_walk<BAKED, TCULL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  dim3 block(kBlockX, kBlockY);
+  dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
+  megakernel_walk<BAKED, TCULL><<<grid, block, smem_bytes, stream>>>(
+      S, f_leaf, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, walk_stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches one frame on `stream`; returns cudaGetLastError() (0 on success).
@@ -265,6 +403,11 @@ void launch(const Scene& S, float* accum, int width, int height, int frame, int 
 // 0 or 3 and omega 1.  A non-null grid_stats (5 zeroed uint64) takes the
 // grid march's warp statistics.  Debug 4 (omega 1, no grid) writes the
 // warp statistics of the march to the accumulator instead of a frame.
+// The plain march (debug 0-3, omega 1, no grid) runs megakernel_walk with
+// smem_bytes of dynamic shared memory, which must be walk_smem_bytes(n_ops,
+// f_box, 8) (render/program.py:walk_smem_bytes); a non-null walk_stats
+// (debug 0 or 3; 2 (bounces + 1) zeroed uint64) takes each bounce's summed
+// list length and list count.
 extern "C" int cpt_megakernel_march(const int* code, int n_ops, const float* table,
                                     int n_boxed, int f_box, int f_mat, int n_cap, int baked,
                                     int t_cull, float omega, float* accum, int width, int height,
@@ -272,7 +415,8 @@ extern "C" int cpt_megakernel_march(const int* code, int n_ops, const float* tab
                                     float aspect, int debug, const float* grid_meta,
                                     const float* grid_cells, int gx, int gy, int gz,
                                     const int* grid_offs, int n_planes, int n_k, float tau,
-                                    unsigned long long* grid_stats, void* stream) {
+                                    unsigned long long* grid_stats, int smem_bytes,
+                                    unsigned long long* walk_stats, void* stream) {
   Scene S{code, n_ops, table, n_boxed, f_box, f_box + 6 * n_boxed, f_mat,
           code + OP_WIDTH * n_ops + n_boxed, n_cap};
   const Grid G{grid_meta, grid_cells, gx, gy, gz, grid_offs, n_planes, n_k, tau};
@@ -303,20 +447,17 @@ extern "C" int cpt_megakernel_march(const int* code, int n_ops, const float* tab
     } else {
       launch<true, true, GRID>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
     }
-  } else if (baked) {
-    if (relax) {
-      launch<true, true, RELAX>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
-    } else if (t_cull) {
-      launch<true, true, PLAIN>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
-    } else {
-      launch<true, false, PLAIN>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
-    }
   } else if (relax) {
-    launch<false, true, RELAX>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
-  } else if (t_cull) {
-    launch<false, true, PLAIN>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
+    if (baked) {
+      launch<true, true, RELAX>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
+    } else {
+      launch<false, true, RELAX>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
+    }
   } else {
-    launch<false, false, PLAIN>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
+    auto walk = baked ? (t_cull ? &launch_walk<true, true> : &launch_walk<true, false>)
+                      : (t_cull ? &launch_walk<false, true> : &launch_walk<false, false>);
+    return walk(S, f_box, smem_bytes, accum, width, height, frame, last_clear, bounces, fov,
+                aspect, debug, walk_stats, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

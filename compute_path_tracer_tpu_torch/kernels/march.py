@@ -33,6 +33,7 @@ from ..render.program import (
     program_bounds,
     program_code_on,
     program_table,
+    walk_smem_bytes,
 )
 from ..render.reference import calc_normal, cast_ray, take_lanes
 from ..render.scenegen import make_bounds, make_map
@@ -42,6 +43,9 @@ from .build import load_library
 
 # Launches since import (or since a caller reset them).
 LAUNCHES = {"march_rays": 0}
+# Warps in a block of K3 (csrc/march_rays.cu: 128 threads), each with its
+# own list of the program in shared memory.
+WARPS = 4
 
 # Denominator clamp of the implicit gradient: |f_p . rd| at or below it is a
 # grazing hit whose derivative blows up, and gets none (JAX ``_DENOM_EPS``).
@@ -103,11 +107,14 @@ def march_rays(prog: Program, table: torch.Tensor, ro: Vec3, rd: Vec3, *,
     (zero on a miss).
 
     On CUDA tensors this launches K3 on the current stream without
-    synchronising and counts the launch in ``LAUNCHES["march_rays"]``; on
-    CPU tensors it runs :func:`march_rays_plain`."""
+    synchronising and counts the launch in ``LAUNCHES["march_rays"]``; its
+    blocks hold the program in shared memory (``walk_smem_bytes``, which
+    raises for a program too large).  On CPU tensors it runs
+    :func:`march_rays_plain`."""
     if table.device.type == "cpu":
         return march_rays_plain(prog, table, ro, rd, t_cull=t_cull,
                                 with_normal=with_normal)
+    smem = walk_smem_bytes(prog, WARPS)
     if table.device.type != "cuda":
         raise ValueError(f"no kernel for device {table.device}")
     n = _check_rays(prog, table, ro, rd)
@@ -125,7 +132,7 @@ def march_rays(prog: Program, table: torch.Tensor, ro: Vec3, rd: Vec3, *,
                 prog.n_boxed, prog.f_box, int(prog.geometry == "baked"),
                 int(bool(t_cull)), int(bool(with_normal)), n,
                 *(c.data_ptr() for c in (*ro, *rd)), t.data_ptr(),
-                idx.data_ptr(), *outs,
+                idx.data_ptr(), *outs, smem,
                 torch.cuda.current_stream(table.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"march_rays launch failed: CUDA error {err}")

@@ -71,6 +71,8 @@ from ..render.program import (
     program_bounds,
     program_code_on,
     program_table,
+    walk_smem_bytes,
+    warp_records,
 )
 from ..render.reference import (
     calc_normal,
@@ -271,8 +273,17 @@ def _pixels(height: int, width: int, device):
 
 
 # The pixels of one warp of K2 (megakernel_march.cu: 16x16 blocks, thread
-# tx + 16 ty, warp = thread / 32), as (rows, columns).
+# tx + 16 ty, warp = thread / 32), as (rows, columns), and the warps of a
+# block, each with its own list of the program in shared memory.
 WARP = (2, 16)
+WARPS = 8
+
+
+def warp_ids(xs, ys, width: int, group=WARP) -> torch.Tensor:
+    """The group of each pixel ``(xs, ys)`` of a frame ``width`` wide, as
+    flat int64: the warps of K2 for ``WARP`` (a 2x16 tile of pixels)."""
+    gh, gw = group
+    return ((ys // gh) * -(-width // gw) + xs // gw).reshape(-1).long()
 
 
 class MarchStats:
@@ -289,7 +300,10 @@ class MarchStats:
       normal taps (a guard-less shape counts 1; a capped hit takes no taps).
 
     x and y stay 0 without t_cull, as in JAX.  ``group=(1, 1)`` gives each
-    pixel's own numbers, a JAX tile shape JAX's grouping.
+    pixel's own numbers, a JAX tile shape JAX's grouping.  Per bounce it
+    also takes the length of each group's list of the program
+    (render/program.py:warp_records), the list K2's plain march walks:
+    ``walk_lists()``.
 
     The plain frame fills it (``render_frame_megakernel_plain(...,
     stats=)``): ``start``, then per bounce ``bounce`` with its lanes
@@ -305,16 +319,17 @@ class MarchStats:
         self.group = (int(group[0]), int(group[1]))
 
     def start(self, prog: Program, height: int, width: int, device) -> None:
-        gh, gw = self.group
         xs, ys = _pixels(height, width, device)
         self.shape = (height, width)
-        self.gid = ((ys // gh) * -(-width // gw) + xs // gw).reshape(-1).long()
+        self.gid = warp_ids(xs, ys, width, self.group)
         self.xyz = torch.zeros((3, int(self.gid.max()) + 1), dtype=torch.int64,
                                device=device)
         self.lanes_xyz = torch.zeros(3, dtype=torch.int64, device=device)
         self.n_free = int(((prog.ops[:, 0] == OPC_SHAPE)
                            & (prog.ops[:, 3] < 0)).sum())
         self.lanes = None
+        self.prog = prog
+        self.walk = []
 
     def bounce(self, lanes) -> None:
         self.lanes = lanes
@@ -334,6 +349,19 @@ class MarchStats:
         self.xyz[1].index_add_(0, groups, n)
         self.lanes_xyz[0] += active.shape[0]
         self.lanes_xyz[1] += active.sum()
+
+    def lists(self, check) -> None:
+        """The bounce's guard bits (n, n_boxed) of all its rays: adds the
+        summed length of its groups' lists and the number of lists."""
+        groups, inv = torch.unique(self.gid[self.lanes], return_inverse=True)
+        n = warp_records(self.prog, check, inv, groups.shape[0]).sum()
+        self.walk.append(torch.stack([n, n.new_tensor(groups.shape[0])]))
+
+    def walk_lists(self) -> torch.Tensor:
+        """(bounces cast, 2) int64: per bounce, the summed list length and
+        the number of lists (K2's ``walk_stats``)."""
+        return torch.stack(self.walk) if self.walk else torch.zeros(
+            (0, 2), dtype=torch.int64)
 
     def taps(self, sel, guard) -> None:
         groups, n = self._union(sel, guard)
@@ -443,10 +471,16 @@ def _march_plain(prog: Program, table, t_cull, xs, ys, frame, bounces, fov,
                       else cast_ray(map_checked, ro, rd, c))
             taps(~(t > FP), c)
             return t, idx
+
+    def bounds(ro, rd):
+        out = program_bounds(prog, table, ro, rd, t_cull)
+        if stats is not None:
+            stats.lists(out[0][0])
+        return out
+
     mats = table[prog.f_mat:].view(prog.n_shapes, MAT_SIZE)
     return trace_pixels(
-        _count_segments(count,
-                        lambda ro, rd: program_bounds(prog, table, ro, rd, t_cull)),
+        _count_segments(count, bounds),
         cast, normal,
         lambda idx: gather_material(mats, idx),
         xs, ys, frame, bounces, fov, aspect,
@@ -751,7 +785,8 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
                  frame: int, last_clear: int, bounces: int, fov: float,
                  aspect: float, debug: int, t_cull: bool,
                  omega: float = 1.0, grid: DistGrid = None,
-                 grid_stats: torch.Tensor = None) -> None:
+                 grid_stats: torch.Tensor = None,
+                 walk_stats: torch.Tensor = None) -> None:
     """Launch K2 on a program's table (``program_table``) and a CUDA (H, W,
     3) float32 accumulator, on the current stream; counts the launch in
     ``LAUNCHES["megakernel_march"]``.  A program with ``caps`` caps the
@@ -761,7 +796,14 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
     ``grid_stats``, a zeroed int64 CUDA tensor of 5, then takes the warp
     statistics of the grid march (kernels/csrc/megakernel_march.cu).
     Debug 4 writes :class:`MarchStats`' image per warp, from the kernel's
-    STATS instantiation."""
+    STATS instantiation.
+
+    The plain march (debug 0-3, omega 1, no grid) walks per-warp lists of
+    the program staged in each block's shared memory
+    (``walk_smem_bytes``, which raises for a program too large);
+    ``walk_stats`` (debug 0 or 3), a zeroed int64 CUDA tensor of
+    2 (bounces + 1), then takes per bounce the summed list length and the
+    number of lists (:meth:`MarchStats.walk_lists`)."""
     if debug not in (0, 1, 2, 3, 4):
         raise ValueError(f"the kernel renders debug 0-4, not {debug}")
     relax = float(omega) != 1.0
@@ -776,6 +818,10 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
                          "debug 0 or 3 and omega 1")
     if grid_stats is not None and grid is None:
         raise ValueError("grid_stats needs a grid")
+    walk = debug != 4 and not relax and grid is None
+    if walk_stats is not None and not (walk and debug in (0, 3)):
+        raise ValueError("walk_stats needs the plain march of debug 0 or 3")
+    smem = walk_smem_bytes(prog, WARPS) if walk else 0
     _check_accum(accum)
     device = accum.device
     height, width = accum.shape[0], accum.shape[1]
@@ -793,6 +839,9 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
         if grid_stats is not None:
             _check_table("grid_stats", grid_stats, torch.int64, 5, device)
             gargs[-1] = grid_stats.data_ptr()
+    if walk_stats is not None:
+        _check_table("walk_stats", walk_stats, torch.int64,
+                     2 * (int(bounces) + 1), device)
     lib = load_library()
     with torch.cuda.device(device):
         err = lib.cpt_megakernel_march(
@@ -800,7 +849,8 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
             prog.f_box, prog.f_mat, prog.caps.shape[0],
             int(prog.geometry == "baked"), int(bool(t_cull)), float(omega),
             accum.data_ptr(), width, height, int(frame), int(last_clear),
-            int(bounces), float(fov), float(aspect), int(debug), *gargs,
+            int(bounces), float(fov), float(aspect), int(debug), *gargs, smem,
+            None if walk_stats is None else walk_stats.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"marching kernel launch failed: CUDA error {err}")

@@ -41,6 +41,14 @@ program's, since a skipped shape has no box.
 ``make_map_program`` / ``program_bounds`` / ``cast_tcull`` / ``cast_grid``
 are the plain torch versions of the kernel's map, guards, per-thread
 t-culled march and distance-grid march.
+
+K2's plain march and K3 walk, at each map tap, not the whole op list but a
+list per warp of 32 lanes, built after the bounce's guards
+(kernels/csrc/csg_program.cuh:build_warp_list): every ENTER, LEAVE and
+guard-less shape, and each guarded shape whose box some live lane of the
+warp hits.  ``warp_records`` is its plain model, ``make_map_program(...,
+records=)`` the map over one such list, and ``walk_smem_bytes`` the shared
+memory a block needs to hold the program and its warps' lists.
 """
 
 from __future__ import annotations
@@ -75,6 +83,7 @@ FOLD_ASSIGN = -1
 XFORM = 14        # floats per faithful node record
 MAX_DEPTH = 16    # union nesting the kernel's per-thread stack holds
 MAX_BOXED = 256   # guarded shapes the kernel's per-thread guard arrays hold
+SMEM_PER_BLOCK = 232_448  # an H100 block's most (dynamic) shared memory
 _GRID_CHEAP_RUN = 16  # cast_grid: cheap steps per ray between map calls
 
 
@@ -315,6 +324,44 @@ def program_code_on(prog: Program, device) -> torch.Tensor:
     return _on_device(prog, torch.device(device)).code
 
 
+def walk_smem_bytes(prog: Program, warps: int) -> int:
+    """The dynamic shared memory of a block of ``warps`` warps that walks
+    ``prog`` (kernels/csrc/csg_program.cuh:walk_smem_bytes): its decoded
+    op records and one list per warp, 16 bytes a record each, then the leaf
+    table ``F[0, f_box)`` behind up to 3 floats that give it the table's
+    own alignment, rounded up to 16 bytes.  Raises ``ValueError``, naming
+    the sizes, when a block cannot hold it."""
+    n_ops = prog.ops.shape[0]
+    lists = 16 * n_ops * (1 + warps)
+    table = 16 * ((prog.f_box + 3 + 3) // 4)
+    if lists + table > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"the program does not fit a block's shared memory: {n_ops} op "
+            f"records x 16 bytes x (1 + {warps} warps) = {lists} bytes and a "
+            f"leaf table of {prog.f_box} floats ({table} bytes) need "
+            f"{lists + table} bytes, more than {SMEM_PER_BLOCK}")
+    return lists + table
+
+
+def warp_records(prog: Program, check: torch.Tensor, warp: torch.Tensor,
+                 n_warps: int = None) -> torch.Tensor:
+    """The per-warp lists of the walk (csg_program.cuh:build_warp_list) as
+    an (n_warps, n_ops) bool mask: row w marks, in walk order, the records
+    the lanes of warp w can need: every ENTER, LEAVE and guard-less shape,
+    and each guarded shape whose box check passes for at least one of them.
+    ``check`` is the (n, n_boxed) guard bits of the live lanes, ``warp``
+    the (n,) warp of each (``n_warps`` defaults to the largest plus one)."""
+    if n_warps is None:
+        n_warps = int(warp.max()) + 1 if warp.numel() else 0
+    hit = torch.zeros((n_warps, prog.n_boxed), dtype=torch.int32,
+                      device=check.device).index_add_(0, warp, check.int()) > 0
+    box = np.where(prog.ops[:, 0] == OPC_SHAPE, prog.ops[:, 3], -1)
+    out = torch.ones((n_warps, box.shape[0]), dtype=torch.bool,
+                     device=check.device)
+    out[:, box >= 0] = hit[:, box[box >= 0]]
+    return out
+
+
 # -- plain versions of the kernel's map, guards and march ---------------------
 
 
@@ -325,15 +372,19 @@ def _xform(p: Vec3, r) -> Vec3:
     return rot3d_cs(q, *r[5:11])
 
 
-def make_map_program(prog: Program, vals, count=None):
+def make_map_program(prog: Program, vals, count=None, records=None):
     """``map(p, guard) -> (d, idx)``: the kernel's interpreter over the op
     list in vectorized torch.  ``vals`` is the table as Python floats (exact:
     they come from float32); ``guard`` is an (n, n_boxed) bool tensor.
+    ``records``, record indices in walk order (a row of ``warp_records``),
+    walks those records only, as a warp's list is walked.
 
     ``count``, a dict, accumulates the work the kernel does for these taps:
     ``"taps"`` (points mapped) and, per leaf kind, the leaf evaluations
     whose guard passes (device tensors, so counting does not synchronise)."""
     ops = prog.ops.tolist()
+    if records is not None:
+        ops = [ops[int(r)] for r in records]
     baked = prog.geometry == "baked"
     shapes = [op for op in ops if op[0] == OPC_SHAPE]
     kinds = sorted({op[1] for op in shapes})
