@@ -23,7 +23,7 @@ scene with 8 bounces (the JAX package's bench.py rows):
   each bounce's summed list length and list count at 1080p must be the
   plain model's (render/program.py:warp_records), and their means per
   bounce are printed with ptxas's registers and stack frame of the walk
-  kernels (K2's and K3's).
+  kernels (K2's, K6's, K3's and K4's).
 
 and the training path through the ray march K3 (march_rays): K3 against its
 plain version on scattered rays over three scenes and every mode, on a ray
@@ -55,7 +55,9 @@ and the modes of the same two kernels that the last bench.py rows run:
   RenderSession at 1920x1080 with one launch per frame, a 1080p plain frame
   held to the kernel's that counts the work, and kernel-only times at grid
   resolutions 8, 16 and 32 and a wider ``grid_tau`` beside K2's and K2b's,
-  with the grid march's warp statistics;
+  with the grid march's warp statistics; it walks K2's per-warp lists, and
+  their lengths per bounce at 1080p must be the plain frame's model of
+  them;
 * multi-frame accumulation (``render_accumulated_megakernel``) through K1
   and K2, bit for bit the frames one at a time;
 * debug 4 on K2's binary (its STATS kernel: per-warp march statistics)
@@ -106,12 +108,17 @@ edge_grad=True``, bench.py:462) at 1080p against its plain version, and
 whether K4's sums repeat bit for bit; three timed 1080p steps of each of
 the three configurations of bench.py:462, :424 and :433; K4's
 ``analytic_unboxed`` mode (bench.py:442) against its plain step in four
-cases and three timed 1080p steps of it; the flat ball's position recovered
+cases and three timed 1080p steps of it and of the march without it; the
+mean length of K4's per-warp lists per bounce at 1080p in each of the five
+configurations (phase 1's march, the edge term and the secondary rows'
+slope taps, the exclusion march); the flat ball's position recovered
 by ``optimize_to_target(fused=True, edge_grad=True)`` and the CLI's
 ``optimize --fused --edge-grad``.
 
-It prints timings beside the card's name and power limit, a kernels JSON
-line with each kernel's time, its plain version's and its bound, and
+It prints each phase's start and the time the phase before it took,
+timings beside the card's name and power limit, a kernels JSON line with
+each kernel's time, its plain version's and its bound (and, for the
+kernels that walk per-warp lists, their mean lengths per bounce), and
 {"ok": true, "device": {...}} last; any failed check raises.  Imports
 nothing of JAX.
 """
@@ -628,33 +635,52 @@ def _grad_probe_phase(gp, pf, fbm, sgm, spec, sp, all_counts, peak, gpu):
 
 
 def _short(name):
-    """A walk kernel's mangled name as ``kernel<template args>``."""
+    """A walk kernel's mangled name as ``kernel<template args>`` (a kernel
+    that is no template: its name); None for another kernel."""
     import re
 
-    m = re.search(r"\d+(megakernel_walk|march_rays)I(.+?)EEv", name)
-    args = re.findall(r"Lb(\d)", m.group(2))
-    return f"{m.group(1)}<{','.join(args)}>"
+    m = re.search(r"\d+(megakernel_walk|megakernel_grid|march_rays|"
+                  r"train_fused)(?:I(.+?)EEv|E)", name)
+    if m is None:
+        return None
+    args = re.findall(r"Lb(\d)", m.group(2) or "")
+    return f"{m.group(1)}<{','.join(args)}>" if args else m.group(1)
 
 
 def _ptxas_walk(build):
-    """ptxas's figures of the walk kernels (K2's megakernel_walk, K3's
-    march_rays), printed; returns them by short name."""
+    """ptxas's figures of the walk kernels (K2's megakernel_walk, K6's
+    megakernel_grid, K3's march_rays, K4's train_fused), printed; returns
+    them by short name."""
     figs = {_short(k): v for k, v in build.ptxas_figures().items()
-            if "megakernel_walk" in k or "march_rays" in k}
+            if _short(k)}
     for k, v in sorted(figs.items()):
         print(f"ptxas {k}: {v['registers']} registers, {v.get('stack', 0)} "
               f"bytes stack frame, {v.get('spill_stores', 0)} bytes spill "
               f"stores, {v.get('spill_loads', 0)} bytes spill loads")
-    if len(figs) != 12:
+    if len(figs) != 15:
         raise AssertionError(f"ptxas figures of {len(figs)} walk kernels, "
-                             f"expected 12")
+                             f"expected 15")
     return figs
 
 
+_PHASE = {}
+
+
 def _stamp(start, phase):
-    """Prints the seconds since ``start`` as ``phase`` begins: the script
-    must end well inside its time limit."""
-    print(f"[{time.perf_counter() - start:.1f} s] {phase}", flush=True)
+    """Prints the seconds since ``start`` as ``phase`` begins, and the
+    seconds the phase before it took: the script must end well inside its
+    time limit."""
+    now = time.perf_counter() - start
+    last = _PHASE.get("name")
+    took = f" ({last}: {now - _PHASE['at']:.1f} s)" if last else ""
+    _PHASE.update(name=phase, at=now)
+    print(f"[{now:.1f} s] {phase}{took}", flush=True)
+
+
+def _walk_means(stats):
+    """Mean list length per row of a list of (summed length, lists) rows;
+    0 where no list was built."""
+    return [a / b if b else 0.0 for a, b in stats]
 
 
 def _compare(name, kernel_img, plain_img, limit=SHARE_LIMIT, exact=False):
@@ -1028,12 +1054,40 @@ def _k4_swapped(tm, fn):
         tm.launch_train_fused = orig
 
 
-def _k4_plain(tm, count=None):
-    """A K4 stand-in that runs its plain version on the same inputs."""
+def _k4_plain(tm, count=None, walk_stats=None):
+    """A K4 stand-in that runs its plain version on the same inputs (with
+    ``walk_stats``, its model of K4's per-warp lists)."""
     def run(orig, *a, **kw):
-        return tm.fused_planes_plain(*a, count=count, **kw)
+        return tm.fused_planes_plain(*a, count=count, walk_stats=walk_stats,
+                                     **kw)
 
     return run
+
+
+def _k4_walked(walk_stats):
+    """A K4 stand-in that launches K4 with ``walk_stats``."""
+    def run(orig, *a, **kw):
+        return orig(*a, walk_stats=walk_stats, **kw)
+
+    return run
+
+
+def _k4_lists(name, kernel, plain, b1):
+    """K4's per-warp list figures (``walk_stats``: summed length and count
+    per group and bounce) against the plain model's, which must be equal;
+    returns the mean lengths per group and bounce, printed."""
+    k = kernel.view(3, b1, 2).tolist()
+    p = plain.view(3, b1, 2).tolist()
+    means = {g: _walk_means(rows) for g, rows in
+             zip(("march", "edge_slope", "exclusion"), k)}
+    print(f"check {name} per-warp lists against the plain model: "
+          f"{'equal' if k == p else 'DIFFER'}; mean length per bounce "
+          + "; ".join(f"{g} " + ", ".join(f"{m:.2f}" for m in v)
+                      for g, v in means.items()), flush=True)
+    if k != p:
+        raise AssertionError(f"{name}: K4's per-warp lists {k} differ from "
+                             f"the plain model's {p}")
+    return means
 
 
 def _fused_step(tm, spec, params, target, width, height, bounces, **kw):
@@ -1047,20 +1101,26 @@ def _fused_step(tm, spec, params, target, width, height, bounces, **kw):
 
 def _k4_main_check(tm, spec, params, target, label, kw):
     """One fused step at the main path's shape with K4 and one with its
-    plain version, held as the 320x180 cases are; the plain version also
-    counts K4's work for the bound.  Returns (image share off, max |gradient
+    plain version, held as the 320x180 cases are, K4's per-warp lists to
+    the plain model's; the plain version also counts K4's work for the
+    bound (and models the lists).  Returns (image share off, max |gradient
     diff|, plain ms with the counting, count)."""
     import torch
 
+    ws = [torch.zeros(6 * (BOUNCES + 1), dtype=torch.int64,
+                      device=target.device) for _ in "kp"]
     torch.cuda.synchronize()
-    k = _fused_step(tm, spec, params, target, MAIN_W, MAIN_H, BOUNCES, **kw)
+    with _k4_swapped(tm, _k4_walked(ws[0])):
+        k = _fused_step(tm, spec, params, target, MAIN_W, MAIN_H, BOUNCES,
+                        **kw)
     count = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with _k4_swapped(tm, _k4_plain(tm, count)):
+    with _k4_swapped(tm, _k4_plain(tm, count, ws[1])):
         p = _fused_step(tm, spec, params, target, MAIN_W, MAIN_H, BOUNCES, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    _k4_lists(f"K4 {MAIN_W}x{MAIN_H} {label}", *ws, BOUNCES + 1)
     share, _ = _compare(f"K4 {MAIN_W}x{MAIN_H} image, {label}", k[2], p[2],
                         exact=True)
     _grad_compare(f"K4 {MAIN_W}x{MAIN_H} gradient, {label}", k[:2], p[:2],
@@ -1072,8 +1132,9 @@ def _k4_main_check(tm, spec, params, target, label, kw):
 
 def _k4_checks(tm, cases, dev):
     """K4 against its plain version through the whole step at CHECK_W x
-    CHECK_H; each case must launch K4 once per sample.  Returns the max
-    |gradient diff| over the cases."""
+    CHECK_H, its per-warp lists against the plain model's; each case must
+    launch K4 once per sample.  Returns the max |gradient diff| over the
+    cases."""
     import numpy as np
     import torch
 
@@ -1081,22 +1142,54 @@ def _k4_checks(tm, cases, dev):
         (CHECK_H, CHECK_W, 3)).astype(np.float32) * 0.3).to(dev)
     max_err = 0.0
     for name, (spec, params), kw, bounces in cases:
+        ws = [torch.zeros(6 * (bounces + 1), dtype=torch.int64, device=dev)
+              for _ in "kp"]
         before = tm.LAUNCHES["train_fused"]
-        k = _fused_step(tm, spec, params, target, CHECK_W, CHECK_H, bounces,
-                        **kw)
+        with _k4_swapped(tm, _k4_walked(ws[0])):
+            k = _fused_step(tm, spec, params, target, CHECK_W, CHECK_H,
+                            bounces, **kw)
         torch.cuda.synchronize()
         if tm.LAUNCHES["train_fused"] - before != kw.get("spp", 1):
             raise AssertionError(f"{name}: train_fused was not launched once "
                                  f"per sample")
-        with _k4_swapped(tm, _k4_plain(tm)):
+        with _k4_swapped(tm, _k4_plain(tm, walk_stats=ws[1])):
             p = _fused_step(tm, spec, params, target, CHECK_W, CHECK_H,
                             bounces, **kw)
         _compare(f"{name} image", k[2], p[2], exact=True)
+        _k4_lists(name, *ws, bounces + 1)
         _grad_compare(f"{name} gradient, {CHECK_W}x{CHECK_H}, bounces "
                       f"{bounces}", k[:2], p[:2], FUSED_LOSS_REL,
                       FUSED_TOP_REL, FUSED_COS)
         max_err = max(max_err, float((k[1] - p[1]).abs().max()))
     return max_err
+
+
+def _k4_band_check(tm, spec, params, dev):
+    """K4 launched on a band of the CHECK_W x CHECK_H frame at a row offset
+    (its last row of blocks partial), march + edge + secondary, against its
+    plain version on the same band: the band's image bit for bit, its
+    per-warp lists equal to the plain model's."""
+    import numpy as np
+    import torch
+
+    from compute_path_tracer_tpu_torch.constants import DEFAULT_FOV
+
+    row0, crop = 92, 84
+    mode = tm.FusedMode(BOUNCES, True, True, True)
+    tables = tm.fused_tables(spec, params)
+    target = torch.from_numpy(np.random.default_rng(4).random(
+        (3, crop, CHECK_W)).astype(np.float32) * 0.3).to(dev)
+    args = (tables, target, 0, DEFAULT_FOV, CHECK_W / CHECK_H, row0)
+    kw = dict(width=CHECK_W, height=CHECK_H, mode=mode)
+    ws = [torch.zeros(6 * mode.b1, dtype=torch.int64, device=dev)
+          for _ in "kp"]
+    k = tm.launch_train_fused(*args, walk_stats=ws[0], **kw)
+    p = tm.fused_planes_plain(*args, walk_stats=ws[1], **kw)
+    torch.cuda.synchronize()
+    name = (f"K4 band rows {row0}-{row0 + crop} of {CHECK_W}x{CHECK_H}, march "
+            f"+ edge + secondary")
+    _compare(f"{name} image", k.col.T, p.col.T, exact=True)
+    _k4_lists(name, *ws, mode.b1)
 
 
 def _edge_cull_count(spec, params, dev):
@@ -1560,7 +1653,7 @@ def main() -> int:
     walk_k = walk.view(BOUNCES + 1, 2).tolist()
     walk_p = d4_stats.walk_lists().tolist()
     walk_p += [[0, 0]] * (BOUNCES + 1 - len(walk_p))
-    walk_mean = [a / b if b else 0.0 for a, b in walk_k]
+    walk_mean = _walk_means(walk_k)
     print(f"K2 per-warp lists at {MAIN_W}x{MAIN_H}, frame 0, per bounce "
           f"(summed length, lists): kernel {walk_k}, plain model {walk_p}; "
           f"mean list length "
@@ -1744,9 +1837,29 @@ def main() -> int:
           f"steps); lane steps {l_ex} exact, {l_ch} cheap; exact taps fill "
           f"{l_ex / max(32 * w_ex, 1):.4f} of their warps' lanes [{gpu}]")
     k6_count = {}
+    k6_stats = mk.MarchStats()
     k6_share, k6_main_err, k6_plain_ms = _main_shape_check(
-        mk, "megakernel_march", spec, sp, GRID, "K6 dist_grid", k6_count)
+        mk, "megakernel_march", spec, sp, GRID, "K6 dist_grid", k6_count,
+        k6_stats)
     k6_err = max(k6_err, k6_main_err)
+    # The same frame's per-warp lists, against the plain pass's model.
+    walk = torch.zeros(2 * (BOUNCES + 1), dtype=torch.int64, device=dev)
+    mk.launch_march(prog, table, torch.zeros_like(scratch), frame=0,
+                    last_clear=0, bounces=BOUNCES, fov=DEFAULT_FOV,
+                    aspect=MAIN_W / MAIN_H, debug=0, t_cull=True, grid=grid,
+                    walk_stats=walk)
+    walk_k = walk.view(BOUNCES + 1, 2).tolist()
+    walk_p = k6_stats.walk_lists().tolist()
+    walk_p += [[0, 0]] * (BOUNCES + 1 - len(walk_p))
+    k6_walk_mean = _walk_means(walk_k)
+    print(f"K6 per-warp lists at {MAIN_W}x{MAIN_H}, frame 0, per bounce "
+          f"(summed length, lists): kernel {walk_k}, plain model {walk_p}; "
+          f"mean list length "
+          + ", ".join(f"{m:.2f}" for m in k6_walk_mean)
+          + f" of {prog.ops.shape[0]} records [{gpu}]")
+    if walk_k != walk_p:
+        raise AssertionError("K6's per-warp lists differ from the plain model")
+    del k6_stats
     gcells = 16 ** 3
     k6_bound, k6_by = pf.bound_ms(
         frame_bytes + 4 * (prog.f_len + 9 + gcells),
@@ -2080,6 +2193,8 @@ def main() -> int:
          dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), BOUNCES),
     ), dev)
 
+    _k4_band_check(tm, *bench, dev)
+
     n, nd, nid, nnear, ndnear = _edge_cull_count(spec, sp, dev)
     print(f"K4 edge term, {CHECK_W}x{CHECK_H} primary rays: {nd} of {n} would "
           f"track another (d_min, t_min, i_min) under K2's per-thread t-cull "
@@ -2149,11 +2264,38 @@ def main() -> int:
 
     # K4's analytic_unboxed mode (bench.py:442), beside the same march
     # without it, and its plain step at 1080p for the work count.
-    _drive_fused(tm, (mk.LAUNCHES, km.LAUNCHES), spec, sp, gpu,
-                 "march, no edge", {})
-    k4b_launches, k4b_ms = _drive_fused(tm, (mk.LAUNCHES, km.LAUNCHES), spec,
-                                        sp, gpu, "analytic_unboxed",
-                                        FUSED_UNBOXED)[:2]
+    fused["march"] = _drive_fused(tm, (mk.LAUNCHES, km.LAUNCHES), spec, sp,
+                                  gpu, "march, no edge", {})
+    fused["analytic_unboxed"] = _drive_fused(
+        tm, (mk.LAUNCHES, km.LAUNCHES), spec, sp, gpu, "analytic_unboxed",
+        FUSED_UNBOXED)
+    k4b_launches, k4b_ms = fused["analytic_unboxed"][:2]
+    # K4's per-warp lists at 1080p, frame 0, per configuration and bounce:
+    # phase 1's march, the edge term (bounce 0) and the secondary rows'
+    # slope taps (bounces 1+), the exclusion march (bounces 1+).
+    k4_walk = {}
+    for label, fkw in FUSED_CONFIGS + (("march", {}),
+                                        ("analytic_unboxed", FUSED_UNBOXED)):
+        mode = tm.FusedMode(
+            BOUNCES, True, fkw.get("edge_grad", False),
+            fkw.get("edge_secondary", False), fkw.get("analytic_all", False),
+            analytic_unboxed=fkw.get("analytic_unboxed", False))
+        tables = tm.fused_tables(spec, sp, mode.analytic_all,
+                                 mode.analytic_unboxed)
+        ws = torch.zeros(6 * (BOUNCES + 1), dtype=torch.int64, device=dev)
+        tm.launch_train_fused(tables, tplanes, 0, DEFAULT_FOV, MAIN_W / MAIN_H,
+                              0, width=MAIN_W, height=MAIN_H, mode=mode,
+                              walk_stats=ws)
+        groups = ws.view(3, BOUNCES + 1, 2).tolist()
+        k4_walk[label] = {g: _walk_means(rows) for g, rows in
+                          zip(("march", "edge_slope", "exclusion"), groups)}
+        print(f"K4 per-warp lists at {MAIN_W}x{MAIN_H}, {label}, mean length "
+              f"per bounce: "
+              + "; ".join(f"{g} " + ", ".join(f"{m:.2f}" for m in v)
+                          for g, v in k4_walk[label].items())
+              + f" (of {tables.prog.ops.shape[0]} records, exclusion of "
+              f"{spec.n_shapes} shapes) [{gpu}]")
+    del tables
     k4b_share, main_err, k4b_plain_ms, k4b_count = _k4_main_check(
         tm, spec, sp, target0, "analytic_unboxed", FUSED_UNBOXED)
     k4b_err = max(k4b_err, main_err)
@@ -2253,7 +2395,7 @@ def main() -> int:
          "library_ms": None, "state": "redesigned, PR 11",
          "mean_list_per_bounce": walk_mean,
          "ptxas": {k: v for k, v in walk_ptxas.items()
-                   if k.startswith("megakernel")}},
+                   if k.startswith("megakernel_walk")}},
         {"name": "march_rays", "route": "cuda",
          "source": csrc + "march_rays.cu",
          "replaces": "compute_path_tracer_tpu/kernels/march.py:123",
@@ -2269,7 +2411,11 @@ def main() -> int:
          "launches": k4_launches, "max_abs_err": k4_err,
          "main_shape_share_off": k4_share, "ms": k4_ms,
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
-         "library_ms": None},
+         "library_ms": None, "state": "redesigned: per-warp walk",
+         "ms_by_config": {k: v[1] for k, v in fused.items()},
+         "mean_list_per_bounce": k4_walk,
+         "ptxas": {k: v for k, v in walk_ptxas.items()
+                   if k.startswith("train_fused")}},
         {"name": "megakernel_march (K2b: analytic_unboxed, omega)",
          "route": "cuda", "source": csrc + "megakernel_march.cu",
          "replaces": replaces, "launches": k2b_launches,
@@ -2283,7 +2429,8 @@ def main() -> int:
          "launches": k4b_launches, "max_abs_err": k4b_err,
          "main_shape_share_off": k4b_share, "ms": k4b_ms,
          "plain_ms": k4b_plain_ms, "bound_ms": k4b_bound, "bound_by": k4b_by,
-         "library_ms": None},
+         "library_ms": None, "state": "redesigned: per-warp walk",
+         "mean_list_per_bounce": k4_walk["analytic_unboxed"]},
     ] + [
         {"name": f"megakernel_analytic (K5: analytic_soa, {n} prims)",
          "route": "cuda", "source": csrc + "megakernel_analytic.cu",
@@ -2295,7 +2442,10 @@ def main() -> int:
          "launches": k6_launches, "max_abs_err": k6_err,
          "main_shape_share_off": k6_share, "ms": k6_ms,
          "plain_ms": k6_plain_ms, "bound_ms": k6_bound, "bound_by": k6_by,
-         "library_ms": None},
+         "library_ms": None, "state": "redesigned: per-warp walk",
+         "mean_list_per_bounce": k6_walk_mean,
+         "ptxas": {k: v for k, v in walk_ptxas.items()
+                   if k.startswith("megakernel_grid")}},
         {"name": "debug4", "route": "cuda",
          "source": csrc + "megakernel_march.cu", "replaces": replaces,
          "launches": d4_launches, "max_abs_err": d4_err,
@@ -2319,6 +2469,7 @@ def main() -> int:
              {"seq_ms": probe_runs["ilp_probe"][1]["rows"][
                  "sequential rays (dep-chain baseline)"]}))] + hw_rows
         + [wave_row] + grad_rows}
+    _stamp(start, "report")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(gpu)
     print(json.dumps(report))

@@ -4,18 +4,23 @@ checkouts on one card.
 Builds this checkout (B) and another one (A, a directory holding an
 unpacked commit, e.g. from ``git archive``) and times, in one process per
 run, alternated A B B A, the kernel launches of K1 (``analytic_all``), K2
-(faithful and baked t-culled), K2b (``analytic_unboxed``), K6
-(``dist_grid``), K3 (``march_rays`` as the training path calls it: t-culled
-with the normal, on the 1080p primary rays and on the rays that survive
-their bounce of a plain ``path_trace``) and K4 (the four fused
-configurations of ``bench.py``) at 1920x1080, 8 bounces, on the
-64-primitive benchmark scene, by CUDA events around each launch (a warm-up
-call first).  The frames and K3's t, ids and normals of every run are
-hashed: A's and B's must be the same bit for bit (K4 sums with atomics and
-is not compared).  It also tells, for each kernel function of the two
-builds, whether its SASS (``cuobjdump -sass``) is the same, so a change to
-shared device code can be seen to leave a kernel alone, and prints ptxas's
-registers and stack frame of K2's and K3's kernels in both.  Run on a
+(faithful and baked t-culled), K2b (``analytic_unboxed``, and ``omega``
+1.6: RELAX), debug 4, K6 (``dist_grid``), K3 (``march_rays`` as the
+training path calls it: t-culled with the normal, on the 1080p primary rays
+and on the rays that survive their bounce of a plain ``path_trace``) and K4
+(the five fused configurations of ``bench.py``) at 1920x1080, 8 bounces, on
+the 64-primitive benchmark scene, by CUDA events around each launch (a
+warm-up call first).  Every output of every run is hashed, and A's and B's
+must be the same bit for bit: the frames, K3's t, ids and normals, and
+K4's image and its (shape, channel) sums, which the kernel adds in a fixed
+order (the gradient's atomics are torch's, outside the kernel).  It also
+prints K6's warp statistics (``launch_march(grid_stats=)``) in both, and
+tells, for each kernel function of the two builds, whether its SASS
+(``cuobjdump -sass``) is the same, so a change to shared device code can be
+seen to leave a kernel alone (a kernel in one build only is matched to one
+of the other's with the same SASS: a rename), and prints ptxas's
+registers, stack frame and spills of the marching kernels (K2's, RELAX's,
+K6's, K3's, K4's) in both.  Run on a
 machine with an NVIDIA GPU and the CUDA toolkit:
 
     python -m compute_path_tracer_tpu_torch.benchmarks.kernel_ab OTHER_DIR
@@ -41,20 +46,21 @@ FRAMES = (("K1 analytic_all", dict(geometry="baked", analytic_all=True)),
           ("K2 faithful", dict(geometry="faithful")),
           ("K2", MARCH),
           ("K2b analytic_unboxed", dict(MARCH, analytic_unboxed=True)),
+          ("K2b omega 1.6", dict(MARCH, omega=1.6)),
+          ("K2 debug 4", dict(MARCH, debug=4)),
           ("K6 dist_grid", dict(MARCH, dist_grid=True)))
 STEPS = (("K4 analytic_all + edge_grad", dict(analytic_all=True, edge_grad=True)),
          ("K4 march + edge_grad", dict(edge_grad=True)),
          ("K4 march + edge_grad + edge_secondary",
           dict(edge_grad=True, edge_secondary=True)),
-         ("K4 analytic_unboxed", dict(analytic_unboxed=True)))
+         ("K4 analytic_unboxed", dict(analytic_unboxed=True)),
+         ("K4 march", {}))
 RAYS = ("K3 primary", "K3 survivors")
-# Outputs that must be bit-equal between A and B.
-SAME = ("K2 faithful", "K2", "K2b analytic_unboxed") + RAYS
 # The anonymous namespace's name in a mangled kernel name hashes the file.
 ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_[0-9]+_\w+?_cu_[0-9a-f]+")
-# K2's and K3's kernels, for ptxas's figures.
-WALKERS = re.compile(r"megakernel_walk|megakernel_marchILb[01]ELb[01]ELi0E|"
-                     r"march_rays")
+# The marching kernels, for ptxas's figures.
+WALKERS = re.compile(r"megakernel_walk|megakernel_grid|megakernel_relax|"
+                     r"march_rays|train_fused")
 
 
 def _sass(root: str) -> dict:
@@ -141,6 +147,8 @@ def _times(root: str, rays: str) -> dict:
     from compute_path_tracer_tpu_torch.kernels import march as km
     from compute_path_tracer_tpu_torch.kernels import megakernel as mk
     from compute_path_tracer_tpu_torch.kernels import train as tm
+    from compute_path_tracer_tpu_torch.render.baked import bake
+    from compute_path_tracer_tpu_torch.render.distgrid import make_dist_grid
     from compute_path_tracer_tpu_torch.render.program import (
         build_program, program_table)
     from compute_path_tracer_tpu_torch.scene import (
@@ -153,7 +161,9 @@ def _times(root: str, rays: str) -> dict:
     last = {}
 
     def launches(mod, attr, fn):
-        orig, events = getattr(mod, attr), []
+        """(sorted ms of the REPS timed launches of ``mod.attr`` under
+        ``fn``, fn's last result, the last launch's own result)."""
+        orig, events, outs = getattr(mod, attr), [], [None]
 
         def timed(*a, **kw):
             start = torch.cuda.Event(enable_timing=True)
@@ -162,6 +172,7 @@ def _times(root: str, rays: str) -> dict:
             out = orig(*a, **kw)
             end.record()
             events.append((start, end))
+            outs[0] = out
             return out
 
         fn()
@@ -173,31 +184,60 @@ def _times(root: str, rays: str) -> dict:
             torch.cuda.synchronize()
         finally:
             setattr(mod, attr, orig)
-        return sorted(a.elapsed_time(b) for a, b in events), res
+        return sorted(a.elapsed_time(b) for a, b in events), res, outs[0]
 
     out = {}
     for key, mode in FRAMES:
         launcher = ("launch_megakernel" if mode.get("analytic_all")
                     else "launch_march")
-        out[key], frame = launches(
+        out[key], frame, _ = launches(
             mk, launcher, lambda: mk.render_frame_megakernel(
                 cs.spec, params, width=W, height=H, bounces=BOUNCES, **mode))
         last[key] = _digest(frame)
     prog = build_program(cs.spec, "baked")
     with torch.no_grad():
         table = program_table(prog, params, True)
+        grid = make_dist_grid(cs.spec, bake(cs.spec, params))
+    grid_stats = torch.zeros(5, dtype=torch.int64, device=dev)
+    mk.launch_march(prog, table, torch.zeros((H, W, 3), device=dev), frame=0,
+                    last_clear=0, bounces=BOUNCES, fov=1.0, aspect=W / H,
+                    debug=0, t_cull=True, grid=grid, grid_stats=grid_stats)
     for key, c in torch.load(rays).items():
         c = [t.to(dev) for t in c]
-        out[key], (t, idx, n) = launches(km, "march_rays", lambda: km.march_rays(
-            prog, table, Vec3(*c[:3]), Vec3(*c[3:]), t_cull=True,
-            with_normal=True))
+        out[key], (t, idx, n), _ = launches(
+            km, "march_rays", lambda: km.march_rays(
+                prog, table, Vec3(*c[:3]), Vec3(*c[3:]), t_cull=True,
+                with_normal=True))
         last[key] = _digest(t, idx, *n)
     target = torch.zeros((H, W, 3), device=dev)
     for key, kw in STEPS:
         step = tm.make_fused_value_and_grad(cs.spec, target, width=W, height=H,
                                             bounces=BOUNCES, **kw)
-        out[key] = launches(tm, "launch_train_fused", lambda: step(params))[0]
-    return {"ms": out, "hash": last}
+        out[key], _, fused = launches(tm, "launch_train_fused",
+                                      lambda: step(params))
+        last[key] = _digest(*(v for v in fused if v is not None))
+    return {"ms": out, "hash": last, "grid_stats": grid_stats.tolist()}
+
+
+def sass_same(sass: dict) -> dict:
+    """{kernel function: whether its SASS is the same in builds "A" and
+    "B"} from each build's ``_sass``, printed.  A kernel in one build only
+    is matched to one of the other's, by that build alone, with the same
+    SASS: a rename."""
+    same = {}
+    for name in sorted(set(sass["A"]) | set(sass["B"])):
+        a, b = sass["A"].get(name), sass["B"].get(name)
+        if a is None or b is None:
+            mine, other = ("B", "A") if a is None else ("A", "B")
+            twin = [k for k, v in sass[other].items()
+                    if k not in sass[mine] and v[1] == (a or b)[1]]
+            same[name] = f"only {mine}" + (
+                f", the same SASS as {other}'s {twin[0]}" if twin else "")
+        else:
+            same[name] = ("same" if a[1] == b[1]
+                          else f"differs ({a[0]} -> {b[0]} instructions)")
+        print(f"SASS {name}: {same[name]}")
+    return same
 
 
 def _child(mode: str, root: str, *extra) -> tuple:
@@ -264,21 +304,20 @@ def main() -> int:
         summary[key] = {"A_ms": a, "B_ms": b, "B_over_A": b / a}
         print(f"{key}: A {a:.3f} ms, B {b:.3f} ms (medians of {2 * REPS}), "
               f"B/A {b / a:.4f} [{gpu}]")
+    for label in "AB":
+        print(f"K6 warp statistics {label} (iterations, with an exact tap, "
+              f"mixed, lane exact taps, lane cheap taps): "
+              f"{runs[label][0]['grid_stats']}")
     equal = {}
     for key in runs["A"][0]["hash"]:
         digests = {r["hash"][key] for label in "AB" for r in runs[label]}
         equal[key] = len(digests) == 1
         print(f"output {key}: {'A = B bit for bit' if equal[key] else 'DIFFERS'}")
-    same = {}
-    for name in sorted(set(sass["A"]) | set(sass["B"])):
-        a, b = sass["A"].get(name), sass["B"].get(name)
-        same[name] = ("only B" if a is None else "only A" if b is None
-                      else "same" if a[1] == b[1]
-                      else f"differs ({a[0]} -> {b[0]} instructions)")
-        print(f"SASS {name}: {same[name]}")
+    same = sass_same(sass)
     print(json.dumps({"gpu": gpu, "ms": summary, "bit_equal": equal,
+                      "grid_stats": {k: runs[k][0]["grid_stats"] for k in "AB"},
                       "ptxas": ptxas, "sass": same}))
-    return 0 if all(equal[k] for k in SAME) else 1
+    return 0 if all(equal.values()) else 1
 
 
 if __name__ == "__main__":

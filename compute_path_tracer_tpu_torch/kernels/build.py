@@ -188,6 +188,6 @@ def load_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.cpt_train_fused
     fn.argtypes = ([p, i, i, p, i, p, i, i, i, p, i, p, p, p, p, i] + [p] * 10
-                   + [i] * 7 + [f] * 3 + [i, f, f, p])
+                   + [i] * 7 + [f] * 3 + [i, f, f, i, p, p])
     fn.restype = ctypes.c_int
     return lib

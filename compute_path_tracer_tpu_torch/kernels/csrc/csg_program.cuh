@@ -14,16 +14,17 @@
 // from global memory at every map tap and tests each guarded shape's bit
 // per lane: a tap of the 64-primitive benchmark scene loads and skips some
 // 60 records whose box no lane of the warp hits, integer and load work the
-// operation count of app/profiling.py does not see.  K4, K6, the
-// over-relaxed march, debug 4, the probes and the wavefront kernel keep that
-// walk.  K2's plain march (debug 0-3, analytic_unboxed) and K3 take the
-// per-warp walk at the end of this file: the block stages the decoded
-// records and the leaf table in shared memory once (stage_walk), each warp
-// compacts the records its live lanes can need into a list after the
-// bounce's guards (build_warp_list), and the map and the normal walk that
-// list (map_walk, march_walk, normal_walk) with the same per-lane guard
-// tests and the same arithmetic in the same order, so every lane folds the
-// shapes it folded before and every frame and ray stays bit for bit.
+// operation count of app/profiling.py does not see.  The over-relaxed
+// march, debug 4, the probes and the wavefront kernel keep that walk.  K2's
+// plain march (debug 0-3, analytic_unboxed), its grid march (K6), K3 and
+// K4 take the per-warp walk at the end of this file: the block stages the
+// decoded records and the leaf table in shared memory once (stage_walk),
+// each warp compacts the records its live lanes can need into a list after
+// the bounce's guards (build_warp_list), and the map, the marches and the
+// gradient walk that list (map_walk, march_walk, march_grid_walk,
+// grad_walk) with the same per-lane guard tests and the same arithmetic in
+// the same order, so every lane folds the shapes it folded before and every
+// frame, ray and sum stays bit for bit.
 
 #pragma once
 
@@ -472,77 +473,6 @@ __device__ float grid_tap(const Grid& G, const float* __restrict__ F, V3 p) {
   return g;
 }
 
-// Warp statistics of the grid march, per warp-iteration of the march loop
-// (the lanes of __activemask(), so approximate where lanes of one warp run
-// the loop out of step): [0] warp-iterations, [1] those in which some lane
-// took an exact tap, [2] those in which lanes took both kinds of step, [3]
-// lane exact taps, [4] lane cheap taps.
-struct GridStats {
-  unsigned long long v[5];
-};
-
-__device__ __forceinline__ void grid_stats_add(GridStats& st, bool near) {
-  const unsigned act = __activemask();
-  const unsigned nb = __ballot_sync(act, near);
-  if (((threadIdx.x + threadIdx.y * blockDim.x) & 31) == __ffs(act) - 1) {
-    const int n_near = __popc(nb), n_act = __popc(act);
-    st.v[0] += 1;
-    st.v[1] += n_near > 0;
-    st.v[2] += n_near > 0 && n_near < n_act;
-    st.v[3] += n_near;
-    st.v[4] += n_act - n_near;
-  }
-}
-
-// The distance-grid march of one ray (cast_grid; JAX _march_while_grid with
-// the tile reduced to this ray): each iteration taps the grid for g; with g
-// < tau one exact tap of the t-culled map, stepping min(|d|, max(m - t,
-// MHD)), else a step of g with no map tap.  Only exact taps count against
-// kSteps; at most kSteps + kGridExtraIters iterations.  A hit needs an exact
-// tap with |d| < MHD.  A cheap step can carry t past the nearest interval
-// entry m, so m is re-read before an exact tap whenever t >= m.  Returns t,
-// and in idx the id of the last exact tap (-1 when far or none); a ray still
-// marching when the iterations run out takes the id of a map tap under the
-// full guards at its previous t (JAX _final_idx).  With STATS, adds the
-// warp statistics to st.
-template <bool BAKED, bool STATS>
-__device__ float march_grid(const Scene& S, const Guards<true>& g, const Grid& G, V3 ro, V3 rd,
-                            int& idx, float t_cap, GridStats& st) {
-  float t = 0.0f, tp = 0.0f;
-  float m = -INFINITY;
-  int last = -1, exact = 0;
-  idx = -1;
-  for (int it = 0; it < kSteps + kGridExtraIters; ++it) {
-    const V3 p = v3(ro.x + rd.x * t, ro.y + rd.y * t, ro.z + rd.z * t);
-    const float gv = grid_tap(G, S.F, p);
-    const bool near = gv < G.tau;
-    if constexpr (STATS) grid_stats_add(st, near);
-    float nt;
-    bool hit = false;
-    if (near) {
-      if (t >= m) m = next_entry(S, g, t);
-      int mi;
-      const float d = map_scene<BAKED, true, true>(S, g, p, t, mi);
-      const float ad = fabsf(d);
-      nt = t + nan_min(ad, nan_max(m - t, kMhd));
-      hit = ad < kMhd;
-      last = mi;
-      ++exact;
-    } else {
-      nt = t + gv;
-    }
-    nt = nan_min(nt, t_cap);
-    const bool far = nt > kFar;
-    idx = far ? -1 : last;
-    tp = t;
-    t = nt;
-    if (hit || far || exact >= kSteps || nt >= t_cap) return t;
-  }
-  map_scene<BAKED, true, false>(S, g, v3(ro.x + rd.x * tp, ro.y + rd.y * tp, ro.z + rd.z * tp),
-                                0.0f, idx);
-  return t;
-}
-
 // The closed-form cap of analytic_unboxed over the program's cap list
 // (kernels/megakernel.py:make_analytic_unboxed): the nearest hit t_cap (kBig
 // when none) and its record j (-1); a strict < keeps the earlier shape.
@@ -629,7 +559,7 @@ __device__ V3 calc_normal(const Scene& S, const Guards<TCULL>& g, V3 p) {
   return normalize_safe(calc_grad<BAKED, TCULL>(S, g, p));
 }
 
-// -- the per-warp walk (K2's plain march, K3) -------------------------------
+// -- the per-warp walk (K2's plain march, K6, K3, K4) -----------------------
 //
 // Shared memory of a block of W warps, from its base (16-byte aligned):
 //   n_ops decoded records (int4), the program in walk order;
@@ -719,21 +649,29 @@ __device__ __forceinline__ Walk stage_walk(const Scene& S, int f_leaf, int warps
   return Walk{prog, smem + n_ops, F, n_ops};
 }
 
-// The list of warp `warp` for this bounce: the records, in walk order, that
-// a live lane of the warp can need (every ENTER, LEAVE and guard-less shape,
-// and each guarded shape whose box bit is set for at least one live lane).
-// A warp collective: all 32 lanes call it, `live` or not; a lane that is not
-// live adds no bits.  The OR of the lanes' guard words ends with lane w
-// holding word w; then each 32 records are compacted by a ballot prefix.
-// Returns the list's length, the same in every lane.
+// The OR of a warp's guard words over its live lanes: lane w ends holding
+// word w.  A warp collective: all 32 lanes call it, `live` or not; a lane
+// that is not live adds no bits.
 template <bool TCULL>
-__device__ __forceinline__ int build_warp_list(const Walk& P, int n_boxed, const Guards<TCULL>& g,
-                                               bool live, int warp, int lane) {
+__device__ __forceinline__ uint32_t warp_box_word(int n_boxed, const Guards<TCULL>& g, bool live,
+                                                  int lane) {
   uint32_t word_of_lane = 0u;
   for (int w = 0; w * 32 < n_boxed; ++w) {
     const uint32_t v = __reduce_or_sync(kFullWarp, live ? g.bits[w] : 0u);
     if (lane == w) word_of_lane = v;
   }
+  return word_of_lane;
+}
+
+// The list of warp `warp` for this bounce: the records, in walk order, that
+// a live lane of the warp can need (every ENTER, LEAVE and guard-less shape,
+// and each guarded shape whose box bit is set for at least one live lane).
+// A warp collective (warp_box_word); then each 32 records are compacted by
+// a ballot prefix.  Returns the list's length, the same in every lane.
+template <bool TCULL>
+__device__ __forceinline__ int build_warp_list(const Walk& P, int n_boxed, const Guards<TCULL>& g,
+                                               bool live, int warp, int lane) {
+  const uint32_t word_of_lane = warp_box_word(n_boxed, g, live, lane);
   int4* __restrict__ list = P.lists + warp * P.n_ops;
   __syncwarp();  // no lane still reads the previous bounce's list
   int n = 0;
@@ -750,6 +688,16 @@ __device__ __forceinline__ int build_warp_list(const Walk& P, int n_boxed, const
   }
   __syncwarp();
   return n;
+}
+
+// Adds a warp's list length n to row i of walk_stats (when not null): the
+// sum of the lengths, then the number of lists.
+__device__ __forceinline__ void record_list(unsigned long long* __restrict__ walk_stats, int i,
+                                            int n, int lane) {
+  if (walk_stats != nullptr && lane == 0) {
+    atomicAdd(walk_stats + 2 * i, static_cast<unsigned long long>(n));
+    atomicAdd(walk_stats + 2 * i + 1, 1ull);
+  }
 }
 
 // map_scene over a warp's list: map_ops' GUARDED arithmetic, record for
@@ -838,10 +786,12 @@ __device__ float march_walk(const Scene& S, const int4* __restrict__ list, int n
   return t;
 }
 
-// calc_normal() over a warp's list: 6 taps under the full guards.
+// calc_grad() over a warp's list: the 6 taps under the full guards, before
+// normalisation.
 template <bool BAKED, bool TCULL>
-__device__ V3 normal_walk(const int4* __restrict__ list, int n, const float* __restrict__ F,
-                          const Guards<TCULL>& g, V3 p) {
+__device__ __forceinline__ V3 grad_walk(const int4* __restrict__ list, int n,
+                                        const float* __restrict__ F, const Guards<TCULL>& g,
+                                        V3 p) {
   const float e = kNormalEps;
   int id;
   float d[6];
@@ -852,7 +802,105 @@ __device__ V3 normal_walk(const int4* __restrict__ list, int n, const float* __r
               p.z + (k / 2 == 2 ? off : 0.0f));
     d[k] = map_walk<BAKED, TCULL, false>(list, n, F, g, q, 0.0f, id);
   }
-  return normalize_safe(v3(d[0] - d[1], d[2] - d[3], d[4] - d[5]));
+  return v3(d[0] - d[1], d[2] - d[3], d[4] - d[5]);
+}
+
+// calc_normal() over a warp's list.
+template <bool BAKED, bool TCULL>
+__device__ V3 normal_walk(const int4* __restrict__ list, int n, const float* __restrict__ F,
+                          const Guards<TCULL>& g, V3 p) {
+  return normalize_safe(grad_walk<BAKED, TCULL>(list, n, F, g, p));
+}
+
+// Warp statistics of the grid march (K6's GRID_STATS), per iteration of the
+// warp's march loop: [0] iterations (at least one lane still marching),
+// [1] those in which some lane took an exact tap, [2] those in which the
+// marching lanes took both kinds of step, [3] lane exact taps, [4] lane
+// cheap taps.  Full-warp ballots over the lanes still marching, so every
+// lane of the warp must call it, and the counts do not depend on how the
+// compiler reconverges; lane 0 keeps them.
+struct GridStats {
+  unsigned long long v[5];
+};
+
+__device__ __forceinline__ void grid_stats_add(GridStats& st, bool marching, bool near, int lane) {
+  const unsigned act = __ballot_sync(kFullWarp, marching);
+  const unsigned nb = __ballot_sync(kFullWarp, near);
+  if (lane == 0) {
+    const int n_near = __popc(nb), n_act = __popc(act);
+    st.v[0] += 1;
+    st.v[1] += n_near > 0;
+    st.v[2] += n_near > 0 && n_near < n_act;
+    st.v[3] += n_near;
+    st.v[4] += n_act - n_near;
+  }
+}
+
+// The distance-grid march of one ray (cast_grid; JAX _march_while_grid with
+// the tile reduced to this ray) over a warp's list: each iteration taps the
+// grid for g; with g < tau one exact tap of the t-culled map, stepping
+// min(|d|, max(m - t, MHD)), else a step of g with no map tap.  Only exact
+// taps count against kSteps; at most kSteps + kGridExtraIters iterations.
+// A hit needs an exact tap with |d| < MHD.  A cheap step can carry t past
+// the nearest interval entry m, so m is re-read before an exact tap
+// whenever t >= m.  Returns t, and in idx the id of the last exact tap (-1
+// when far or none); a ray still marching when the iterations run out
+// takes the id of a map tap under the full guards at its previous t (JAX
+// _final_idx).  The grid tap and the near/cheap decision stay per lane; the
+// list is read only inside map_walk, which holds no collective.  With
+// STATS the warp marches in lockstep: every lane, live or not, runs the
+// loop while any lane of the warp marches (a lane not live, or done, taps
+// nothing), and grid_stats_add counts each iteration into st; a live
+// lane's t and idx are the same as without.
+template <bool STATS>
+__device__ float march_grid_walk(const Scene& S, const int4* __restrict__ list, int n,
+                                 const float* __restrict__ F, const Guards<true>& g,
+                                 const Grid& G, V3 ro, V3 rd, int& idx, float t_cap, bool live,
+                                 int lane, GridStats& st) {
+  float t = 0.0f, tp = 0.0f;
+  float m = -INFINITY;
+  int last = -1, exact = 0;
+  bool marching = live;
+  idx = -1;
+  for (int it = 0; it < kSteps + kGridExtraIters; ++it) {
+    if constexpr (STATS) {
+      if (!__any_sync(kFullWarp, marching)) return t;
+    }
+    const V3 p = v3(ro.x + rd.x * t, ro.y + rd.y * t, ro.z + rd.z * t);
+    const float gv = marching ? grid_tap(G, S.F, p) : 0.0f;
+    const bool near = marching && gv < G.tau;
+    if constexpr (STATS) grid_stats_add(st, marching, near, lane);
+    if (!marching) continue;
+    float nt;
+    bool hit = false;
+    if (near) {
+      if (t >= m) m = next_entry(S, g, t);
+      int mi;
+      const float d = map_walk<true, true, true>(list, n, F, g, p, t, mi);
+      const float ad = fabsf(d);
+      nt = t + nan_min(ad, nan_max(m - t, kMhd));
+      hit = ad < kMhd;
+      last = mi;
+      ++exact;
+    } else {
+      nt = t + gv;
+    }
+    nt = nan_min(nt, t_cap);
+    const bool far = nt > kFar;
+    idx = far ? -1 : last;
+    tp = t;
+    t = nt;
+    if (hit || far || exact >= kSteps || nt >= t_cap) {
+      if constexpr (!STATS) return t;
+      marching = false;
+    }
+  }
+  if (marching) {
+    map_walk<true, true, false>(list, n, F, g,
+                                v3(ro.x + rd.x * tp, ro.y + rd.y * tp, ro.z + rd.z * tp), 0.0f,
+                                idx);
+  }
+  return t;
 }
 
 }  // namespace

@@ -22,8 +22,8 @@
 // fill: a warp marches until its slowest ray is done, and lanes fill 37 %
 // of their warps' march iterations.
 //
-// The plain march (megakernel_walk: debug 0-3, analytic_unboxed) cuts the
-// walk.  The block stages the decoded op records and the leaf table in
+// The plain march (megakernel_walk: debug 0-3, analytic_unboxed) and the
+// grid march (megakernel_grid, K6) cut the walk.  The block stages the decoded op records and the leaf table in
 // shared memory once (csg_program.cuh:stage_walk, 16-byte cp.async); each
 // bounce, after the guards, each warp ORs its live lanes' box bits and
 // compacts the records they can need into its own list in shared memory
@@ -35,8 +35,8 @@
 // to the end: out-of-range and finished lanes run on as not live, and the
 // bounce loop runs while any lane of the warp is alive.  The guard bits and
 // t-cull intervals stay in per-thread local memory.  The over-relaxed
-// march, the grid march (K6) and debug 4 keep megakernel_march's walk of
-// the whole program from global memory, unchanged.
+// march (megakernel_relax) and debug 4 keep the walk of the whole program
+// from global memory, unchanged.
 //
 // A program, not generated code: the CSG tree arrives as the int32 op list
 // of render/program.py (ENTER / SHAPE / LEAVE records) and its per-frame
@@ -77,17 +77,19 @@
 //   takes that shape's id and exact normal instead of the 6 taps.  On the
 //   benchmark scene that removes the ground plane and the two lamps from
 //   every map tap of every ray.
-// * omega != 1 (the RELAX instantiation, :785-820) over-relaxes the t-culled
+// * omega != 1 (megakernel_relax; JAX :785-820) over-relaxes the t-culled
 //   march with the sphere-overlap revert (csg_program.cuh:march_relax);
 //   omega == 1 runs the march above, unchanged.
-// * dist_grid (K6; the GRID instantiation, baked geometry with t_cull only:
+// * dist_grid (K6; megakernel_grid, baked geometry with t_cull only:
 //   _march_while_grid :843, its grid tap render/distgrid.py:187) marches on
-//   the frame's baked lower-bound grid (csg_program.cuh:march_grid): a ray
-//   whose grid bound is at least tau steps by it with no map tap, a nearer
-//   one takes K2's t-culled exact tap.  What bounds it is the same as K2's:
-//   the exact taps it keeps.  JAX decides per 8,192-lane tile whether the
-//   exact map runs; here each thread decides, and a warp pays for the exact
-//   tap when any of its 32 lanes is near (GRID_STATS counts how often).
+//   the frame's baked lower-bound grid (csg_program.cuh:march_grid_walk): a
+//   ray whose grid bound is at least tau steps by it with no map tap, a
+//   nearer one takes K2's t-culled exact tap over the warp's list, and the
+//   normal is K2's.  What bounds it is the same as K2's: the exact taps it
+//   keeps.  JAX decides per 8,192-lane tile whether the exact map runs;
+//   here each thread decides, and a warp pays for the exact tap when any of
+//   its 32 lanes is near (megakernel_grid<true> counts how often, in a
+//   lockstep form of the same march).
 //   The grid (16 KiB at 16^3) is read with __ldg and stays in L1 and L2.
 //   The cheap step's fallback root is the build's -prec-sqrt=true sqrtf,
 //   the plain version's vecmath.sqrt_rn.
@@ -103,7 +105,7 @@
 //   out-of-range or dead lane runs on as done, each loop runs while any lane
 //   of the warp needs it, and each count is one __ballot_sync over the full
 //   warp, so the counts do not depend on how the compiler reconverges
-//   (__activemask, as GRID_STATS uses, would).  Every pixel of a warp gets
+//   (__activemask would).  Every pixel of a warp gets
 //   the warp's (x, y, z), held bit for bit by kernels/megakernel.py's
 //   MarchStats.  It costs a ballot per shape per tap and a warp-uniform
 //   loop, so it is a diagnostic, not a path to time frames with.
@@ -116,16 +118,13 @@ constexpr int kBlockY = 16;
 
 constexpr int kWarps = kBlockX * kBlockY / 32;
 
-// The marches that keep the walk of the whole program from global memory:
-// over-relaxed (RELAX), or on the distance grid (GRID, and GRID_STATS, which
-// also counts warp statistics).  The plain march is megakernel_walk's.
-enum MarchMode { RELAX = 1, GRID = 2, GRID_STATS = 3 };
-
-template <bool BAKED, bool TCULL, int MODE>
+// The march that keeps the walk of the whole program from global memory:
+// the over-relaxed one (omega != 1).  The plain march and the grid march
+// are megakernel_walk's and megakernel_grid's.
+template <bool BAKED, bool TCULL>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-megakernel_march(Scene S, float* __restrict__ accum, int width, int height, int frame,
-                 int last_clear, int bounces, float fov, float aspect, int debug, float omega,
-                 Grid G, unsigned long long* __restrict__ stats) {
+megakernel_relax(Scene S, float* __restrict__ accum, int width, int height, int frame,
+                 int last_clear, int bounces, float fov, float aspect, int debug, float omega) {
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   if (x >= width || y >= height) return;
@@ -137,7 +136,9 @@ megakernel_march(Scene S, float* __restrict__ accum, int width, int height, int 
   V3 col;
 
   // No launch brings debug 1 or 2 here any more (megakernel_walk takes
-  // them); the branch stays so that these kernels compile as they did.
+  // them), but the branch stays: without it the kernel compiles to other
+  // code (60 registers for 48, no spills) that takes 12 % longer on an
+  // H100 (PERF.md).
   if (debug == 1 || debug == 2) {
     float dbg = compute_guards(S, ro, rd, g);
     int idx;
@@ -159,19 +160,13 @@ megakernel_march(Scene S, float* __restrict__ accum, int width, int height, int 
     V3 ret = v3(0.0f, 0.0f, 0.0f);
     V3 thr = v3(1.0f, 1.0f, 1.0f);
     int i_exit = -1;
-    GridStats st = {};
     for (int i = 0; i <= bounces; ++i) {
       compute_guards(S, ro, rd, g);
       float t_cap = INFINITY;
       int j_cap = -1;
       if (S.n_cap > 0) cap_scan(S, ro, rd, t_cap, j_cap);
       int idx;
-      float t;
-      if constexpr (MODE == RELAX) {
-        t = march_relax<BAKED>(S, g, ro, rd, idx, omega, t_cap);
-      } else {
-        t = march_grid<BAKED, MODE == GRID_STATS>(S, g, G, ro, rd, idx, t_cap, st);
-      }
+      float t = march_relax<BAKED>(S, g, ro, rd, idx, omega, t_cap);
       if (t > kFar) {
         i_exit = i;
         break;
@@ -191,25 +186,10 @@ megakernel_march(Scene S, float* __restrict__ accum, int width, int height, int 
       }
     }
     if (i_exit < 0) i_exit = bounces + 1;
-    if constexpr (MODE == GRID_STATS) {
-      for (int k = 0; k < 5; ++k) {
-        if (st.v[k]) atomicAdd(stats + k, st.v[k]);
-      }
-    }
     // debug 3: the bounce heatmap (test_compute.glsl:163).
     col = debug == 3 ? splat((float)i_exit / (float)bounces) : ret;
   }
   write_pixel(accum, x, y, width, col, last_clear, debug);
-}
-
-// Adds a warp's list length at bounce i to walk_stats (when not null): the
-// sum of the lengths, then the number of lists.
-__device__ __forceinline__ void record_list(unsigned long long* __restrict__ walk_stats, int i,
-                                            int n, int lane) {
-  if (walk_stats != nullptr && lane == 0) {
-    atomicAdd(walk_stats + 2 * i, static_cast<unsigned long long>(n));
-    atomicAdd(walk_stats + 2 * i + 1, 1ull);
-  }
 }
 
 // The plain march of debug 0-3 (and analytic_unboxed's cap) over per-warp
@@ -303,6 +283,80 @@ megakernel_walk(Scene S, int f_leaf, float* __restrict__ accum, int width, int h
   if (inrange) write_pixel(accum, x, y, width, col, last_clear, debug);
 }
 
+// The grid march (K6; baked, t-culled, debug 0 and 3) over megakernel_walk's
+// per-warp lists, the same frame with march_grid_walk in place of
+// march_walk.  With STATS it adds the grid march's warp statistics to
+// grid_stats (5 zeroed uint64); walk_stats as megakernel_walk's.
+template <bool STATS>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+megakernel_grid(Scene S, int f_leaf, float* __restrict__ accum, int width, int height, int frame,
+                int last_clear, int bounces, float fov, float aspect, int debug, Grid G,
+                unsigned long long* __restrict__ grid_stats,
+                unsigned long long* __restrict__ walk_stats) {
+  extern __shared__ int4 walk_smem[];
+  const int tid = threadIdx.x + kBlockX * threadIdx.y;
+  const int warp = tid >> 5, lane = tid & 31;
+  const Walk P = stage_walk(S, f_leaf, kWarps, walk_smem, tid, kBlockX * kBlockY);
+  const int4* __restrict__ list = P.lists + warp * P.n_ops;
+  const int x = blockIdx.x * kBlockX + threadIdx.x;
+  const int y = blockIdx.y * kBlockY + threadIdx.y;
+  const bool inrange = x < width && y < height;
+
+  uint32_t rng = 0u;
+  V3 ro = splat(0.0f), rd = splat(0.0f);
+  if (inrange) primary_ray(x, y, frame, width, height, fov, aspect, rng, ro, rd);
+  Guards<true> g;
+  V3 ret = v3(0.0f, 0.0f, 0.0f);
+  V3 thr = v3(1.0f, 1.0f, 1.0f);
+  int i_exit = -1;
+  bool alive = inrange;
+  GridStats st = {};
+  for (int i = 0; i <= bounces; ++i) {
+    if (!__any_sync(kFullWarp, alive)) break;
+    float t_cap = INFINITY;
+    int j_cap = -1;
+    if (alive) {
+      compute_guards(S, ro, rd, g);
+      if (S.n_cap > 0) cap_scan(S, ro, rd, t_cap, j_cap);
+    }
+    const int n = build_warp_list(P, S.n_boxed, g, alive, warp, lane);
+    record_list(walk_stats, i, n, lane);
+    // STATS marches the warp in lockstep, live lanes or not.
+    if (!STATS && !alive) continue;
+    int idx;
+    const float t = march_grid_walk<STATS>(S, list, n, P.F, g, G, ro, rd, idx, t_cap, alive,
+                                           lane, st);
+    if (!alive) continue;
+    if (t > kFar) {
+      i_exit = i;
+      alive = false;
+      continue;
+    }
+    V3 hit = ro + rd * t;
+    V3 nrm;
+    if (t >= t_cap) {
+      idx = cap_id(S, j_cap);
+      nrm = cap_normal(S, j_cap, hit);
+    } else {
+      nrm = normal_walk<true, true>(list, n, P.F, g, hit);
+    }
+    const float* mt = idx >= 0 ? S.F + S.f_mat + kMatSize * idx : nullptr;
+    if (!scatter(rng, ro, rd, ret, thr, hit, nrm, mt)) {
+      i_exit = i;
+      alive = false;
+    }
+  }
+  if constexpr (STATS) {
+    for (int k = 0; k < 5; ++k) {
+      if (st.v[k]) atomicAdd(grid_stats + k, st.v[k]);
+    }
+  }
+  if (i_exit < 0) i_exit = bounces + 1;
+  // debug 3: the bounce heatmap (test_compute.glsl:163).
+  const V3 col = debug == 3 ? splat((float)i_exit / (float)bounces) : ret;
+  if (inrange) write_pixel(accum, x, y, width, col, last_clear, debug);
+}
+
 // Debug 4: the frame's paths as debug 0 traces them, with the warp's
 // counters (csg_program.cuh:WarpStats) written to each in-range pixel.
 template <bool BAKED, bool TCULL>
@@ -360,32 +414,50 @@ void launch_stats(const Scene& S, float* accum, int width, int height, int frame
                                                              bounces, fov, aspect);
 }
 
-template <bool BAKED, bool TCULL, int MODE>
-void launch(const Scene& S, float* accum, int width, int height, int frame, int last_clear,
-            int bounces, float fov, float aspect, int debug, float omega, const Grid& G,
-            unsigned long long* stats, cudaStream_t stream) {
+template <bool BAKED, bool TCULL>
+void launch_relax(const Scene& S, float* accum, int width, int height, int frame, int last_clear,
+                  int bounces, float fov, float aspect, int debug, float omega,
+                  cudaStream_t stream) {
   dim3 block(kBlockX, kBlockY);
   dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
-  megakernel_march<BAKED, TCULL, MODE><<<grid, block, 0, stream>>>(
-      S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, stats);
+  megakernel_relax<BAKED, TCULL><<<grid, block, 0, stream>>>(
+      S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega);
+}
+
+// Checks a walk kernel's dynamic shared memory against the program's
+// (walk_smem_bytes) and raises the kernel's limit above 48 KiB.
+template <typename Kernel>
+cudaError_t walk_smem_ready(Kernel kernel, const Scene& S, int f_leaf, int smem_bytes) {
+  if (smem_bytes != walk_smem_bytes(S.n_ops, f_leaf, kWarps)) return cudaErrorInvalidValue;
+  if (smem_bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
 }
 
 template <bool BAKED, bool TCULL>
 int launch_walk(const Scene& S, int f_leaf, int smem_bytes, float* accum, int width, int height,
                 int frame, int last_clear, int bounces, float fov, float aspect, int debug,
                 unsigned long long* walk_stats, cudaStream_t stream) {
-  if (smem_bytes != walk_smem_bytes(S.n_ops, f_leaf, kWarps)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        megakernel_walk<BAKED, TCULL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t err = walk_smem_ready(megakernel_walk<BAKED, TCULL>, S, f_leaf, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 block(kBlockX, kBlockY);
   dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
   megakernel_walk<BAKED, TCULL><<<grid, block, smem_bytes, stream>>>(
       S, f_leaf, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, walk_stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool STATS>
+int launch_grid(const Scene& S, int f_leaf, int smem_bytes, float* accum, int width, int height,
+                int frame, int last_clear, int bounces, float fov, float aspect, int debug,
+                const Grid& G, unsigned long long* grid_stats, unsigned long long* walk_stats,
+                cudaStream_t stream) {
+  const cudaError_t err = walk_smem_ready(megakernel_grid<STATS>, S, f_leaf, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 block(kBlockX, kBlockY);
+  dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
+  megakernel_grid<STATS><<<grid, block, smem_bytes, stream>>>(
+      S, f_leaf, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, G,
+      grid_stats, walk_stats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -403,11 +475,12 @@ int launch_walk(const Scene& S, int f_leaf, int smem_bytes, float* accum, int wi
 // 0 or 3 and omega 1.  A non-null grid_stats (5 zeroed uint64) takes the
 // grid march's warp statistics.  Debug 4 (omega 1, no grid) writes the
 // warp statistics of the march to the accumulator instead of a frame.
-// The plain march (debug 0-3, omega 1, no grid) runs megakernel_walk with
-// smem_bytes of dynamic shared memory, which must be walk_smem_bytes(n_ops,
-// f_box, 8) (render/program.py:walk_smem_bytes); a non-null walk_stats
-// (debug 0 or 3; 2 (bounces + 1) zeroed uint64) takes each bounce's summed
-// list length and list count.
+// The plain march (debug 0-3, omega 1, no grid) and the grid march run
+// megakernel_walk and megakernel_grid with smem_bytes of dynamic shared
+// memory, which must be walk_smem_bytes(n_ops, f_box, 8)
+// (render/program.py:walk_smem_bytes); a non-null walk_stats (debug 0 or
+// 3; 2 (bounces + 1) zeroed uint64) takes each bounce's summed list length
+// and list count.
 extern "C" int cpt_megakernel_march(const int* code, int n_ops, const float* table,
                                     int n_boxed, int f_box, int f_mat, int n_cap, int baked,
                                     int t_cull, float omega, float* accum, int width, int height,
@@ -442,16 +515,16 @@ extern "C" int cpt_megakernel_march(const int* code, int n_ops, const float* tab
     if (!baked || !t_cull || relax || debug == 1 || debug == 2 || gx < 1 || gy < 1 || gz < 1) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    if (grid_stats != nullptr) {
-      launch<true, true, GRID_STATS>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, grid_stats, st);
-    } else {
-      launch<true, true, GRID>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
-    }
+    auto fn = grid_stats != nullptr ? &launch_grid<true> : &launch_grid<false>;
+    return fn(S, f_box, smem_bytes, accum, width, height, frame, last_clear, bounces, fov, aspect,
+              debug, G, grid_stats, walk_stats, st);
   } else if (relax) {
     if (baked) {
-      launch<true, true, RELAX>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
+      launch_relax<true, true>(S, accum, width, height, frame, last_clear, bounces, fov, aspect,
+                               debug, omega, st);
     } else {
-      launch<false, true, RELAX>(S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega, G, nullptr, st);
+      launch_relax<false, true>(S, accum, width, height, frame, last_clear, bounces, fov, aspect,
+                                debug, omega, st);
     }
   } else {
     auto walk = baked ? (t_cull ? &launch_walk<true, true> : &launch_walk<true, false>)

@@ -43,9 +43,20 @@
 // the segment planes in the map-vjp mode), so bandwidth is idle.  Each
 // thread keeps its per-bounce state (about 90 bytes a bounce) and one
 // bounce's guards (2 KB) in local memory, L1-resident for a block of 128
-// threads; no global scratch is allocated for it.  First version: simple
-// and right; no shared-memory staging of the tables, no warp-level culling.
+// threads; no global scratch is allocated for it.
 //
+// Every map tap walks a per-warp list, as K2's (csg_program.cuh): the
+// block stages the decoded program and the leaf table in shared memory
+// behind the warps' accumulators, and each warp compacts, after each set of
+// guards, the records its live lanes can need (build_warp_list) for phase
+// 1's march and gradient, the edge term's marches, id tap and slope, and
+// the secondary rows' slope; the exclusion march walks its own list of the
+// full program's shapes (build_excl_list).  A record left out fails every
+// live lane's guard, so every lane folds what it folded, in the same order,
+// and every output is what the walk of the whole program gives.  The lists
+// are warp collectives, so every lane of a warp runs phase 1 and the edge
+// terms to the end, out-of-range and finished lanes as not live.
+
 // Parity with the plain version (kernels/train.py:fused_planes_plain):
 // * the forward is K1's or K2's, operation for operation (same flags, see
 //   kernels/build.py), so the image equals theirs bit for bit;
@@ -105,6 +116,7 @@ struct Args {
   int* seg_idx;
   float* seg_scale;
   float* mat_cot;           // (B1, 13, n)
+  unsigned long long* walk_stats;  // (3, B1, 2) list lengths and counts, or null
   int width, height, crop_h, row_offset, frame, bounces, flags;
   float fov, aspect, seed_scale, foot1, foot2;
 };
@@ -368,15 +380,16 @@ __device__ __forceinline__ V3 at(V3 ro, V3 rd, float t) {
 }
 
 // The exact march (cast_ray, no t-cull) with its closest approach, capped at
-// t_cap; returns t.
-__device__ float march_closest(const Scene& S, const Guards<true>& g, V3 ro, V3 rd, float t_cap,
-                               float& d_min, float& t_min) {
+// t_cap, over a warp's list; returns t.
+__device__ float march_closest(const int4* __restrict__ list, int n, const float* __restrict__ F,
+                               const Guards<true>& g, V3 ro, V3 rd, float t_cap, float& d_min,
+                               float& t_min) {
   float t = 0.0f;
   d_min = kBig;
   t_min = 0.0f;
   for (int step = 0; step < kSteps; ++step) {
     int id;
-    const float d = map_scene<true, true, false>(S, g, at(ro, rd, t), t, id);
+    const float d = map_walk<true, true, false>(list, n, F, g, at(ro, rd, t), t, id);
     if (d < d_min) {
       d_min = d;
       t_min = t;
@@ -389,16 +402,18 @@ __device__ float march_closest(const Scene& S, const Guards<true>& g, V3 ro, V3 
   return t;
 }
 
-// The signed continuation march from t: floored steps, until the ray leaves
-// the first shape it entered, passes FP or takes `cap` steps.
-__device__ void continue_march(const Scene& S, const Guards<true>& g, V3 ro, V3 rd, float t,
-                               int cap, float& d_min, float& t_min) {
+// The signed continuation march from t over a warp's list: floored steps,
+// until the ray leaves the first shape it entered, passes FP or takes `cap`
+// steps.
+__device__ void continue_march(const int4* __restrict__ list, int n, const float* __restrict__ F,
+                               const Guards<true>& g, V3 ro, V3 rd, float t, int cap,
+                               float& d_min, float& t_min) {
   d_min = kBig;
   t_min = t;
   bool was_neg = false;
   for (int step = 0; step < cap; ++step) {
     int id;
-    const float d = map_scene<true, true, false>(S, g, at(ro, rd, t), t, id);
+    const float d = map_walk<true, true, false>(list, n, F, g, at(ro, rd, t), t, id);
     if (d < d_min) {
       d_min = d;
       t_min = t;
@@ -411,38 +426,69 @@ __device__ void continue_march(const Scene& S, const Guards<true>& g, V3 ro, V3 
   }
 }
 
-// The union of the leaves of the op list `code` (the full program's) without
-// the shapes e1, e2, guarded leaves under the bounce's checks (BIG and -1
-// when none is left).
-__device__ float excl_fold(const Scene& S, const int* __restrict__ code, int n_ops,
+// The warp's list of the exclusion fold: the SHAPE records of the op list
+// `code` (the full program's), in walk order, that are guard-less or whose
+// box some live lane of the warp hits, decoded as stage_walk decodes them
+// (x: OPC_SHAPE | kind << 2 | (box + 1) << 16, y: the slots' offset, z: the
+// shape id).  The full program numbers its boxes as the march program does
+// (a shape it adds in analytic_unboxed has none; kernels/train.py checks
+// it), so the lanes' guard words serve.  A warp collective, as
+// build_warp_list; returns the list's length.
+__device__ int build_excl_list(const int* __restrict__ code, int n_ops, int n_boxed,
+                               const Guards<true>& g, bool live, int4* __restrict__ list,
+                               int lane) {
+  const uint32_t word_of_lane = warp_box_word(n_boxed, g, live, lane);
+  __syncwarp();  // no lane still reads the previous list
+  int n = 0;
+  for (int base = 0; base < n_ops; base += 32) {
+    const int pc = base + lane;
+    const int* __restrict__ op = code + OP_WIDTH * min(pc, n_ops - 1);
+    const bool shape = pc < n_ops && __ldg(op) == OPC_SHAPE;
+    const int box = shape ? __ldg(op + 3) : -1;
+    const uint32_t word = __shfl_sync(kFullWarp, word_of_lane, box >= 0 ? box >> 5 : 0);
+    const bool keep = shape && (box < 0 || ((word >> (box & 31)) & 1u));
+    const uint32_t m = __ballot_sync(kFullWarp, keep);
+    if (keep) {
+      list[n + __popc(m & ((1u << lane) - 1u))] =
+          make_int4(OPC_SHAPE | __ldg(op + 1) << 2 | (box + 1) << 16, __ldg(op + 2), __ldg(op + 4),
+                    0);
+    }
+    n += __popc(m);
+  }
+  __syncwarp();
+  return n;
+}
+
+// The union of the leaves of an exclusion list without the shapes e1, e2,
+// guarded leaves under the bounce's checks (BIG and -1 when none is left).
+__device__ float excl_fold(const int4* __restrict__ list, int n, const float* __restrict__ F,
                            const Guards<true>& g, V3 p, int e1, int e2, int& id) {
   float d = kBig;
   id = -1;
-  for (int pc = 0; pc < n_ops; ++pc) {
-    const int* __restrict__ op = code + OP_WIDTH * pc;
-    if (__ldg(op) != OPC_SHAPE) continue;
-    const int sid = __ldg(op + 4);
-    if (sid == e1 || sid == e2) continue;
-    const int box = __ldg(op + 3);
+  for (int e = 0; e < n; ++e) {
+    const int4 r = list[e];
+    if (r.z == e1 || r.z == e2) continue;
+    const int box = walk_box(r);
     if (box >= 0 && !g.check(box)) continue;
-    const float ld = leaf_baked(__ldg(op + 1), S.F + __ldg(op + 2), p);
+    const float ld = leaf_baked((r.x >> 2) & 7, F + r.y, p);
     if (ld < d) {
       d = ld;
-      id = sid;
+      id = r.z;
     }
   }
   return d;
 }
 
-__device__ void excl_closest(const Args& A, const Guards<true>& g, V3 ro, V3 rd, int e1, int e2,
-                             float t_stop, float& d_min, float& t_min, int& i_min) {
+__device__ void excl_closest(const int4* __restrict__ list, int n, const float* __restrict__ F,
+                             const Guards<true>& g, V3 ro, V3 rd, int e1, int e2, float t_stop,
+                             float& d_min, float& t_min, int& i_min) {
   float t = 0.0f;
   d_min = kBig;
   t_min = 0.0f;
   bool was_neg = false;
   int id;
   for (int step = 0; step < kSteps; ++step) {
-    const float d = excl_fold(A.S, A.excl_code, A.excl_n_ops, g, at(ro, rd, t), e1, e2, id);
+    const float d = excl_fold(list, n, F, g, at(ro, rd, t), e1, e2, id);
     if (d < d_min) {
       d_min = d;
       t_min = t;
@@ -453,14 +499,16 @@ __device__ void excl_closest(const Args& A, const Guards<true>& g, V3 ro, V3 rd,
     t = nt;
     if (exited || nt > kFar || nt > t_stop) break;
   }
-  excl_fold(A.S, A.excl_code, A.excl_n_ops, g, at(ro, rd, t_min), e1, e2, id);
+  excl_fold(list, n, F, g, at(ro, rd, t_min), e1, e2, id);
   i_min = d_min < 0.5f * kBig ? id : -1;
 }
 
-// The coverage bandwidth's slope factor (train.py:_edge_slope).
-__device__ float edge_slope(const Scene& S, const Guards<true>& g, V3 ro, V3 rd, float t) {
-  const V3 n = calc_normal<true, true>(S, g, at(ro, rd, t));
-  const float g_par = n.x * rd.x + n.y * rd.y + n.z * rd.z;
+// The coverage bandwidth's slope factor (train.py:_edge_slope), the normal
+// over a warp's list.
+__device__ float edge_slope(const int4* __restrict__ list, int n, const float* __restrict__ F,
+                            const Guards<true>& g, V3 ro, V3 rd, float t) {
+  const V3 nrm = normal_walk<true, true>(list, n, F, g, at(ro, rd, t));
+  const float g_par = nrm.x * rd.x + nrm.y * rd.y + nrm.z * rd.z;
   const float perp = sqrtf(nan_max(1.0f - g_par * g_par, 1e-6f));
   return nan_min(nan_max(perp, 0.15f), 1.0f);
 }
@@ -503,14 +551,15 @@ __device__ void warp_add(float* __restrict__ acc, int C, int sid, const float* v
 // -- the kernel ---------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads) train_fused(Args A) {
-  extern __shared__ float sh[];
+  extern __shared__ int4 smem[];
+  float* sh = reinterpret_cast<float*>(smem);
   const int tid = threadIdx.y * kBX + threadIdx.x;
-  const int lane = tid & 31;
+  const int warp = tid >> 5, lane = tid & 31;
   const int C = A.n_acc;
   const int SC = A.n_shapes * C;
   for (int j = tid; j < kWarps * SC; j += kThreads) sh[j] = 0.0f;
   __syncthreads();
-  float* acc = sh + (tid >> 5) * SC;
+  float* acc = sh + warp * SC;
 
   const bool winner = A.flags & FLAG_WINNER;
   const bool edge = A.flags & FLAG_EDGE;
@@ -525,19 +574,37 @@ __global__ void __launch_bounds__(kThreads) train_fused(Args A) {
   const int b1 = A.bounces + 1;
   const Scene& S = A.S;
 
+  // The program and its leaf table, staged behind the accumulator, and the
+  // warp's exclusion list behind them (fused_smem_bytes); a winner-only
+  // analytic step without the edge term maps nothing and stages nothing.
+  Walk P{};
+  int4* xlist = nullptr;
+  if (!analytic || edge) {
+    int4* base = smem + (kWarps * SC + 3) / 4;
+    P = stage_walk(S, S.f_box, kWarps, base, tid, kThreads);
+    xlist = base + walk_smem_bytes(S.n_ops, S.f_box, kWarps) / 16 + warp * A.n_shapes;
+  }
+  const int4* __restrict__ list = P.lists + warp * P.n_ops;
+
   Seg seg[kMaxB1];
   Guards<true> g;
   V3 ret = splat(0.0f), ro0 = splat(0.0f), rd0 = splat(0.0f), cc = splat(0.0f);
 
   // ---- phase 1: the bounce loop, storing each bounce's state ----
-  if (valid) {
-    uint32_t rng;
-    V3 ro, rd;
-    primary_ray(x, A.row_offset + yl, A.frame, A.width, A.height, A.fov, A.aspect, rng, ro, rd);
+  // Every lane of a warp runs it to the end, as not live when out of range
+  // or once its path has ended, so that each bounce's lists are built by
+  // the whole warp.
+  {
+    uint32_t rng = 0u;
+    V3 ro = splat(0.0f), rd = splat(0.0f);
+    if (valid) {
+      primary_ray(x, A.row_offset + yl, A.frame, A.width, A.height, A.fov, A.aspect, rng, ro,
+                  rd);
+    }
     ro0 = ro;
     rd0 = rd;
     V3 thr = splat(1.0f);
-    bool alive = true;
+    bool alive = valid;
     int idx_prev = -1;
     for (int b = 0; b < b1; ++b) {
       Seg& s = seg[b];
@@ -554,43 +621,54 @@ __global__ void __launch_bounds__(kThreads) train_fused(Args A) {
       s.d2 = kBig;
       s.t2 = 0.0f;
       s.i2 = -1;
-      if (!alive) continue;
-      float t;
-      int idx;
+      if (!__any_sync(kFullWarp, alive)) continue;
+      float t = 0.0f;
+      int idx = -1;
       float t_cap = INFINITY;
       int j_cap = -1;
+      int len = 0;
       if (analytic) {
-        cast(A.soa_f, A.soa_i, A.kmeta, A.n_kinds, ro, rd, t, idx);
+        if (alive) cast(A.soa_f, A.soa_i, A.kmeta, A.n_kinds, ro, rd, t, idx);
       } else {
-        compute_guards(S, ro, rd, g);
-        if (unboxed) cap_scan(S, ro, rd, t_cap, j_cap);
-        t = march<true, true>(S, g, ro, rd, idx, t_cap);
-      }
-      const bool hit = !(t > kFar);
-      const bool capped = hit && t >= t_cap;
-      if (capped) idx = cap_id(S, j_cap);
-      s.t = t;
-      s.idx = idx;
-      const V3 hp = ro + rd * t;
-      V3 nrm = splat(0.0f);
-      if (hit) {
-        if (analytic) {
-          nrm = leaf_normal(A.sid_lut[2 * idx], A.soa_f + A.sid_lut[2 * idx + 1], hp);
-          s.g = nrm * kTwoEps;
-        } else if (capped) {
-          s.g = cap_normal(S, j_cap, hp) * kTwoEps;
-          nrm = normalize_safe(s.g);
-        } else {
-          s.g = calc_grad<true, true>(S, g, hp);
-          nrm = normalize_safe(s.g);
+        if (alive) {
+          compute_guards(S, ro, rd, g);
+          if (unboxed) cap_scan(S, ro, rd, t_cap, j_cap);
         }
-        const float denom = dot(s.g, rd) * kHalfOverEps;
-        s.invd = fabsf(denom) > kDenomEps ? 1.0f / denom : 0.0f;
+        len = build_warp_list(P, S.n_boxed, g, alive, warp, lane);
+        record_list(A.walk_stats, b, len, lane);
+        if (alive) t = march_walk<true, true>(S, list, len, P.F, g, ro, rd, idx, t_cap);
+      }
+      bool hit = false;
+      V3 hp = splat(0.0f), nrm = splat(0.0f);
+      if (alive) {
+        hit = !(t > kFar);
+        const bool capped = hit && t >= t_cap;
+        if (capped) idx = cap_id(S, j_cap);
+        s.t = t;
+        s.idx = idx;
+        hp = ro + rd * t;
+        if (hit) {
+          if (analytic) {
+            nrm = leaf_normal(A.sid_lut[2 * idx], A.soa_f + A.sid_lut[2 * idx + 1], hp);
+            s.g = nrm * kTwoEps;
+          } else if (capped) {
+            s.g = cap_normal(S, j_cap, hp) * kTwoEps;
+            nrm = normalize_safe(s.g);
+          } else {
+            s.g = grad_walk<true, true>(list, len, P.F, g, hp);
+            nrm = normalize_safe(s.g);
+          }
+          const float denom = dot(s.g, rd) * kHalfOverEps;
+          s.invd = fabsf(denom) > kDenomEps ? 1.0f / denom : 0.0f;
+        }
       }
       if (secondary && b >= 1) {
-        if (analytic) compute_guards(S, ro, rd, g);
-        excl_closest(A, g, ro, rd, idx, idx_prev, t, s.d2, s.t2, s.i2);
+        if (analytic && alive) compute_guards(S, ro, rd, g);
+        const int nx = build_excl_list(A.excl_code, A.excl_n_ops, S.n_boxed, g, alive, xlist, lane);
+        record_list(A.walk_stats, 2 * b1 + b, nx, lane);
+        if (alive) excl_closest(xlist, nx, P.F, g, ro, rd, idx, idx_prev, t, s.d2, s.t2, s.i2);
       }
+      if (!alive) continue;
       idx_prev = idx;
       if (!hit) {
         alive = false;
@@ -598,11 +676,13 @@ __global__ void __launch_bounds__(kThreads) train_fused(Args A) {
       }
       alive = scatter(rng, ro, rd, ret, thr, hp, nrm, idx >= 0 ? mat_row(S, idx) : nullptr);
     }
-    A.col[pix] = ret.x;
-    A.col[n + pix] = ret.y;
-    A.col[2 * n + pix] = ret.z;
-    cc = v3((ret.x - A.target[pix]) * A.seed_scale, (ret.y - A.target[n + pix]) * A.seed_scale,
-            (ret.z - A.target[2 * n + pix]) * A.seed_scale);
+    if (valid) {
+      A.col[pix] = ret.x;
+      A.col[n + pix] = ret.y;
+      A.col[2 * n + pix] = ret.z;
+      cc = v3((ret.x - A.target[pix]) * A.seed_scale, (ret.y - A.target[n + pix]) * A.seed_scale,
+              (ret.z - A.target[2 * n + pix]) * A.seed_scale);
+    }
   }
 
   // ---- phase 2: the reverse sweep, bounce by bounce ----
@@ -653,8 +733,10 @@ __global__ void __launch_bounds__(kThreads) train_fused(Args A) {
     float gc[kGeomCh];
 #pragma unroll
     for (int c = 0; c < kGeomCh; ++c) gc[c] = 0.0f;
+    if (valid) compute_guards(S, ro0, rd0, g);
+    const int len = build_warp_list(P, S.n_boxed, g, valid, warp, lane);
+    record_list(A.walk_stats, b1, len, lane);
     if (valid) {
-      compute_guards(S, ro0, rd0, g);
       float d_min = kBig, t_min = 0.0f, t0 = 0.0f;
       int cap = kSteps + 32;
       bool go = true;
@@ -662,18 +744,18 @@ __global__ void __launch_bounds__(kThreads) train_fused(Args A) {
         float t_cap = INFINITY;
         int j_cap;
         if (unboxed) cap_scan(S, ro0, rd0, t_cap, j_cap);
-        t0 = march_closest(S, g, ro0, rd0, t_cap, d_min, t_min);
+        t0 = march_closest(list, len, P.F, g, ro0, rd0, t_cap, d_min, t_min);
         go = d_min < kMhd;
         cap = 32;
       }
       if (go) {
         float cd, ct;
-        continue_march(S, g, ro0, rd0, t0, cap, cd, ct);
+        continue_march(list, len, P.F, g, ro0, rd0, t0, cap, cd, ct);
         if (cd < d_min) t_min = ct;
         d_min = nan_min(d_min, cd);
       }
       int id;
-      map_scene<true, true, false>(S, g, at(ro0, rd0, t_min), 0.0f, id);
+      map_walk<true, true, false>(list, len, P.F, g, at(ro0, rd0, t_min), 0.0f, id);
       int i_min = d_min < 0.5f * kBig ? id : -1;
       if (unboxed) {
         // The skipped spheres are in no map tap: their closed-form closest
@@ -689,7 +771,8 @@ __global__ void __launch_bounds__(kThreads) train_fused(Args A) {
       }
       float w = 0.0f;
       if (i_min >= 0) {
-        const float beta = nan_max(t_min, 0.2f) * A.foot1 * edge_slope(S, g, ro0, rd0, t_min);
+        const float beta =
+            nan_max(t_min, 0.2f) * A.foot1 * edge_slope(list, len, P.F, g, ro0, rd0, t_min);
         const V3 proxy = d_min < kMhd ? ret : emission(mat_row(S, i_min));
         w = coverage_seed(cc, proxy, d_min, beta);
       }
@@ -721,11 +804,15 @@ __global__ void __launch_bounds__(kThreads) train_fused(Args A) {
       float gc[kGeomCh];
 #pragma unroll
       for (int c = 0; c < kGeomCh; ++c) gc[c] = 0.0f;
-      if (valid) {
-        const Seg& s = seg[b];
-        if (s.alive && s.i2 >= 0) {
-          compute_guards(S, s.ro, s.rd, g);
-          const float beta = nan_max(s.t2, 0.2f) * A.foot2 * edge_slope(S, g, s.ro, s.rd, s.t2);
+      const Seg& s = seg[b];
+      const bool row = s.alive && s.i2 >= 0;
+      if (__any_sync(kFullWarp, row)) {
+        if (row) compute_guards(S, s.ro, s.rd, g);
+        const int len = build_warp_list(P, S.n_boxed, g, row, warp, lane);
+        record_list(A.walk_stats, b1 + b, len, lane);
+        if (row) {
+          const float beta =
+              nan_max(s.t2, 0.2f) * A.foot2 * edge_slope(list, len, P.F, g, s.ro, s.rd, s.t2);
           const V3 em = emission(mat_row(S, s.i2));
           const V3 prox = v3(s.thr.x * em.x - (ret.x - s.ret.x), s.thr.y * em.y - (ret.y - s.ret.y),
                              s.thr.z * em.z - (ret.z - s.ret.z));
@@ -764,6 +851,16 @@ __global__ void sum_rows(const float* __restrict__ in, int rows, int cols, int g
   out[(size_t)gi * cols + j] = v;
 }
 
+// The block's dynamic shared memory (render/program.py:fused_smem_bytes):
+// the warps' (S, C) accumulators, acc_floats floats; with the walk, behind
+// them from the next 16 bytes, the staged program (walk_smem_bytes) and,
+// for the exclusion march, one list of n_excl records a warp.
+constexpr size_t fused_smem_bytes(int acc_floats, bool walk, int n_ops, int f_leaf, int n_excl) {
+  return walk ? 16 * ((static_cast<size_t>(acc_floats) + 3) / 4) +
+                    walk_smem_bytes(n_ops, f_leaf, kWarps) + 16 * kWarps * static_cast<size_t>(n_excl)
+              : sizeof(float) * acc_floats;
+}
+
 }  // namespace
 
 // Launches the fused step on `stream`; returns cudaGetLastError() (0 on
@@ -773,10 +870,17 @@ __global__ void sum_rows(const float* __restrict__ in, int rows, int cols, int g
 // n_cap cap records follow its cull flags); excl_code the full baked
 // program's ops, which the secondary exclusion fold walks; leaf_lut
 // (n_shapes, 2) int32 each shape's kind and slot offset in `table`; soa_f
-// .. n_kinds K1's packed tables (with the ANALYTIC flag, else null).  target and col are (3, crop_h, width) float32
-// planes; part has room for blocks + ceil(blocks / 128) rows of n_shapes *
-// n_acc floats, acc for one (n_acc > 0); the six seg_* / mat_cot planes are
-// written in the map-vjp mode (flags without WINNER).
+// .. n_kinds K1's packed tables (with the ANALYTIC flag, else null).
+// target and col are (3, crop_h, width) float32 planes; part has room for
+// blocks + ceil(blocks / 128) rows of n_shapes * n_acc floats, acc for one
+// (n_acc > 0); the six seg_* / mat_cot planes are written in the map-vjp
+// mode (flags without WINNER).  smem_bytes must be fused_smem_bytes of the
+// launch: the walk is staged unless the step is ANALYTIC without EDGE, and
+// SECONDARY (which needs EDGE) adds n_shapes exclusion records a warp.  A
+// non-null walk_stats (3 (bounces + 1) x 2 zeroed uint64) takes, as K2's
+// does, the summed length and the count of the warps' lists: row b the
+// march of bounce b, row B1 the edge term's, row B1 + b the secondary
+// slope taps' of bounce b, row 2 B1 + b the exclusion march's.
 extern "C" int cpt_train_fused(const int* code, int n_ops, int n_cap, const int* excl_code,
                                int excl_n_ops, const float* table, int n_boxed, int f_box,
                                int f_mat, const int* leaf_lut, int n_shapes,
@@ -786,10 +890,16 @@ extern "C" int cpt_train_fused(const int* code, int n_ops, int n_cap, const int*
                                float* seg_t, int* seg_idx, float* seg_scale, float* mat_cot,
                                int n_acc, int width, int height, int crop_h, int row_offset,
                                int frame, int bounces, float fov, float aspect, float seed_scale,
-                               int flags, float foot1, float foot2, void* stream) {
+                               int flags, float foot1, float foot2, int smem_bytes,
+                               unsigned long long* walk_stats, void* stream) {
   if (bounces + 1 > kMaxB1 || bounces < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * kWarps * (size_t)n_shapes * n_acc;
-  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  const bool edge = flags & FLAG_EDGE, secondary = flags & FLAG_SECONDARY;
+  if (secondary && !edge) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = fused_smem_bytes(kWarps * n_shapes * n_acc, !(flags & FLAG_ANALYTIC) || edge,
+                                       n_ops, f_box, secondary ? n_shapes : 0);
+  if (smem != static_cast<size_t>(smem_bytes) || smem > 232448) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(train_fused, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -817,6 +927,7 @@ extern "C" int cpt_train_fused(const int* code, int n_ops, int n_cap, const int*
   A.seg_idx = seg_idx;
   A.seg_scale = seg_scale;
   A.mat_cot = mat_cot;
+  A.walk_stats = walk_stats;
   A.width = width;
   A.height = height;
   A.crop_h = crop_h;

@@ -413,14 +413,13 @@ def _march_plain(prog: Program, table, t_cull, xs, ys, frame, bounces, fov,
     (K6) replaces it with the distance-grid march (``cast_grid``).
     ``count`` accumulates its ray segments, map work (``make_map_program``),
     grid taps and, as ``"cap_segments"``, the segments the cap is computed
-    for.  ``stats`` (a started :class:`MarchStats`, not with ``grid``)
-    records the march steps and normal taps of the frame's rays."""
+    for.  ``stats`` (a started :class:`MarchStats`) records the march
+    steps (not with ``grid``), the normal taps and the per-warp lists of
+    the frame's rays."""
     vals = table.tolist()
     map_fn = make_map_program(prog, vals, count)
-    if stats is not None and grid is not None:
-        raise ValueError("debug 4's statistics take the march without "
-                         "dist_grid")
-    record = stats.march if stats is not None and t_cull else None
+    record = (stats.march if stats is not None and t_cull and grid is None
+              else None)
 
     def map_checked(p, checks):
         return map_fn(p, checks[0])
@@ -533,8 +532,9 @@ def render_frame_megakernel_plain(
 
     ``debug=4`` returns :class:`MarchStats`' image of the frame's paths,
     per ``WARP`` unless ``stats`` brings another group.  ``stats`` in debug 0
-    or 3 (the march, without ``dist_grid``) is filled as well: one pass
-    then gives the frame and its debug-4 statistics."""
+    or 3 (the march) is filled as well: one pass then gives the frame and
+    its debug-4 statistics (with ``dist_grid``, its per-warp lists and
+    normal taps only: x and y stay 0)."""
     kernel = _kernel_for(spec, geometry, debug, normals, t_cull, omega,
                          analytic_unboxed, refresh_every, dist_grid,
                          analytic_all, analytic_soa)
@@ -798,8 +798,8 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
     Debug 4 writes :class:`MarchStats`' image per warp, from the kernel's
     STATS instantiation.
 
-    The plain march (debug 0-3, omega 1, no grid) walks per-warp lists of
-    the program staged in each block's shared memory
+    The plain march (debug 0-3, omega 1) and the grid march walk per-warp
+    lists of the program staged in each block's shared memory
     (``walk_smem_bytes``, which raises for a program too large);
     ``walk_stats`` (debug 0 or 3), a zeroed int64 CUDA tensor of
     2 (bounces + 1), then takes per bounce the summed list length and the
@@ -818,9 +818,10 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
                          "debug 0 or 3 and omega 1")
     if grid_stats is not None and grid is None:
         raise ValueError("grid_stats needs a grid")
-    walk = debug != 4 and not relax and grid is None
+    walk = debug != 4 and not relax
     if walk_stats is not None and not (walk and debug in (0, 3)):
-        raise ValueError("walk_stats needs the plain march of debug 0 or 3")
+        raise ValueError("walk_stats needs the plain or the grid march of "
+                         "debug 0 or 3")
     smem = walk_smem_bytes(prog, WARPS) if walk else 0
     _check_accum(accum)
     device = accum.device

@@ -30,6 +30,11 @@ the optimizer as ``params.grad``.  Per step and sample:
   and, for trees with a non-union op, the map vjp seeded with the kernel's
   per-bounce ``scale = -dL/dt / (g.rd)`` planes.
 
+Every map tap of the kernel walks its warp's list of the program
+(render/program.py:warp_records over ``band_warps``; the exclusion march's
+list of the full program's leaves, ``_leaves(..., records=)``), staged in
+shared memory behind its sums (``fused_smem_bytes``).
+
 Phase 2 reads every leaf: the winner-leaf partials, the map vjp and the
 secondary exclusion march (JAX ``_make_excl_closest``) take the full baked
 program, also with ``analytic_unboxed``, whose edge term folds in the
@@ -80,10 +85,12 @@ from ..render.program import (
     Program,
     build_program,
     cast_tcull,
+    fused_smem_bytes,
     make_map_program,
     program_bounds,
     program_code_on,
     program_table,
+    warp_records,
 )
 from ..render.reference import (
     Mat,
@@ -107,7 +114,7 @@ from ..ops.rng import random_float01
 from ..scene.compile import SceneSpec
 from ..vecmath import Vec3, sqrt_rn
 from .build import load_library
-from .megakernel import capped_winners, make_analytic_unboxed
+from .megakernel import capped_winners, make_analytic_unboxed, warp_ids
 
 # Launches since import (or since a caller reset them).
 LAUNCHES = {"train_fused": 0}
@@ -119,6 +126,10 @@ EDGE_STEP = 2e-3   # floored step of the signed continuation marches
 # this many bounces plus one.
 MAX_BOUNCES = 15
 BACKWARD_CHUNK = 1 << 20  # rays per map vjp of the map-vjp mode
+# The warps of a block of the kernel (16x8 pixels), each with its own lists
+# of the program in shared memory; a warp is 2x16 pixels of the band, as
+# K2's (megakernel.WARP).
+WARPS = 4
 
 # Material channels the kernel emits cotangents for, in the column order of
 # the (n_shapes, 18) material table.  Channels 12 (ior), 14
@@ -294,10 +305,48 @@ def _continue_march(map_fn, ro: Vec3, rd: Vec3, chk, t0, cap):
     return d_min, t_min
 
 
-def _leaves(prog: Program, vals):
-    """(kind, slots, box, shape id) of every leaf in walk order."""
+def _edge_closest(map_fn, ro: Vec3, rd: Vec3, chk, t_cap=None,
+                  from_zero: bool = False):
+    """The edge term's closest approach of the primary rays (JAX
+    ``train.py:610-687``) over ``map_fn`` under their guards ``chk``,
+    without t-cull: the exact march (capped at ``t_cap``) tracking the
+    smallest map value, then the signed continuation through the surface a
+    ray hit (32 steps from its hit); ``from_zero`` (``analytic_all``, which
+    has no exact march) runs the continuation over the whole ray from t = 0
+    instead.  Returns ``(d_min, t_min, id)``: the id of a map tap at t_min
+    (-1 where nothing was tracked)."""
+    n = ro.x.shape[0]
+    if from_zero:
+        d_min = torch.full_like(ro.x, BIG)
+        t_min = torch.zeros_like(ro.x)
+        lanes = torch.arange(n, device=ro.x.device)
+        t0, cap = torch.zeros_like(ro.x), STEPS + 32
+    else:
+        t_ex, _, d_min, t_min = cast_ray(lambda p, c: map_fn(p, c[0]), ro, rd,
+                                         (chk,), closest=True, t_cap=t_cap)
+        lanes = torch.nonzero(d_min < MHD).flatten()
+        t0, cap = t_ex[lanes], 32
+    c_dmin, c_tmin = _continue_march(
+        map_fn, Vec3(*(c[lanes] for c in ro)), Vec3(*(c[lanes] for c in rd)),
+        chk[lanes], t0, cap)
+    deeper = c_dmin < d_min[lanes]
+    t_min[lanes] = torch.where(deeper, c_tmin, t_min[lanes])
+    d_min[lanes] = torch.minimum(d_min[lanes], c_dmin)
+    _, e_id = map_fn(ro + rd * t_min, chk)
+    return d_min, t_min, torch.where(d_min < 0.5 * BIG, e_id,
+                                     torch.full_like(e_id, -1))
+
+
+def _leaves(prog: Program, vals, records=None):
+    """(kind, slots, box, shape id) of every leaf in walk order; with
+    ``records``, op indices in walk order (a warp's list, a row of
+    ``warp_records``), of those leaves only: the exclusion list a warp of
+    the kernel walks."""
+    ops = prog.ops.tolist()
+    if records is not None:
+        ops = [ops[int(r)] for r in records]
     return [(op[1], vals[op[2]:op[2] + GEOM_SLOTS[op[1]]], op[3], op[4])
-            for op in prog.ops.tolist() if op[0] == OPC_SHAPE]
+            for op in ops if op[0] == OPC_SHAPE]
 
 
 def _excl_fold(leaves, p: Vec3, chk, excl1, excl2, count=None):
@@ -462,14 +511,16 @@ def _replay_adjoint(rng, ro_b: Vec3, rd_b: Vec3, thr_b: Vec3, t_b, g_b,
 def fused_planes_plain(tables: FusedTables, target: torch.Tensor, frame: int,
                        fov: float, aspect: float, row_offset: int, *,
                        width: int, height: int, mode: FusedMode,
-                       count: dict = None) -> FusedOut:
+                       count: dict = None,
+                       walk_stats: torch.Tensor = None) -> FusedOut:
     """What K4 computes, per pixel, in vectorized torch: the rows
     ``[row_offset, row_offset + crop_h)`` of the (height, width) frame,
     ``target`` the band's (3, crop_h, width) planes.  Phase 2 is autograd of
     the per-bounce replay (as the JAX kernel uses ``jax.vjp``) and of the
     leaf distances.  ``count``, a dict, accumulates the work (ray segments,
     map taps and leaf evaluations by kind, replays, leaf partials, exclusion
-    folds)."""
+    folds).  ``walk_stats``, laid out as :func:`launch_train_fused`'s, takes
+    the plain model of the kernel's per-warp lists (:func:`_count_lists`)."""
     prog, table = tables.prog, tables.table
     device = table.device
     crop_h = target.shape[1]
@@ -483,14 +534,17 @@ def fused_planes_plain(tables: FusedTables, target: torch.Tensor, frame: int,
     n = ro.x.shape[0]
     ro0, rd0 = ro, rd
     map_fn = make_map_program(prog, table.tolist(), count)
+    warp = band_warps(width, crop_h, device)
+    excl_prog = (build_program(tables.spec, "baked") if mode.edge_secondary
+                 else None)
 
     def map_checked(p, checks):
         return map_fn(p, checks[0])
 
     mats = table[prog.f_mat:].view(prog.n_shapes, -1)
     # The exclusion march keeps every leaf, the skipped ones included.
-    leaves = (_leaves(build_program(tables.spec, "baked"), table.tolist())
-              if mode.edge_secondary else None)
+    leaves = (_leaves(excl_prog, table.tolist()) if mode.edge_secondary
+              else None)
     unboxed = mode.analytic_unboxed and prog.caps.shape[0] > 0
     if unboxed:
         cap_fn, cap_normal, closest_fn = make_analytic_unboxed(tables.spec)
@@ -504,8 +558,6 @@ def fused_planes_plain(tables: FusedTables, target: torch.Tensor, frame: int,
     thr = Vec3.splat(torch.ones_like(zero))
     alive = torch.ones(n, dtype=torch.bool, device=device)
     idx_prev = torch.full((n,), -1, dtype=torch.int32, device=device)
-    e_dmin = torch.full_like(zero, BIG)
-    e_tmin = zero.clone()
     seg = []
     for b in range(b1):
         al = torch.nonzero(alive).flatten()
@@ -522,6 +574,7 @@ def fused_planes_plain(tables: FusedTables, target: torch.Tensor, frame: int,
                 _tally(count, "cap_segments", al.numel())
                 t_cap, cap_idx = cap_fn(ro_a, rd_a, bv_t)
             t_a, idx_a = cast_tcull(prog, map_fn, ro_a, rd_a, checks, t_cap)
+            _count_lists(walk_stats, b, prog, checks[0], warp[al])
         h = ~(t_a > FP)
         hl = al[h]
         hp = Vec3(*(o[h] + d[h] * t_a[h] for o, d in zip(ro_a, rd_a)))
@@ -563,6 +616,8 @@ def fused_planes_plain(tables: FusedTables, target: torch.Tensor, frame: int,
                    program_bounds(prog, table, ro_a, rd_a, False)[0][0])
             sd, stt, si = _excl_closest(leaves, ro_a, rd_a, chk, idx_a,
                                         idx_prev[al], t_a, count)
+            _count_lists(walk_stats, 2 * b1 + b, excl_prog, chk, warp[al],
+                         shapes=True)
             st.update(d2=full(sd, BIG, lanes=al), t2=full(stt, lanes=al),
                       i2=full(si, -1, torch.int32, al))
         seg.append(st)
@@ -652,31 +707,20 @@ def fused_planes_plain(tables: FusedTables, target: torch.Tensor, frame: int,
     if mode.edge_grad:
         checks0, _ = program_bounds(prog, table, ro0, rd0, False)
         _tally(count, "edge_rays", n)
+        # Every warp of the launch builds the edge term's list, also one
+        # with no pixel of the band.
+        _count_lists(walk_stats, b1, prog, checks0[0], warp,
+                     4 * (-(-width // 16)) * -(-crop_h // 8))
         # The edge estimator's marches do not cull (module docstring): the
         # closest approach of the primary ray over the exact march, then
         # the signed continuation through the surface it hit; under
         # analytic_all the signed march runs the whole ray from t = 0.
-        if mode.analytic_all:
-            lanes = torch.arange(n, device=device)
-            t0, cap = zero, STEPS + 32
-        else:
-            cap0 = None
-            if unboxed:
-                _tally(count, "cap_segments", n)
-                cap0, _ = cap_fn(ro0, rd0, bv_t)
-            t_ex, _, e_dmin, e_tmin = cast_ray(map_checked, ro0, rd0,
-                                               checks0, closest=True,
-                                               t_cap=cap0)
-            lanes = torch.nonzero(e_dmin < MHD).flatten()
-            t0, cap = t_ex[lanes], 32
-        c_dmin, c_tmin = _continue_march(
-            map_fn, Vec3(*(c[lanes] for c in ro0)),
-            Vec3(*(c[lanes] for c in rd0)), checks0[0][lanes], t0, cap)
-        deeper = c_dmin < e_dmin[lanes]
-        e_tmin[lanes] = torch.where(deeper, c_tmin, e_tmin[lanes])
-        e_dmin[lanes] = torch.minimum(e_dmin[lanes], c_dmin)
-        _, e_id = map_fn(ro0 + rd0 * e_tmin, checks0[0])
-        e_imin = torch.where(e_dmin < 0.5 * BIG, e_id, torch.full_like(e_id, -1))
+        cap0 = None
+        if unboxed:
+            _tally(count, "cap_segments", n)
+            cap0, _ = cap_fn(ro0, rd0, bv_t)
+        e_dmin, e_tmin, e_imin = _edge_closest(map_fn, ro0, rd0, checks0[0],
+                                               cap0, mode.analytic_all)
         if unboxed:
             # The skipped spheres are in no map tap: their closed-form
             # closest approach (JAX train.py:682-687).
@@ -722,6 +766,7 @@ def fused_planes_plain(tables: FusedTables, target: torch.Tensor, frame: int,
                                         for k in ("ro", "rd", "thr", "ret"))
             t2, i2 = st["t2"][ok], st["i2"][ok]
             chk_b = program_bounds(prog, table, ro_b, rd_b, False)[0][0]
+            _count_lists(walk_stats, b1 + b, prog, chk_b, warp[ok])
             beta2 = (torch.clamp(t2, min=0.2) * foot2
                      * _edge_slope(map_checked, ro_b, rd_b, t2, chk_b))
             emit2 = _emission(gather_material(mats, i2))
@@ -735,6 +780,28 @@ def fused_planes_plain(tables: FusedTables, target: torch.Tensor, frame: int,
     return FusedOut(**out)
 
 
+def _count_lists(walk_stats, i, prog: Program, check, warp, n_warps=None,
+                 shapes: bool = False) -> None:
+    """Adds to row ``i`` of ``walk_stats`` (when not None) the summed length
+    and the number of the kernel's per-warp lists (warp_records) over the
+    lanes whose guard bits are ``check`` and warps ``warp``: a list for each
+    warp that holds one of them or, with ``n_warps``, for each of the
+    launch's ``n_warps`` warps.  ``shapes`` counts the exclusion list, the
+    SHAPE records of each row (those ``_leaves(prog, vals, records=)``
+    keeps)."""
+    if walk_stats is None:
+        return
+    if n_warps is None:
+        groups, warp = torch.unique(warp, return_inverse=True)
+        n_warps = groups.shape[0]
+    rows = warp_records(prog, check, warp, n_warps)
+    if shapes:
+        rows = rows[:, torch.from_numpy(prog.ops[:, 0] == OPC_SHAPE).to(
+            rows.device)]
+    walk_stats[2 * i] += rows.sum()
+    walk_stats[2 * i + 1] += n_warps
+
+
 # -- the kernel ----------------------------------------------------------------
 
 
@@ -745,13 +812,53 @@ def _partial_rows(width: int, crop_h: int) -> int:
     return blocks + -(-blocks // 128)
 
 
+def band_warps(width: int, crop_h: int, device=None) -> torch.Tensor:
+    """The kernel's warp of each pixel of a band ``crop_h`` rows high, flat
+    in row-major order: its blocks, so its warps, tile the band's own rows,
+    whatever the band's row_offset."""
+    ys, xs = torch.meshgrid(
+        torch.arange(crop_h, dtype=torch.int32, device=device),
+        torch.arange(width, dtype=torch.int32, device=device), indexing="ij")
+    return warp_ids(xs, ys, width)
+
+
+@lru_cache(maxsize=None)
+def _excl_program(spec: SceneSpec) -> Program:
+    """The full baked program, whose leaves the secondary exclusion march
+    folds.  The kernel tests them against the march program's guard words,
+    so the two must number their boxes alike: the skip program of
+    ``analytic_unboxed`` leaves out only guard-less shapes, so they do, and
+    this checks it."""
+    full = build_program(spec, "baked")
+    skip = build_program(spec, "baked", True)
+
+    def boxes(prog):
+        return {op[4]: op[3] for op in prog.ops.tolist() if op[0] == OPC_SHAPE}
+
+    fb, sb = boxes(full), boxes(skip)
+    if (full.n_boxed != skip.n_boxed or any(fb[i] != b for i, b in sb.items())
+            or any(fb[i] >= 0 for i in fb.keys() - sb.keys())):
+        raise AssertionError("the full program numbers its boxes unlike the "
+                             "march program")
+    return full
+
+
 def launch_train_fused(tables: FusedTables, target: torch.Tensor, frame: int,
                        fov: float, aspect: float, row_offset: int, *,
-                       width: int, height: int, mode: FusedMode) -> FusedOut:
+                       width: int, height: int, mode: FusedMode,
+                       walk_stats: torch.Tensor = None) -> FusedOut:
     """Launch K4 on CUDA tables and the band's (3, crop_h, width) target, on
     the current stream, without synchronising; counts the launch in
     ``LAUNCHES["train_fused"]``.  Returns the same outputs as
-    :func:`fused_planes_plain`."""
+    :func:`fused_planes_plain`.
+
+    Each block stages the program in shared memory behind its sums
+    (``fused_smem_bytes``, which raises for a step a block cannot hold);
+    ``walk_stats``, a zeroed int64 CUDA tensor of 6 (bounces + 1), then
+    takes the summed length and the count of its warps' lists, as (3,
+    bounces + 1, 2): [0, b] phase 1's march of bounce b, [1, 0] the edge
+    term's, [1, b] the secondary rows' slope taps of bounce b, [2, b] the
+    exclusion march of bounce b (b >= 1)."""
     prog, table = tables.prog, tables.table
     device = table.device
     if not 0 <= mode.bounces <= MAX_BOUNCES:
@@ -771,9 +878,15 @@ def launch_train_fused(tables: FusedTables, target: torch.Tensor, frame: int,
     crop_h = target.shape[1]
     n = crop_h * width
     S, b1, c_acc = tables.spec.n_shapes, mode.b1, mode.n_acc
-    if 4 * 4 * S * c_acc > 232448:
-        raise ValueError(f"the fused kernel's shared (shape, channel) sums "
-                         f"hold {232448 // (16 * max(c_acc, 1))} shapes, not {S}")
+    smem = fused_smem_bytes(prog, WARPS, c_acc,
+                            not mode.analytic_all or mode.edge_grad,
+                            mode.edge_secondary)
+    if walk_stats is not None and (
+            walk_stats.device != device or walk_stats.dtype != torch.int64
+            or walk_stats.shape != (6 * b1,)
+            or not walk_stats.is_contiguous()):
+        raise ValueError(f"walk_stats must be contiguous int64 ({6 * b1},) "
+                         f"on {device}")
     f32 = dict(dtype=torch.float32, device=device)
     col = torch.empty((3, n), **f32)
     out = dict(col=col)
@@ -814,7 +927,7 @@ def launch_train_fused(tables: FusedTables, target: torch.Tensor, frame: int,
 
     code = program_code_on(prog, device)
     # The secondary exclusion march reads every leaf of the full program.
-    full = build_program(tables.spec, "baked")
+    full = _excl_program(tables.spec)
     lib = load_library()
     with torch.cuda.device(device):
         err = lib.cpt_train_fused(
@@ -828,7 +941,8 @@ def launch_train_fused(tables: FusedTables, target: torch.Tensor, frame: int,
             *(ptr(t) for t in planes), c_acc, width, height, crop_h,
             int(row_offset), int(frame), mode.bounces, float(fov),
             float(aspect), float(_F32(2.0 / (width * height * 3))), flags,
-            foot1, foot2, torch.cuda.current_stream(device).cuda_stream)
+            foot1, foot2, smem, ptr(walk_stats),
+            torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"train_fused launch failed: CUDA error {err}")
     LAUNCHES["train_fused"] += 1

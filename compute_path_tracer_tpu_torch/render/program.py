@@ -42,13 +42,15 @@ program's, since a skipped shape has no box.
 are the plain torch versions of the kernel's map, guards, per-thread
 t-culled march and distance-grid march.
 
-K2's plain march and K3 walk, at each map tap, not the whole op list but a
-list per warp of 32 lanes, built after the bounce's guards
-(kernels/csrc/csg_program.cuh:build_warp_list): every ENTER, LEAVE and
-guard-less shape, and each guarded shape whose box some live lane of the
-warp hits.  ``warp_records`` is its plain model, ``make_map_program(...,
-records=)`` the map over one such list, and ``walk_smem_bytes`` the shared
-memory a block needs to hold the program and its warps' lists.
+The marching kernels (K2's plain march, K6, K3, K4) walk, at each map
+tap, not the whole op list but a list per warp of 32 lanes, built after
+the bounce's guards (kernels/csrc/csg_program.cuh:build_warp_list): every
+ENTER, LEAVE and guard-less shape, and each guarded shape whose box some
+live lane of the warp hits.  ``warp_records`` is its plain model,
+``make_map_program(..., records=)`` the map over one such list, and
+``walk_smem_bytes`` the shared memory a block needs to hold the program
+and its warps' lists; ``fused_smem_bytes`` sizes the fused step's block,
+whose sums come first.
 """
 
 from __future__ import annotations
@@ -324,6 +326,13 @@ def program_code_on(prog: Program, device) -> torch.Tensor:
     return _on_device(prog, torch.device(device)).code
 
 
+def _walk_bytes(prog: Program, warps: int):
+    """(n_ops, bytes of the decoded records and the warps' lists, bytes of
+    the leaf table) of a block of ``warps`` warps that walks ``prog``."""
+    n_ops = prog.ops.shape[0]
+    return n_ops, 16 * n_ops * (1 + warps), 16 * ((prog.f_box + 3 + 3) // 4)
+
+
 def walk_smem_bytes(prog: Program, warps: int) -> int:
     """The dynamic shared memory of a block of ``warps`` warps that walks
     ``prog`` (kernels/csrc/csg_program.cuh:walk_smem_bytes): its decoded
@@ -331,9 +340,7 @@ def walk_smem_bytes(prog: Program, warps: int) -> int:
     table ``F[0, f_box)`` behind up to 3 floats that give it the table's
     own alignment, rounded up to 16 bytes.  Raises ``ValueError``, naming
     the sizes, when a block cannot hold it."""
-    n_ops = prog.ops.shape[0]
-    lists = 16 * n_ops * (1 + warps)
-    table = 16 * ((prog.f_box + 3 + 3) // 4)
+    n_ops, lists, table = _walk_bytes(prog, warps)
     if lists + table > SMEM_PER_BLOCK:
         raise ValueError(
             f"the program does not fit a block's shared memory: {n_ops} op "
@@ -341,6 +348,32 @@ def walk_smem_bytes(prog: Program, warps: int) -> int:
             f"leaf table of {prog.f_box} floats ({table} bytes) need "
             f"{lists + table} bytes, more than {SMEM_PER_BLOCK}")
     return lists + table
+
+
+def fused_smem_bytes(prog: Program, warps: int, n_acc: int, walk: bool,
+                     excl: bool) -> int:
+    """The dynamic shared memory of a block of the fused step's kernel
+    (kernels/csrc/train_fused.cu:fused_smem_bytes): each of its ``warps``
+    warps' (n_shapes, n_acc) float32 sums; with ``walk``, from the next 16
+    bytes, ``prog`` staged as :func:`walk_smem_bytes` lays it out and, with
+    ``excl`` (the secondary exclusion march), one list of n_shapes records
+    of 16 bytes a warp.  Raises ``ValueError``, naming the sizes, when a
+    block cannot hold it."""
+    sums = 4 * warps * prog.n_shapes * n_acc
+    total, parts = sums, f"{sums} bytes of sums"
+    if walk:
+        n_ops, lists, table = _walk_bytes(prog, warps)
+        lists += 16 * warps * prog.n_shapes * int(excl)
+        total = 16 * -(-sums // 16) + lists + table
+        parts += (f" and {lists + table} bytes of staged program ({n_ops} op "
+                  f"records, a leaf table of {prog.f_box} floats"
+                  + (", exclusion lists" if excl else "") + ")")
+    if total > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"the fused step does not fit a block's shared memory: {warps} "
+            f"warps x {prog.n_shapes} shapes x {n_acc} channels x 4 bytes = "
+            f"{parts} need {total} bytes, more than {SMEM_PER_BLOCK}")
+    return total
 
 
 def warp_records(prog: Program, check: torch.Tensor, warp: torch.Tensor,
