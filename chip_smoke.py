@@ -13,7 +13,15 @@ path through RenderSession at 1920x1080 over the 64-primitive benchmark
 scene with 8 bounces (the JAX package's bench.py rows):
 
 * K1, megakernel_analytic: the full-analytic bounce
-  (``geometry="baked", analytic_all=True``);
+  (``geometry="baked", analytic_all=True``): persistent blocks over the
+  scene staged in shared memory, lanes refilled with new pixels, the box
+  test's reciprocal hoisted per ray.  Its quotient is held to __fdiv_rn on
+  2^24 seeded triples and the edge values (no difference allowed), its
+  frame to the plain one also at a ragged 333x187, and at 1080p it prints
+  the lane fill and the shapes some lane entered per warp cast, with
+  refill and without (a warp per 16x2 tile), beside the fill that the
+  debug 3 frame gives the old schedule (which the STATS kernel must
+  reproduce exactly);
 * K2, megakernel_march: the sphere march (``geometry="baked", t_cull=True``,
   bench.py's marching row); its checks cover faithful and baked geometry,
   subtraction, smooth union, refraction, the first-shape clobber, debug
@@ -46,7 +54,7 @@ and the modes of the same two kernels that the last bench.py rows run:
 * K5 on K1's binary: ``analytic_soa`` (bench.py:275) on
   ``benchmark_scene(256)`` and ``(512)`` against its plain version, bit for
   bit K1's ``analytic_all`` frame at 64 primitives, and its main path at
-  1920x1080 for each;
+  1920x1080 for each, with K1's lane statistics;
 * K6 on K2's binary: ``dist_grid`` (the march on the frame's baked
   lower-bound distance grid, benchmarks/distgrid_bench.py) against its plain
   version on four scenes in debug 0 and 3, with ``analytic_unboxed``, and
@@ -115,6 +123,11 @@ slope taps, the exclusion march); the flat ball's position recovered
 by ``optimize_to_target(fused=True, edge_grad=True)`` and the CLI's
 ``optimize --fused --edge-grad``.
 
+The K4 checks at 320x180 run in a second process of this script
+(``--k4-checks``), started after the build beside the K1-K6 checks (both
+host-bound plain passes) and joined before the first timed phase, so no
+timing overlaps it; its output is printed when it is joined.
+
 It prints each phase's start and the time the phase before it took,
 timings beside the card's name and power limit, a kernels JSON line with
 each kernel's time, its plain version's and its bound (and, for the
@@ -155,6 +168,12 @@ D4_PARTIAL = (200, 45)
 # are app/profiling.py's.
 SOA = dict(geometry="baked", analytic_soa=True)
 SOA_PRIMS = (256, 512)
+# K1's box-test quotient (the reciprocal hoisted per ray) against
+# __fdiv_rn: seeded triples in the scenes' ranges, and a ragged frame for
+# the persistent schedule's edge tiles.
+QUOTIENT_PAIRS = 1 << 24
+QUOTIENT_SEED = 13
+K1_RAGGED = (333, 187)
 OMEGA = 1.6
 # The training path: bench.py's fast-gradient row (bench.py:406).
 TRAIN = dict(geometry="baked", march="kernel", normals="kernel")
@@ -663,6 +682,26 @@ def _ptxas_walk(build):
     return figs
 
 
+def _ptxas_k1(build):
+    """ptxas's figures of K1's instantiations (megakernel_analytic<STATS,
+    REFILL>), printed; returns them by short name."""
+    import re
+
+    figs = {}
+    for k, v in build.ptxas_figures().items():
+        m = re.search(r"megakernel_analyticILb(\d)ELb(\d)E", k)
+        if m:
+            figs[f"megakernel_analytic<{m.group(1)},{m.group(2)}>"] = v
+    for k, v in sorted(figs.items()):
+        print(f"ptxas {k}: {v['registers']} registers, {v.get('stack', 0)} "
+              f"bytes stack frame, {v.get('spill_stores', 0)} bytes spill "
+              f"stores, {v.get('spill_loads', 0)} bytes spill loads")
+    if len(figs) != 3:
+        raise AssertionError(f"ptxas figures of {len(figs)} K1 kernels, "
+                             f"expected 3")
+    return figs
+
+
 _PHASE = {}
 
 
@@ -785,6 +824,76 @@ def _main_shape_check(mk, key, spec, params, mode, label=None, count=None,
     share, err = _compare(f"{label or key} {MAIN_W}x{MAIN_H}, bounces {BOUNCES} "
                           f"frame 0", kernel, plain, exact=True)
     return share, err, plain_ms
+
+
+def _quotient_phase(mk, ts, dev):
+    """K1's hoisted quotient on the card (quotient_check) against
+    __fdiv_rn over QUOTIENT_PAIRS seeded triples and the edge values: no
+    quotient in the kernel's range may differ, and no edge that must take
+    the division may be in it.  Returns (triples, in range)."""
+    import numpy as np
+    import torch
+
+    b, o, d = ts.quotient_triples(QUOTIENT_PAIRS, QUOTIENT_SEED)
+    eb, eo, ed, must = ts.quotient_edges()
+    b, o, d = (torch.from_numpy(np.concatenate(a)).to(dev)
+               for a in ((b, eb), (o, eo), (d, ed)))
+    q_fast, q_div, in_range = mk.quotient_check(b, o, d)
+    torch.cuda.synchronize()
+    off = (q_fast.view(torch.int32) != q_div.view(torch.int32)) & in_range
+    edges = in_range[-len(must):]
+    wrong_edges = int((edges & torch.from_numpy(must).to(dev)).sum())
+    print(f"check K1 quotient: {b.numel()} triples ({len(must)} edges), "
+          f"{int(in_range.sum())} in the hoisted range, {int(off.sum())} "
+          f"differ from __fdiv_rn; {wrong_edges} edges that must divide "
+          f"are in the range")
+    if int(off.sum()) or wrong_edges:
+        raise AssertionError("the hoisted quotient is not the division")
+    return b.numel(), int(in_range.sum())
+
+
+def _lane_stats(mk, pf, ts, spec, params, mode, label, gpu):
+    """K1's lane statistics at the main path's shape, frame 0: the STATS
+    kernel under the refill schedule and under the old one (a warp per
+    16x2 tile), and the old schedule's fill from the kernel's debug 3 frame
+    (app/profiling.py:lane_fill); both schedules cast the same lanes, and
+    the old one's counts are the debug 3 frame's exactly."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.constants import DEFAULT_FOV
+    from compute_path_tracer_tpu_torch.render.baked import bake
+
+    layout = ts.build_soa_smem_layout(spec)
+    with torch.no_grad():
+        soa_f, soa_i = ts.pack_soa_smem(layout, bake(spec, params), params)
+    accum = torch.zeros((MAIN_H, MAIN_W, 3), device=params.device)
+    out = {}
+    for per_tile in (False, True):
+        st = torch.zeros(len(mk.LANE_STATS), dtype=torch.int64,
+                         device=params.device)
+        mk.launch_megakernel(layout, soa_f, soa_i, accum, frame=0,
+                             last_clear=0, bounces=BOUNCES, fov=DEFAULT_FOV,
+                             aspect=MAIN_W / MAIN_H, debug=0, lane_stats=st,
+                             per_tile=per_tile)
+        s = dict(zip(mk.LANE_STATS, st.tolist()))
+        s["fill"] = s["lane_casts"] / (32 * s["warp_casts"])
+        s["shapes_per_warp_cast"] = s["warp_shapes"] / s["warp_casts"]
+        out["per_tile" if per_tile else "refill"] = s
+    d3 = mk.render_frame_megakernel(spec, params, width=MAIN_W, height=MAIN_H,
+                                    bounces=BOUNCES, debug=3, **mode)
+    out["debug3"] = pf.lane_fill(d3, BOUNCES)
+    refill, tile = out["refill"], out["per_tile"]
+    print(f"{label} lanes at {MAIN_W}x{MAIN_H}, frame 0: fill {refill['fill']:.4f} "
+          f"with refill, {tile['fill']:.4f} a warp per tile (debug 3's "
+          f"{out['debug3']['fill']:.4f}); shapes some lane entered per warp "
+          f"cast {refill['shapes_per_warp_cast']:.2f} ({tile['shapes_per_warp_cast']:.2f} "
+          f"a warp per tile), per lane cast {refill['lane_shapes'] / refill['lane_casts']:.2f}; "
+          f"{refill['lane_casts']} lane casts, {refill['slow_casts']} by the "
+          f"division [{gpu}]")
+    if (refill["lane_casts"] != tile["lane_casts"]
+            or abs(tile["fill"] - out["debug3"]["fill"]) > 1e-12):
+        raise AssertionError(f"{label}: lane statistics {out}")
+    return out
 
 
 def _cube_scene():
@@ -1192,6 +1301,103 @@ def _k4_band_check(tm, spec, params, dev):
     _k4_lists(name, *ws, mode.b1)
 
 
+def _k4_check_cases(dev):
+    """K4 against its plain version at CHECK_W x CHECK_H (``_k4_checks``'
+    cases and the band check); returns (max |gradient diff| of the march and
+    analytic_all cases, of the analytic_unboxed cases)."""
+    from compute_path_tracer_tpu_torch.kernels import train as tm
+    from compute_path_tracer_tpu_torch.scene import (
+        benchmark_scene, compile_scene, csg_demo, edge_demo,
+        params_from_numpy, sphere_and_plane)
+
+    def compiled(scene):
+        cs = compile_scene(scene)
+        return cs.spec, params_from_numpy(cs.params, cs.spec, dev)
+
+    bench, csg = compiled(benchmark_scene(N_PRIMS)), compiled(csg_demo())
+    sap, cube = compiled(sphere_and_plane()), compiled(_cube_scene())
+    edge_sc = compiled(edge_demo())
+    k4_err = _k4_checks(tm, (
+        ("K4 winner, march, sphere_and_plane", sap, {}, 2),
+        ("K4 winner, march + edge + secondary, sphere_and_plane", sap,
+         dict(edge_grad=True, edge_secondary=True), 2),
+        ("K4 winner, march", bench, {}, BOUNCES),
+        ("K4 winner, march + edge", bench, dict(edge_grad=True), BOUNCES),
+        ("K4 winner, march + edge + secondary", bench,
+         dict(edge_grad=True, edge_secondary=True), BOUNCES),
+        ("K4 winner, analytic_all + edge", bench, FUSED_MAIN, BOUNCES),
+        ("K4 winner, analytic_all + edge, spp 2", bench,
+         dict(FUSED_MAIN, spp=2), BOUNCES),
+        ("K4 map-vjp csg_demo, march", csg, {}, BOUNCES),
+        ("K4 map-vjp csg_demo, march + edge + secondary", csg,
+         dict(edge_grad=True, edge_secondary=True), BOUNCES),
+        ("K4 edge_demo, bounces 0 + edge", edge_sc, dict(edge_grad=True), 0),
+    ), dev)
+    k4b_err = _k4_checks(tm, (
+        ("K4 winner, analytic_unboxed", bench, FUSED_UNBOXED, BOUNCES),
+        ("K4 winner, analytic_unboxed + edge", bench,
+         dict(FUSED_UNBOXED, edge_grad=True), BOUNCES),
+        ("K4 winner, analytic_unboxed + edge + secondary", bench,
+         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), BOUNCES),
+        ("K4 map-vjp csg_demo, analytic_unboxed", csg, FUSED_UNBOXED, BOUNCES),
+        # Images bit-equal to the plain version's, so the tight gates hold
+        # the secondary exclusion march over the skipped shapes: every shape
+        # of the cube scene is skipped, csg_demo's plane and lamp are.
+        ("K4 winner guard-less cube, analytic_unboxed + edge + secondary",
+         cube, dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True),
+         BOUNCES),
+        ("K4 map-vjp csg_demo, analytic_unboxed + edge + secondary", csg,
+         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), BOUNCES),
+    ), dev)
+    _k4_band_check(tm, *bench, dev)
+    return k4_err, k4b_err
+
+
+# The K4 checks at CHECK_W x CHECK_H run in a process of their own (this
+# script with K4_CHILD), started after the build beside the kernel checks of
+# K1-K6 and joined before the first timed phase: both are host-bound plain
+# passes, and together they took a third of the script's time.
+K4_CHILD = "--k4-checks"
+
+
+def _k4_child() -> int:
+    """K4_CHILD's process: ``_k4_check_cases`` on the card, its result as
+    a JSON last line."""
+    import torch
+
+    t0 = time.perf_counter()
+    k4_err, k4b_err = _k4_check_cases(torch.device("cuda"))
+    print(json.dumps({"k4_err": k4_err, "k4b_err": k4b_err,
+                      "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def _start_k4_child():
+    """Starts K4_CHILD's process, its output to a temporary file; it is
+    killed at exit if it still runs."""
+    import atexit
+
+    log = tempfile.TemporaryFile(mode="w+")
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              K4_CHILD], stdout=log,
+                             stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: child.poll() is None and child.kill())
+    return child, log
+
+
+def _join_k4_child(child, log):
+    """Waits for K4_CHILD's process, prints its output and returns its
+    result; raises if it failed."""
+    rc = child.wait()
+    log.seek(0)
+    out = log.read()
+    log.close()
+    print(out, end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"the K4 checks' process failed ({rc})")
+    return json.loads(out.strip().splitlines()[-1])
+
+
 def _edge_cull_count(spec, params, dev):
     """Primary rays at CHECK_W x CHECK_H whose closest approach (d_min,
     t_min, i_min) differs between the exact march K4's edge term takes and
@@ -1306,6 +1512,8 @@ def main() -> int:
     start = time.perf_counter()
     import torch
 
+    if sys.argv[1:] == [K4_CHILD]:
+        return _k4_child()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; run this on an NVIDIA GPU",
               file=sys.stderr)
@@ -1339,6 +1547,7 @@ def main() -> int:
     from compute_path_tracer_tpu_torch.render.program import (
         build_program, program_table)
     from compute_path_tracer_tpu_torch.render.session import RenderSession
+    from compute_path_tracer_tpu_torch.render import soa as ts
     from compute_path_tracer_tpu_torch.render.soa import (
         build_soa_smem_layout, pack_soa_smem)
     from compute_path_tracer_tpu_torch.scene import (
@@ -1349,7 +1558,7 @@ def main() -> int:
     dev = torch.device("cuda")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
-    print(f"gpu: {gpu}")
+    print(f"gpu: {gpu}; compute mode {pf.gpu_line('compute_mode')}")
 
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1357,6 +1566,8 @@ def main() -> int:
     mk.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path}")
     walk_ptxas = _ptxas_walk(build)
+    k1_ptxas = _ptxas_k1(build)
+    k4_child = _start_k4_child()
 
     def compiled(scene):
         cs = compile_scene(scene)
@@ -1367,6 +1578,9 @@ def main() -> int:
     glass, clobber = compiled(glass_demo()), compiled(_clobber_scene())
     gen = torch.Generator(device="cpu").manual_seed(0)
     prior = torch.rand((CHECK_H, CHECK_W, 3), generator=gen).to(dev)
+
+    _stamp(start, "K1 quotient")
+    quotient = _quotient_phase(mk, ts, dev)
 
     _stamp(start, "K1 checks")
     # -- K1 against its plain version, on the card --------------------------
@@ -1382,6 +1596,18 @@ def main() -> int:
         ("K1 glass_demo, refraction", glass, b8, None, 5e-3),
         ("K1 clobber scene, ancestor guards", clobber, b8, None, 5e-3),
     ))
+    # The persistent schedule's edge tiles: a frame that is not a multiple
+    # of the 16x2 tile in either direction.
+    rw, rh = K1_RAGGED
+    before = mk.LAUNCHES["megakernel_analytic"]
+    k = mk.render_frame_megakernel(*bench, width=rw, height=rh, **b8)
+    p = mk.render_frame_megakernel_plain(*bench, width=rw, height=rh, **b8)
+    torch.cuda.synchronize()
+    if mk.LAUNCHES["megakernel_analytic"] - before != 1:
+        raise AssertionError("the ragged K1 check did not launch K1")
+    k1_err = max(k1_err, _compare(f"K1 {rw}x{rh}, ragged tiles", k, p,
+                                  exact=True)[1])
+    del k, p
 
     _stamp(start, "K2 checks")
     # -- K2 against its plain version, on the card --------------------------
@@ -1554,6 +1780,9 @@ def main() -> int:
                                   exact=True)[1])
     del k, p
 
+    _stamp(start, "joining the K4 checks")
+    k4_checks = _join_k4_child(*k4_child)
+
     _stamp(start, "K1 main path")
     # -- K1 main path: RenderSession at 1080p, full-analytic ---------------
     sess = RenderSession(benchmark_scene(N_PRIMS), MAIN_W, MAIN_H,
@@ -1585,6 +1814,7 @@ def main() -> int:
     print(f"K1 layers at {MAIN_W}x{MAIN_H}: bake+pack {bake_ms:.3f} ms, kernel "
           f"{k1_ms:.3f} ms, plain torch frame {k1_plain_ms:.3f} ms while "
           f"counting [{gpu}]")
+    k1_lanes = _lane_stats(mk, pf, ts, spec, sp, ANALYTIC, "K1", gpu)
 
     # -- a value edit: same spec object, changed image ----------------------
     spec_before = sess.compiled.spec
@@ -1786,7 +2016,9 @@ def main() -> int:
         k5_err[n] = max(k5_err[n], main_err)
         bound, by = pf.bound_ms(frame_bytes + 4 * nlayout.f_len,
                                 pf.soa_ops(count["segments"], nlayout), peak)
-        k5[n] = (launches, ms, plain_ms, bound, by, share)
+        k5[n] = (launches, ms, plain_ms, bound, by, share,
+                 _lane_stats(mk, pf, ts, nspec, nparams, SOA,
+                             f"K5 {n} prims", gpu))
         print(f"K5 layers at {MAIN_W}x{MAIN_H}, {n} prims: kernel {ms:.3f} ms, "
               f"plain torch frame {plain_ms:.3f} ms while counting; "
               f"{count['segments']} segments, tables {4 * nlayout.f_len} + "
@@ -2158,42 +2390,9 @@ def main() -> int:
     del kept
 
     _stamp(start, "K4 checks")
-    # -- K4 against its plain version, on the card --------------------------
-    edge_sc = compiled(edge_demo())
-    k4_err = _k4_checks(tm, (
-        ("K4 winner, march, sphere_and_plane", sap, {}, 2),
-        ("K4 winner, march + edge + secondary, sphere_and_plane", sap,
-         dict(edge_grad=True, edge_secondary=True), 2),
-        ("K4 winner, march", bench, {}, BOUNCES),
-        ("K4 winner, march + edge", bench, dict(edge_grad=True), BOUNCES),
-        ("K4 winner, march + edge + secondary", bench,
-         dict(edge_grad=True, edge_secondary=True), BOUNCES),
-        ("K4 winner, analytic_all + edge", bench, FUSED_MAIN, BOUNCES),
-        ("K4 winner, analytic_all + edge, spp 2", bench,
-         dict(FUSED_MAIN, spp=2), BOUNCES),
-        ("K4 map-vjp csg_demo, march", csg, {}, BOUNCES),
-        ("K4 map-vjp csg_demo, march + edge + secondary", csg,
-         dict(edge_grad=True, edge_secondary=True), BOUNCES),
-        ("K4 edge_demo, bounces 0 + edge", edge_sc, dict(edge_grad=True), 0),
-    ), dev)
-    k4b_err = _k4_checks(tm, (
-        ("K4 winner, analytic_unboxed", bench, FUSED_UNBOXED, BOUNCES),
-        ("K4 winner, analytic_unboxed + edge", bench,
-         dict(FUSED_UNBOXED, edge_grad=True), BOUNCES),
-        ("K4 winner, analytic_unboxed + edge + secondary", bench,
-         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), BOUNCES),
-        ("K4 map-vjp csg_demo, analytic_unboxed", csg, FUSED_UNBOXED, BOUNCES),
-        # Images bit-equal to the plain version's, so the tight gates hold
-        # the secondary exclusion march over the skipped shapes: every shape
-        # of the cube scene is skipped, csg_demo's plane and lamp are.
-        ("K4 winner guard-less cube, analytic_unboxed + edge + secondary",
-         cube, dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True),
-         BOUNCES),
-        ("K4 map-vjp csg_demo, analytic_unboxed + edge + secondary", csg,
-         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), BOUNCES),
-    ), dev)
-
-    _k4_band_check(tm, *bench, dev)
+    # -- K4 against its plain version, on the card (the CHECK_W x CHECK_H
+    # cases ran in K4_CHILD's process) -----------------------------------
+    k4_err, k4b_err = k4_checks["k4_err"], k4_checks["k4b_err"]
 
     n, nd, nid, nnear, ndnear = _edge_cull_count(spec, sp, dev)
     print(f"K4 edge term, {CHECK_W}x{CHECK_H} primary rays: {nd} of {n} would "
@@ -2386,7 +2585,10 @@ def main() -> int:
          "launches": k1_launches, "max_abs_err": k1_err,
          "main_shape_share_off": k1_share, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None},
+         "library_ms": None,
+         "state": "redesigned: staged records, refill, hoisted reciprocal",
+         "lanes": k1_lanes, "quotient_triples": quotient,
+         "ptxas": k1_ptxas},
         {"name": "megakernel_march", "route": "cuda",
          "source": csrc + "megakernel_march.cu", "replaces": replaces,
          "launches": k2_launches, "max_abs_err": k2_err,
@@ -2436,7 +2638,9 @@ def main() -> int:
          "route": "cuda", "source": csrc + "megakernel_analytic.cu",
          "replaces": replaces, "launches": k5[n][0], "max_abs_err": k5_err[n],
          "main_shape_share_off": k5[n][5], "ms": k5[n][1], "plain_ms": k5[n][2], "bound_ms": k5[n][3],
-         "bound_by": k5[n][4], "library_ms": None} for n in SOA_PRIMS] + [
+         "bound_by": k5[n][4], "library_ms": None,
+         "state": "redesigned: staged records, refill, hoisted reciprocal",
+         "lanes": k5[n][6]} for n in SOA_PRIMS] + [
         {"name": "megakernel_march (K6: dist_grid)", "route": "cuda",
          "source": csrc + "megakernel_march.cu", "replaces": replaces,
          "launches": k6_launches, "max_abs_err": k6_err,

@@ -358,6 +358,28 @@ def group_stats(img, group=WARP) -> np.ndarray:
     return img[::gh, ::gw].reshape(-1, 3).double().cpu().numpy()
 
 
+def lane_fill(img, bounces: int, group=WARP) -> dict:
+    """The lane fill of a frame cast one thread a pixel, from its debug 3
+    image (K1's or the plain frame's): each pixel's casts, ``min(i_exit + 1,
+    bounces + 1)`` with i_exit = its value x ``bounces``, and per ``group``
+    of pixels (a warp of the old K1 schedule, K2's 16x2 by default: the
+    warp ran until its longest path ended) the longest lane's.
+    ``fill`` is the lanes' casts over the group's lanes x its casts;
+    ``mean_casts`` per pixel and ``mean_longest`` per group.  ``bounces``
+    must be at least 1."""
+    gh, gw = group
+    i_exit = torch.round(img[..., 0].double() * bounces).long()
+    casts = torch.clamp(i_exit + 1, max=bounces + 1)
+    h, w = casts.shape
+    pad = casts.new_zeros((-(-h // gh) * gh, -(-w // gw) * gw))
+    pad[:h, :w] = casts
+    longest = pad.view(pad.shape[0] // gh, gh, pad.shape[1] // gw, gw).amax(
+        dim=(1, 3))
+    return {"fill": float(casts.sum()) / (gh * gw * float(longest.sum())),
+            "mean_casts": float(casts.double().mean()),
+            "mean_longest": float(longest.double().mean())}
+
+
 def measured_frame_cost(spec, params, *, width, height, bounces,
                         geometry="baked", t_cull=True, frame=1, group=WARP):
     """A frame's executed work, from debug 4 of the march (JAX: per tile of

@@ -3,14 +3,16 @@ checkouts on one card.
 
 Builds this checkout (B) and another one (A, a directory holding an
 unpacked commit, e.g. from ``git archive``) and times, in one process per
-run, alternated A B B A, the kernel launches of K1 (``analytic_all``), K2
+run, alternated A B B A, the kernel launches of K1 (``analytic_all``), K5
+(``analytic_soa`` on the 256- and 512-primitive benchmark scenes), K2
 (faithful and baked t-culled), K2b (``analytic_unboxed``, and ``omega``
 1.6: RELAX), debug 4, K6 (``dist_grid``), K3 (``march_rays`` as the
 training path calls it: t-culled with the normal, on the 1080p primary rays
 and on the rays that survive their bounce of a plain ``path_trace``) and K4
 (the five fused configurations of ``bench.py``) at 1920x1080, 8 bounces, on
-the 64-primitive benchmark scene, by CUDA events around each launch (a
-warm-up call first).  Every output of every run is hashed, and A's and B's
+the 64-primitive benchmark scene unless stated, by CUDA events around each
+launch (a warm-up call first); ``--only REGEX`` times only the rows whose
+name matches.  Every output of every run is hashed, and A's and B's
 must be the same bit for bit: the frames, K3's t, ids and normals, and
 K4's image and its (shape, channel) sums, which the kernel adds in a fixed
 order (the gradient's atomics are torch's, outside the kernel).  It also
@@ -19,11 +21,11 @@ tells, for each kernel function of the two builds, whether its SASS
 (``cuobjdump -sass``) is the same, so a change to shared device code can be
 seen to leave a kernel alone (a kernel in one build only is matched to one
 of the other's with the same SASS: a rename), and prints ptxas's
-registers, stack frame and spills of the marching kernels (K2's, RELAX's,
-K6's, K3's, K4's) in both.  Run on a
+registers, stack frame and spills of K1's and the marching kernels
+(K2's, RELAX's, K6's, K3's, K4's) in both.  Run on a
 machine with an NVIDIA GPU and the CUDA toolkit:
 
-    python -m compute_path_tracer_tpu_torch.benchmarks.kernel_ab OTHER_DIR
+    python -m compute_path_tracer_tpu_torch.benchmarks.kernel_ab OTHER_DIR [--only REGEX]
 """
 
 from __future__ import annotations
@@ -42,13 +44,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 W, H, BOUNCES, N_PRIMS, REPS = 1920, 1080, 8, 64, 5
 MARCH = dict(geometry="baked", t_cull=True)
-FRAMES = (("K1 analytic_all", dict(geometry="baked", analytic_all=True)),
-          ("K2 faithful", dict(geometry="faithful")),
-          ("K2", MARCH),
-          ("K2b analytic_unboxed", dict(MARCH, analytic_unboxed=True)),
-          ("K2b omega 1.6", dict(MARCH, omega=1.6)),
-          ("K2 debug 4", dict(MARCH, debug=4)),
-          ("K6 dist_grid", dict(MARCH, dist_grid=True)))
+SOA = dict(geometry="baked", analytic_soa=True)
+# (row, mode, primitives of the benchmark scene)
+FRAMES = (("K1 analytic_all", dict(geometry="baked", analytic_all=True), N_PRIMS),
+          ("K5 analytic_soa 256", SOA, 256),
+          ("K5 analytic_soa 512", SOA, 512),
+          ("K2 faithful", dict(geometry="faithful"), N_PRIMS),
+          ("K2", MARCH, N_PRIMS),
+          ("K2b analytic_unboxed", dict(MARCH, analytic_unboxed=True), N_PRIMS),
+          ("K2b omega 1.6", dict(MARCH, omega=1.6), N_PRIMS),
+          ("K2 debug 4", dict(MARCH, debug=4), N_PRIMS),
+          ("K6 dist_grid", dict(MARCH, dist_grid=True), N_PRIMS))
 STEPS = (("K4 analytic_all + edge_grad", dict(analytic_all=True, edge_grad=True)),
          ("K4 march + edge_grad", dict(edge_grad=True)),
          ("K4 march + edge_grad + edge_secondary",
@@ -59,8 +65,8 @@ RAYS = ("K3 primary", "K3 survivors")
 # The anonymous namespace's name in a mangled kernel name hashes the file.
 ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_[0-9]+_\w+?_cu_[0-9a-f]+")
 # The marching kernels, for ptxas's figures.
-WALKERS = re.compile(r"megakernel_walk|megakernel_grid|megakernel_relax|"
-                     r"march_rays|train_fused")
+WALKERS = re.compile(r"megakernel_analytic|megakernel_walk|megakernel_grid|"
+                     r"megakernel_relax|march_rays|train_fused")
 
 
 def _sass(root: str) -> dict:
@@ -139,9 +145,10 @@ def _rays(root: str, out: str) -> dict:
     return {k: v[0].shape[0] for k, v in sets.items()}
 
 
-def _times(root: str, rays: str) -> dict:
+def _times(root: str, rays: str, only: str) -> dict:
     """{"ms": {kernel: sorted ms of REPS launches}, "hash": {kernel: digest
-    of its last output}} with ``root``'s package, K3 on ``rays``."""
+    of its last output}} with ``root``'s package, K3 on ``rays``, for the
+    rows whose name matches ``only``."""
     sys.path.insert(0, root)
     import torch
     from compute_path_tracer_tpu_torch.kernels import march as km
@@ -156,8 +163,12 @@ def _times(root: str, rays: str) -> dict:
     from compute_path_tracer_tpu_torch.vecmath import Vec3
 
     dev = torch.device("cuda")
-    cs = compile_scene(benchmark_scene(N_PRIMS))
-    params = params_from_numpy(cs.params, cs.spec, dev)
+    scenes = {}
+    for n in {n for _, _, n in FRAMES}:
+        c = compile_scene(benchmark_scene(n))
+        scenes[n] = (c.spec, params_from_numpy(c.params, c.spec, dev))
+    spec, params = scenes[N_PRIMS]
+    pick = re.compile(only)
     last = {}
 
     def launches(mod, attr, fn):
@@ -187,22 +198,27 @@ def _times(root: str, rays: str) -> dict:
         return sorted(a.elapsed_time(b) for a, b in events), res, outs[0]
 
     out = {}
-    for key, mode in FRAMES:
+    for key, mode, n in FRAMES:
+        if not pick.search(key):
+            continue
         launcher = ("launch_megakernel" if mode.get("analytic_all")
-                    else "launch_march")
+                    or mode.get("analytic_soa") else "launch_march")
         out[key], frame, _ = launches(
             mk, launcher, lambda: mk.render_frame_megakernel(
-                cs.spec, params, width=W, height=H, bounces=BOUNCES, **mode))
+                *scenes[n], width=W, height=H, bounces=BOUNCES, **mode))
         last[key] = _digest(frame)
-    prog = build_program(cs.spec, "baked")
+    prog = build_program(spec, "baked")
     with torch.no_grad():
         table = program_table(prog, params, True)
-        grid = make_dist_grid(cs.spec, bake(cs.spec, params))
+        grid = make_dist_grid(spec, bake(spec, params))
     grid_stats = torch.zeros(5, dtype=torch.int64, device=dev)
     mk.launch_march(prog, table, torch.zeros((H, W, 3), device=dev), frame=0,
                     last_clear=0, bounces=BOUNCES, fov=1.0, aspect=W / H,
                     debug=0, t_cull=True, grid=grid, grid_stats=grid_stats)
-    for key, c in torch.load(rays).items():
+    for key, c in (torch.load(rays).items()
+                   if any(pick.search(k) for k in RAYS) else ()):
+        if not pick.search(key):
+            continue
         c = [t.to(dev) for t in c]
         out[key], (t, idx, n), _ = launches(
             km, "march_rays", lambda: km.march_rays(
@@ -211,7 +227,9 @@ def _times(root: str, rays: str) -> dict:
         last[key] = _digest(t, idx, *n)
     target = torch.zeros((H, W, 3), device=dev)
     for key, kw in STEPS:
-        step = tm.make_fused_value_and_grad(cs.spec, target, width=W, height=H,
+        if not pick.search(key):
+            continue
+        step = tm.make_fused_value_and_grad(spec, target, width=W, height=H,
                                             bounces=BOUNCES, **kw)
         out[key], _, fused = launches(tm, "launch_train_fused",
                                       lambda: step(params))
@@ -254,13 +272,15 @@ def _child(mode: str, root: str, *extra) -> tuple:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", nargs="?", help="the A checkout's directory")
+    ap.add_argument("--only", default="",
+                    help="time only the rows whose name matches this regex")
     ap.add_argument("--times", help=argparse.SUPPRESS)
     ap.add_argument("--sass", help=argparse.SUPPRESS)
     ap.add_argument("--rays", help=argparse.SUPPRESS)
     ap.add_argument("--file", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.times:
-        print(json.dumps(_times(args.times, args.file)))
+        print(json.dumps(_times(args.times, args.file, args.only)))
         return 0
     if args.sass or args.rays:
         print(json.dumps(_sass(args.sass) if args.sass
@@ -291,11 +311,13 @@ def main() -> int:
             print(f"ptxas {label} {k}: {v}")
     with tempfile.TemporaryDirectory() as tmp:
         rays = str(Path(tmp) / "rays.pt")
-        counts = _child("rays", roots["B"], "--file", rays)[0]
-        print(f"K3 rays: {counts}", flush=True)
+        if any(re.search(args.only, k) for k in RAYS):
+            counts = _child("rays", roots["B"], "--file", rays)[0]
+            print(f"K3 rays: {counts}", flush=True)
         runs = {"A": [], "B": []}
         for label in "ABBA":
-            runs[label].append(_child("times", roots[label], "--file", rays)[0])
+            runs[label].append(_child("times", roots[label], "--file", rays,
+                                      "--only", args.only)[0])
             print(f"run {label}: " + json.dumps(runs[label][-1]), flush=True)
     summary = {}
     for key in runs["A"][0]["ms"]:

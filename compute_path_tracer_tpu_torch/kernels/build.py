@@ -144,7 +144,10 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.cpt_megakernel_analytic
-    fn.argtypes = [p, p, p, i, p, i, p, i, i, i, i, i, f, f, i, p]
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, i, p, p, i, p]
+    fn.restype = ctypes.c_int
+    fn = lib.cpt_quotient_check
+    fn.argtypes = [p, p, p, i, p, p, p, p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_megakernel_march
     fn.argtypes = ([p, i, p, i, i, i, i, i, i, f, p, i, i, i, i, i, f, f, i]

@@ -1,10 +1,11 @@
-// K1's closed-form bounce, shared by the full-analytic megakernel
-// (megakernel_analytic.cu) and the fused train step (train_fused.cu): the
+// The closed-form bounce: each leaf's closed-form hit and exact normal,
+// shared by the full-analytic megakernel (megakernel_analytic.cu, whose
+// cast over the scene staged in shared memory is analytic_staged.cuh's)
+// and the fused train step (train_fused.cu), and the fused step's cast: the
 // nearest closed-form hit over the packed tables of render/soa.py, with the
-// AABB membership and the first-shape clobber, and the winner's exact
-// normal.  The parity decisions are in the note at the head of
-// megakernel_analytic.cu; everything here has internal linkage, so each
-// kernel's translation unit carries its own copy.
+// AABB membership and the first-shape clobber.  The parity decisions are in
+// the note at the head of megakernel_analytic.cu; everything here has
+// internal linkage, so each kernel's translation unit carries its own copy.
 
 #pragma once
 

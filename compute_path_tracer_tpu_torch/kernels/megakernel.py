@@ -86,11 +86,16 @@ from ..render.soa import (
     SoaSmemLayout,
     _kind_normal,
     _kind_t,
+    analytic_smem_bytes,
     build_soa_smem_layout,
+    build_staged_layout,
     make_cast_soa,
     make_normal_soa,
     material_table,
     pack_soa_smem,
+    recip_in_range,
+    recip_quotient_plain,
+    staged_src_on,
 )
 from ..scene.compile import SceneSpec
 from ..scene.model import KIND_SPHERE
@@ -738,7 +743,8 @@ def _check_table(name, t, dtype, n, device) -> None:
 @lru_cache(maxsize=32)
 def _kernel_meta(layout: SoaSmemLayout, device: torch.device):
     """Per-kind records and the shape id -> (kind, geometry row offset)
-    lookup the kernel reads, as int32 tensors on ``device``."""
+    lookup the fused step's cast reads (kernels/train.py), as int32 tensors
+    on ``device``."""
     kmeta = np.asarray(
         [[kd.kind, kd.n, kd.w, kd.a, kd.f_geom, kd.f_aabb, kd.f_anc,
           kd.i_sid, kd.i_guard, kd.i_anc_valid] for kd in layout.kinds],
@@ -753,32 +759,99 @@ def _kernel_meta(layout: SoaSmemLayout, device: torch.device):
             torch.as_tensor(sid_lut, device=device))
 
 
+# Fields of K1's lane statistics (launch_megakernel's lane_stats; the
+# kernel's ST_* slots): warp casts, lane casts, per warp cast the shapes some
+# lane entered, per lane cast the shapes it entered, lane casts that took
+# the plain division.
+LANE_STATS = ("warp_casts", "lane_casts", "warp_shapes", "lane_shapes",
+              "slow_casts")
+
+# K1's tile counter, one int32 per (device, stream), made at the first
+# launch there: launches on one stream run in order, and the kernel's entry
+# point zeroes the counter on the stream before each one.
+_TILE_NEXT = {}
+
+
+def _tile_next(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device, stream)
+    if key not in _TILE_NEXT:
+        _TILE_NEXT[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TILE_NEXT[key]
+
+
 def launch_megakernel(layout: SoaSmemLayout, soa_f: torch.Tensor,
                       soa_i: torch.Tensor, accum: torch.Tensor, *, frame: int,
                       last_clear: int, bounces: int, fov: float, aspect: float,
-                      debug: int) -> None:
+                      debug: int, lane_stats: torch.Tensor = None,
+                      per_tile: bool = False) -> None:
     """Launch K1 on packed tables (``pack_soa_smem``) and a CUDA (H, W, 3)
     float32 accumulator, on the current stream; counts the launch in
-    ``LAUNCHES["megakernel_analytic"]``."""
+    ``LAUNCHES["megakernel_analytic"]``.  Each block stages the scene in
+    shared memory (``analytic_smem_bytes``, which raises for a scene too
+    large).  ``lane_stats``, a zeroed int64 CUDA tensor of
+    ``len(LANE_STATS)``, runs the kernel's STATS instantiation, which adds
+    the frame's lane statistics; ``per_tile`` takes them under the
+    schedule without refill (a warp per 16x2 tile of pixels)."""
     if debug not in (0, 3):
         raise ValueError(f"the kernel renders debug 0 or 3, not {debug}")
+    if per_tile and lane_stats is None:
+        raise ValueError("per_tile needs lane_stats")
+    analytic_smem_bytes(layout)
     _check_accum(accum)
     device = accum.device
     height, width = accum.shape[0], accum.shape[1]
     _check_table("soa_f", soa_f, torch.float32, layout.f_len, device)
     _check_table("soa_i", soa_i, torch.int32, layout.i_len, device)
-    kmeta, sid_lut = _kernel_meta(layout, device)
+    if lane_stats is not None:
+        _check_table("lane_stats", lane_stats, torch.int64, len(LANE_STATS),
+                     device)
+    staged = build_staged_layout(layout)
+    src = staged_src_on(layout, device)
     lib = load_library()
     with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.cpt_megakernel_analytic(
-            soa_f.data_ptr(), soa_i.data_ptr(), kmeta.data_ptr(),
-            len(layout.kinds), sid_lut.data_ptr(), layout.f_mat,
-            accum.data_ptr(), width, height, int(frame), int(last_clear),
-            int(bounces), float(fov), float(aspect), int(debug),
-            torch.cuda.current_stream(device).cuda_stream)
+            soa_f.data_ptr(), soa_i.data_ptr(), src.data_ptr(),
+            staged.meta.ctypes.data, accum.data_ptr(), width, height,
+            int(frame), int(last_clear), int(bounces), float(fov),
+            float(aspect), int(debug), _tile_next(device, stream).data_ptr(),
+            None if lane_stats is None else lane_stats.data_ptr(),
+            int(bool(per_tile)), stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     LAUNCHES["megakernel_analytic"] += 1
+
+
+def quotient_check(b: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
+    """K1's box-test quotient on float32 triples: ``(q_fast, q_div,
+    in_range)`` for x = b - o, the quotient with the reciprocal of ``d``
+    hoisted (kernels/csrc/analytic_staged.cuh:recip_quotient), the division
+    x / d, and whether (b, o, d) lies in the range where the kernel takes
+    the hoisted quotient.  On CUDA tensors the kernel's
+    ``quotient_check`` computes them (``q_div`` by ``__fdiv_rn``); on CPU
+    tensors :func:`render.soa.recip_quotient_plain` and ``/``."""
+    if b.device.type == "cpu":
+        bn, on, dn = (t.numpy() for t in (b, o, d))
+        x = bn - on
+        with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+            q_div = x / dn
+        return (torch.from_numpy(recip_quotient_plain(x, dn)),
+                torch.from_numpy(q_div),
+                torch.from_numpy(recip_in_range(bn, on, dn)))
+    n = b.shape[0]
+    for name, t in (("b", b), ("o", o), ("d", d)):
+        _check_table(name, t, torch.float32, n, b.device)
+    q_fast, q_div = torch.empty_like(b), torch.empty_like(b)
+    in_range = torch.empty(n, dtype=torch.int32, device=b.device)
+    lib = load_library()
+    with torch.cuda.device(b.device):
+        err = lib.cpt_quotient_check(
+            b.data_ptr(), o.data_ptr(), d.data_ptr(), n, q_fast.data_ptr(),
+            q_div.data_ptr(), in_range.data_ptr(),
+            torch.cuda.current_stream(b.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"quotient_check launch failed: CUDA error {err}")
+    return q_fast, q_div, in_range.bool()
 
 
 def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
