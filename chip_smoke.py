@@ -31,7 +31,7 @@ scene with 8 bounces (the JAX package's bench.py rows):
   each bounce's summed list length and list count at 1080p must be the
   plain model's (render/program.py:warp_records), and their means per
   bounce are printed with ptxas's registers and stack frame of the walk
-  kernels (K2's, K6's, K3's and K4's).
+  kernels (K2's, RELAX's, debug 4's, K6's, K3's and K4's).
 
 and the training path through the ray march K3 (march_rays): K3 against its
 plain version on scattered rays over three scenes and every mode, on a ray
@@ -48,9 +48,10 @@ and the modes of the same two kernels that the last bench.py rows run:
 
 * K2b on K2's binary: ``analytic_unboxed`` (the guard-less shapes
   intersected in closed form, capping the march; bench.py:189) against its
-  plain version on four scenes in debug 0 and 3, ``omega`` 1.6 on baked and
-  faithful geometry, ``omega=1.0`` bit for bit the march without it, and
-  its main path through RenderSession at 1920x1080;
+  plain version on four scenes in debug 0 and 3, ``omega`` 1.6 (RELAX, the
+  over-relaxed march on K2's per-warp walk) on baked and faithful geometry,
+  ``omega=1.0`` bit for bit the march without it, and its main path
+  through RenderSession at 1920x1080;
 * K5 on K1's binary: ``analytic_soa`` (bench.py:275) on
   ``benchmark_scene(256)`` and ``(512)`` against its plain version, bit for
   bit K1's ``analytic_all`` frame at 64 primitives, and its main path at
@@ -68,8 +69,8 @@ and the modes of the same two kernels that the last bench.py rows run:
   them;
 * multi-frame accumulation (``render_accumulated_megakernel``) through K1
   and K2, bit for bit the frames one at a time;
-* debug 4 on K2's binary (its STATS kernel: per-warp march statistics)
-  against the plain reducer (kernels/megakernel.py:MarchStats), all three
+* debug 4 on K2's binary (its STATS kernel: per-warp march statistics,
+  counted over K2's per-warp lists) against the plain reducer (kernels/megakernel.py:MarchStats), all three
   channels bit for bit, on four scenes over geometry, t_cull and
   ``analytic_unboxed``, with partial warps at 200x45, and at 1080p against
   the statistics of the plain pass that also checks K2's 1080p frame; its
@@ -658,8 +659,8 @@ def _short(name):
     that is no template: its name); None for another kernel."""
     import re
 
-    m = re.search(r"\d+(megakernel_walk|megakernel_grid|march_rays|"
-                  r"train_fused)(?:I(.+?)EEv|E)", name)
+    m = re.search(r"\d+(megakernel_walk|megakernel_grid|megakernel_stats|"
+                  r"march_rays|train_fused)(?:I(.+?)EEv|E)", name)
     if m is None:
         return None
     args = re.findall(r"Lb(\d)", m.group(2) or "")
@@ -667,18 +668,18 @@ def _short(name):
 
 
 def _ptxas_walk(build):
-    """ptxas's figures of the walk kernels (K2's megakernel_walk, K6's
-    megakernel_grid, K3's march_rays, K4's train_fused), printed; returns
-    them by short name."""
+    """ptxas's figures of the walk kernels (K2's megakernel_walk<BAKED,
+    TCULL, RELAX>, debug 4's megakernel_stats, K6's megakernel_grid, K3's
+    march_rays, K4's train_fused), printed; returns them by short name."""
     figs = {_short(k): v for k, v in build.ptxas_figures().items()
             if _short(k)}
     for k, v in sorted(figs.items()):
         print(f"ptxas {k}: {v['registers']} registers, {v.get('stack', 0)} "
               f"bytes stack frame, {v.get('spill_stores', 0)} bytes spill "
               f"stores, {v.get('spill_loads', 0)} bytes spill loads")
-    if len(figs) != 15:
+    if len(figs) != 21:
         raise AssertionError(f"ptxas figures of {len(figs)} walk kernels, "
-                             f"expected 15")
+                             f"expected 21")
     return figs
 
 
@@ -2597,7 +2598,7 @@ def main() -> int:
          "library_ms": None, "state": "redesigned, PR 11",
          "mean_list_per_bounce": walk_mean,
          "ptxas": {k: v for k, v in walk_ptxas.items()
-                   if k.startswith("megakernel_walk")}},
+                   if k.startswith("megakernel_walk") and k.endswith(",0>")}},
         {"name": "march_rays", "route": "cuda",
          "source": csrc + "march_rays.cu",
          "replaces": "compute_path_tracer_tpu/kernels/march.py:123",
@@ -2624,7 +2625,11 @@ def main() -> int:
          "max_abs_err": k2b_err, "main_shape_share_off": k2b_share,
          "ms": k2b_ms, "plain_ms": k2b_plain_ms,
          "bound_ms": k2b_bound, "bound_by": k2b_by, "library_ms": None,
-         "state": "redesigned, PR 11 (analytic_unboxed; omega kept)"},
+         "state": "redesigned, PR 14 (omega: RELAX on the per-warp walk; "
+                  "analytic_unboxed in PR 11)",
+         "omega_ms": k2_omega_ms,
+         "ptxas": {k: v for k, v in walk_ptxas.items()
+                   if k.startswith("megakernel_walk") and k.endswith(",1>")}},
         {"name": "train_fused (K2b: analytic_unboxed)", "route": "cuda",
          "source": csrc + "train_fused.cu",
          "replaces": "compute_path_tracer_tpu/kernels/train.py:1018",
@@ -2655,7 +2660,9 @@ def main() -> int:
          "launches": d4_launches, "max_abs_err": d4_err,
          "main_shape_share_off": d4_share, "ms": d4_ms,
          "plain_ms": k2_plain_ms, "bound_ms": d4_bound, "bound_by": d4_by,
-         "library_ms": None}] + [
+         "library_ms": None, "state": "redesigned, PR 14 (per-warp walk)",
+         "ptxas": {k: v for k, v in walk_ptxas.items()
+                   if k.startswith("megakernel_stats")}}] + [
         {"name": name, "route": "cuda", "source": csrc + "march_probes.cu",
          "replaces": f"benchmarks/{name}.py:{line}",
          "launches": sum(probe_runs[name][0].values()),

@@ -6,7 +6,7 @@ unpacked commit, e.g. from ``git archive``) and times, in one process per
 run, alternated A B B A, the kernel launches of K1 (``analytic_all``), K5
 (``analytic_soa`` on the 256- and 512-primitive benchmark scenes), K2
 (faithful and baked t-culled), K2b (``analytic_unboxed``, and ``omega``
-1.6: RELAX), debug 4, K6 (``dist_grid``), K3 (``march_rays`` as the
+1.6: RELAX), debug 4 (the STATS kernel), K6 (``dist_grid``), K3 (``march_rays`` as the
 training path calls it: t-culled with the normal, on the 1080p primary rays
 and on the rays that survive their bounce of a plain ``path_trace``) and K4
 (the five fused configurations of ``bench.py``) at 1920x1080, 8 bounces, on
@@ -22,7 +22,7 @@ tells, for each kernel function of the two builds, whether its SASS
 seen to leave a kernel alone (a kernel in one build only is matched to one
 of the other's with the same SASS: a rename), and prints ptxas's
 registers, stack frame and spills of K1's and the marching kernels
-(K2's, RELAX's, K6's, K3's, K4's) in both.  Run on a
+(K2's, RELAX's, debug 4's, K6's, K3's, K4's) in both.  Run on a
 machine with an NVIDIA GPU and the CUDA toolkit:
 
     python -m compute_path_tracer_tpu_torch.benchmarks.kernel_ab OTHER_DIR [--only REGEX]
@@ -66,7 +66,7 @@ RAYS = ("K3 primary", "K3 survivors")
 ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_[0-9]+_\w+?_cu_[0-9a-f]+")
 # The marching kernels, for ptxas's figures.
 WALKERS = re.compile(r"megakernel_analytic|megakernel_walk|megakernel_grid|"
-                     r"megakernel_relax|march_rays|train_fused")
+                     r"megakernel_relax|megakernel_stats|march_rays|train_fused")
 
 
 def _sass(root: str) -> dict:

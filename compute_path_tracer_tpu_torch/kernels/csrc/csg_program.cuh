@@ -14,17 +14,18 @@
 // from global memory at every map tap and tests each guarded shape's bit
 // per lane: a tap of the 64-primitive benchmark scene loads and skips some
 // 60 records whose box no lane of the warp hits, integer and load work the
-// operation count of app/profiling.py does not see.  The over-relaxed
-// march, debug 4, the probes and the wavefront kernel keep that walk.  K2's
-// plain march (debug 0-3, analytic_unboxed), its grid march (K6), K3 and
+// operation count of app/profiling.py does not see.  Only the probes and
+// the wavefront kernel keep that walk.  Every march of K2 (debug 0-4,
+// analytic_unboxed, the over-relaxed march), its grid march (K6), K3 and
 // K4 take the per-warp walk at the end of this file: the block stages the
 // decoded records and the leaf table in shared memory once (stage_walk),
 // each warp compacts the records its live lanes can need into a list after
 // the bounce's guards (build_warp_list), and the map, the marches and the
-// gradient walk that list (map_walk, march_walk, march_grid_walk,
-// grad_walk) with the same per-lane guard tests and the same arithmetic in
-// the same order, so every lane folds the shapes it folded before and every
-// frame, ray and sum stays bit for bit.
+// gradient walk that list (map_walk, march_walk, march_relax_walk,
+// march_stats_walk, march_grid_walk, grad_walk) with the same per-lane
+// guard tests and the same arithmetic in the same order, so every lane
+// folds the shapes it folded before and every frame, ray, sum and debug-4
+// count stays bit for bit.
 
 #pragma once
 
@@ -199,29 +200,29 @@ __device__ __forceinline__ void fold(int op, float k, float& acc_d, int& acc_i, 
   }
 }
 
-// How map_scene treats a guarded shape: GUARDED skips it where its guard
-// fails; DENSE (the dense march probe, march_probes.cu) evaluates every leaf
-// at every tap and lets the guard select the fold's operand, with no branch;
-// the two COUNT modes (debug 4, megakernel_march.cu STATS) are GUARDED and
-// add one to *tally for each shape that at least one live lane of the warp
-// evaluates: the guarded shapes only (COUNT_BOXED, the march) or every shape
-// (COUNT_ALL, the normal taps).  The COUNT modes take one __ballot_sync
-// over the full warp per shape, so every lane of the warp must walk the
-// program together; a lane that is not live evaluates nothing.
+// How a map treats a guarded shape: GUARDED skips it where its guard fails;
+// DENSE (map_ops only: the dense march probe, march_probes.cu) evaluates
+// every leaf at every tap and lets the guard select the fold's operand,
+// with no branch; the two COUNT modes (map_walk only: debug 4,
+// megakernel_march.cu STATS) are GUARDED and add one to *tally for each
+// listed shape that at least one live lane of the warp evaluates: the
+// guarded shapes only (COUNT_BOXED, the march) or every shape (COUNT_ALL,
+// the normal taps).  The COUNT modes take one __ballot_sync over the full
+// warp per listed shape, so every lane of the warp must walk the list
+// together; a lane that is not live evaluates nothing.
 enum MapMode { GUARDED = 0, DENSE = 1, COUNT_BOXED = 2, COUNT_ALL = 3 };
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-// The scene map at p in mode MAP: interprets the program.  With CULLED a
-// guarded shape marked in box_cull is evaluated only while its interval
-// holds t.  live and tally serve the COUNT modes only.  GUARDED keeps its
-// own guard branch, and map_scene and calc_grad their own signatures, so
-// that the kernels without the other modes compile to the same SASS as
-// before they existed: one merged guard test for every mode cost K4's
-// marching configurations 9-11 % on an H100.
+// The scene map at p in mode MAP (GUARDED or DENSE): interprets the
+// program.  With CULLED a guarded shape marked in box_cull is evaluated only
+// while its interval holds t.  GUARDED keeps its own guard branch, and
+// map_scene and calc_grad their own signatures, so that the kernels without
+// the other mode compile to the same SASS as before it existed: one merged
+// guard test for every mode cost K4's marching configurations 9-11 % on an
+// H100.
 template <bool BAKED, bool TCULL, bool CULLED, int MAP>
 __device__ __forceinline__ float map_ops(const Scene& S, const Guards<TCULL>& g, V3 p, float t,
-                                         int& id, bool live, unsigned* tally) {
-  constexpr bool kCount = MAP == COUNT_BOXED || MAP == COUNT_ALL;
+                                         int& id) {
   float st_d[kMaxDepth];
   int st_i[kMaxDepth];
   V3 st_p[BAKED ? 1 : kMaxDepth];
@@ -255,18 +256,13 @@ __device__ __forceinline__ float map_ops(const Scene& S, const Guards<TCULL>& g,
         }
       }
       bool pass = true;
-      if constexpr (MAP != GUARDED) {
-        if constexpr (kCount) pass = live;
-        if (pass && box >= 0) {
+      if constexpr (MAP == DENSE) {
+        if (box >= 0) {
           pass = g.check(box);
           if constexpr (CULLED) {
             if (pass && __ldg(op + 7)) pass = g.lo[box] <= t && g.hi[box] >= t;
           }
         }
-        if constexpr (kCount) {
-          if ((MAP == COUNT_ALL || box >= 0) && __ballot_sync(kFullWarp, pass)) ++*tally;
-        }
-        if (MAP != DENSE && !pass) continue;
       }
       const int kind = __ldg(op + 1);
       const float* __restrict__ r = F + __ldg(op + 2);
@@ -304,7 +300,7 @@ __device__ __forceinline__ float map_ops(const Scene& S, const Guards<TCULL>& g,
 // The scene map at p (GUARDED, or DENSE for the dense probe).
 template <bool BAKED, bool TCULL, bool CULLED, int MAP = GUARDED>
 __device__ float map_scene(const Scene& S, const Guards<TCULL>& g, V3 p, float t, int& id) {
-  return map_ops<BAKED, TCULL, CULLED, MAP>(S, g, p, t, id, true, nullptr);
+  return map_ops<BAKED, TCULL, CULLED, MAP>(S, g, p, t, id);
 }
 
 // The 80-step march of one ray (cast_ray, or cast_tcull with TCULL);
@@ -333,94 +329,6 @@ __device__ float march(const Scene& S, const Guards<TCULL>& g, V3 ro, V3 rd, int
     if constexpr (TCULL) {
       if (t >= m) m = next_entry(S, g, t);
     }
-  }
-  return t;
-}
-
-// Debug 4's counters of one warp (megakernel_march.cu STATS), the same in
-// every lane: march iterations of the warp (x), guarded shapes evaluated by
-// at least one lane per iteration (y), and shapes evaluated by at least one
-// lane per normal tap (z, six taps a bounce).
-struct WarpStats {
-  unsigned steps, shapes, aux;
-};
-
-// march() of a warp in lockstep, with debug 4's counters: every lane runs
-// the loop while at least one lane of the warp marches (__any_sync over the
-// full warp, so the counts do not depend on how the compiler reconverges),
-// and a lane that is not live, or done, evaluates nothing.  A live lane's t
-// and idx are march()'s.  The counters move with TCULL only, as JAX counts
-// in its t-culled march only.
-template <bool BAKED, bool TCULL>
-__device__ float march_stats(const Scene& S, const Guards<TCULL>& g, V3 ro, V3 rd, int& idx,
-                             float t_cap, bool live, WarpStats& st) {
-  float t = 0.0f;
-  float m = kBig;
-  if constexpr (TCULL) {
-    if (live) m = next_entry(S, g, 0.0f);
-  }
-  idx = -1;
-  bool marching = live;
-  for (int step = 0; step < kSteps; ++step) {
-    if (!__any_sync(kFullWarp, marching)) break;
-    if constexpr (TCULL) ++st.steps;
-    int mi;
-    float d = map_ops<BAKED, TCULL, TCULL, TCULL ? COUNT_BOXED : GUARDED>(
-        S, g, v3(ro.x + rd.x * t, ro.y + rd.y * t, ro.z + rd.z * t), t, mi, marching,
-        &st.shapes);
-    if (!marching) continue;
-    float ad = fabsf(d);
-    float nt = TCULL ? t + nan_min(ad, nan_max(m - t, kMhd)) : t + ad;
-    nt = nan_min(nt, t_cap);
-    bool far = nt > kFar;
-    idx = far ? -1 : mi;
-    t = nt;
-    if (ad < kMhd || far || nt >= t_cap) {
-      marching = false;
-    } else if constexpr (TCULL) {
-      if (t >= m) m = next_entry(S, g, t);
-    }
-  }
-  return t;
-}
-
-// The over-relaxed t-culled march (cast_tcull with omega != 1, JAX
-// _march_while_tcull :785-820): an exterior sample steps min(omega |d|,
-// clamp); when the unbounding spheres of the last two samples stop
-// overlapping (d_prev > 0 and s_prev > d_prev + d, signed) the ray reverts to
-// t_prev + f_prev, the exact march's step from the previous sample, and a hit
-// needs no such overshoot.  A revert moves t back, so the nearest pending
-// entry is recomputed at every step.
-template <bool BAKED>
-__device__ float march_relax(const Scene& S, const Guards<true>& g, V3 ro, V3 rd, int& idx,
-                             float omega, float t_cap) {
-  float t = 0.0f, tp = 0.0f, dp = 0.0f, sp = 0.0f, fp = 0.0f;
-  idx = -1;
-  for (int step = 0; step < kSteps; ++step) {
-    const float m = next_entry(S, g, t);
-    int mi;
-    float d = map_scene<BAKED, true, true>(S, g, v3(ro.x + rd.x * t, ro.y + rd.y * t,
-                                                    ro.z + rd.z * t), t, mi);
-    float ad = fabsf(d);
-    float clamp = nan_max(m - t, kMhd);
-    float exact = nan_min(ad, clamp);
-    bool over = dp > 0.0f && sp > dp + d;
-    float stretch = d > 0.0f ? nan_min(omega * ad, clamp) : exact;
-    float nt = over ? tp + fp : t + stretch;
-    nt = nan_min(nt, t_cap);
-    bool hit = !over && ad < kMhd;
-    bool far = nt > kFar;
-    idx = far ? -1 : mi;
-    if (!over) {
-      tp = t;
-      dp = d;
-      sp = stretch;
-      fp = exact;
-    } else {
-      sp = fp;
-    }
-    t = nt;
-    if (hit || far || nt >= t_cap) break;
   }
   return t;
 }
@@ -529,11 +437,9 @@ __device__ void closest_scan(const Scene& S, V3 ro, V3 rd, float& d_ca, float& t
 }
 
 // Central differences of the map, 6 taps under the bounce's full guards,
-// before normalisation (calc_grad, funcs.glsl:21-35), in map mode MAP
-// (COUNT_ALL: debug 4's z, live and tally as for map_ops).
-template <bool BAKED, bool TCULL, int MAP>
-__device__ __forceinline__ V3 grad_ops(const Scene& S, const Guards<TCULL>& g, V3 p, bool live,
-                                       unsigned* tally) {
+// before normalisation (calc_grad, funcs.glsl:21-35).
+template <bool BAKED, bool TCULL>
+__device__ V3 calc_grad(const Scene& S, const Guards<TCULL>& g, V3 p) {
   const float e = kNormalEps;
   int id;
   float d[6];
@@ -542,15 +448,9 @@ __device__ __forceinline__ V3 grad_ops(const Scene& S, const Guards<TCULL>& g, V
     float off = (k & 1) ? -e : e;
     V3 q = v3(p.x + (k / 2 == 0 ? off : 0.0f), p.y + (k / 2 == 1 ? off : 0.0f),
               p.z + (k / 2 == 2 ? off : 0.0f));
-    d[k] = MAP == GUARDED ? map_scene<BAKED, TCULL, false>(S, g, q, 0.0f, id)
-                          : map_ops<BAKED, TCULL, false, MAP>(S, g, q, 0.0f, id, live, tally);
+    d[k] = map_scene<BAKED, TCULL, false>(S, g, q, 0.0f, id);
   }
   return v3(d[0] - d[1], d[2] - d[3], d[4] - d[5]);
-}
-
-template <bool BAKED, bool TCULL>
-__device__ V3 calc_grad(const Scene& S, const Guards<TCULL>& g, V3 p) {
-  return grad_ops<BAKED, TCULL, GUARDED>(S, g, p, true, nullptr);
 }
 
 // Central-difference normal (calc_normal).
@@ -559,7 +459,7 @@ __device__ V3 calc_normal(const Scene& S, const Guards<TCULL>& g, V3 p) {
   return normalize_safe(calc_grad<BAKED, TCULL>(S, g, p));
 }
 
-// -- the per-warp walk (K2's plain march, K6, K3, K4) -----------------------
+// -- the per-warp walk (K2, K6, K3, K4) --------------------------------------
 //
 // Shared memory of a block of W warps, from its base (16-byte aligned):
 //   n_ops decoded records (int4), the program in walk order;
@@ -703,11 +603,18 @@ __device__ __forceinline__ void record_list(unsigned long long* __restrict__ wal
 // map_scene over a warp's list: map_ops' GUARDED arithmetic, record for
 // record, over the records the list holds (the others fail every live
 // lane's guard, so map_ops would skip them).  Each lane still tests its own
-// guard bit and, with CULLED, its own interval.
-template <bool BAKED, bool TCULL, bool CULLED>
+// guard bit and, with CULLED, its own interval.  MAP COUNT_BOXED and
+// COUNT_ALL (debug 4) count into *tally as map_ops counted over the whole
+// program, and only live lanes evaluate: a record off the list fails the
+// guard of every lane the list was built from, so its ballot over lanes
+// among those would be 0.  GUARDED has its own guard branch, and live and
+// tally defaults, so that its callers compile to the same SASS as without
+// the COUNT modes.
+template <bool BAKED, bool TCULL, bool CULLED, int MAP = GUARDED>
 __device__ __forceinline__ float map_walk(const int4* __restrict__ list, int n,
                                           const float* __restrict__ F, const Guards<TCULL>& g,
-                                          V3 p, float t, int& id) {
+                                          V3 p, float t, int& id, bool live = true,
+                                          unsigned* tally = nullptr) {
   float st_d[kMaxDepth];
   int st_i[kMaxDepth];
   V3 st_p[BAKED ? 1 : kMaxDepth];
@@ -729,11 +636,23 @@ __device__ __forceinline__ float map_walk(const int4* __restrict__ list, int n,
       acc_i = -1;
     } else if (opc == OPC_SHAPE) {
       const int box = walk_box(r);
-      if (box >= 0) {
-        bool pass = g.check(box);
-        if constexpr (CULLED) {
-          if (pass && (r.x & kWalkCull)) pass = g.lo[box] <= t && g.hi[box] >= t;
+      if constexpr (MAP == GUARDED) {
+        if (box >= 0) {
+          bool pass = g.check(box);
+          if constexpr (CULLED) {
+            if (pass && (r.x & kWalkCull)) pass = g.lo[box] <= t && g.hi[box] >= t;
+          }
+          if (!pass) continue;
         }
+      } else {
+        bool pass = live;
+        if (pass && box >= 0) {
+          pass = g.check(box);
+          if constexpr (CULLED) {
+            if (pass && (r.x & kWalkCull)) pass = g.lo[box] <= t && g.hi[box] >= t;
+          }
+        }
+        if ((MAP == COUNT_ALL || box >= 0) && __ballot_sync(kFullWarp, pass)) ++*tally;
         if (!pass) continue;
       }
       const int kind = (r.x >> 2) & 7;
@@ -786,12 +705,123 @@ __device__ float march_walk(const Scene& S, const int4* __restrict__ list, int n
   return t;
 }
 
-// calc_grad() over a warp's list: the 6 taps under the full guards, before
-// normalisation.
+// The over-relaxed t-culled march over a warp's list (cast_tcull with omega
+// != 1, JAX _march_while_tcull :785-820): an exterior sample steps
+// min(omega |d|, clamp); when the unbounding spheres of the last two
+// samples stop overlapping (d_prev > 0 and s_prev > d_prev + d, signed) the
+// ray reverts to t_prev + f_prev, the exact march's step from the previous
+// sample, and a hit needs no such overshoot.
+//
+// The clamp reads m, the nearest culled entry strictly ahead of t
+// (next_entry), kept across steps: with M(t) = next_entry(t), mp = M(tp)
+// of the last sample that did not revert, and every new t either t + a
+// step (tp = the old t, mp = the old m) or, after a revert, tp + fp, the
+// next t satisfies tp <= t < mp only if M(t) = mp: the entries beyond t lie
+// beyond tp, so none is below mp, and mp, when an entry, lies beyond t.  So
+// m = mp there and next_entry(t) elsewhere (a NaN t included) gives every
+// step the M(t) that a call per step gives, and t, idx and every pixel are
+// the same bit for bit.  The kept test costs two compares; a call walks the
+// ray's hit boxes.
+template <bool BAKED>
+__device__ float march_relax_walk(const Scene& S, const int4* __restrict__ list, int n,
+                                  const float* __restrict__ F, const Guards<true>& g, V3 ro,
+                                  V3 rd, int& idx, float omega, float t_cap) {
+  float t = 0.0f, tp = 0.0f, dp = 0.0f, sp = 0.0f, fp = 0.0f;
+  float m = next_entry(S, g, 0.0f), mp = m;
+  idx = -1;
+  for (int step = 0; step < kSteps; ++step) {
+    int mi;
+    float d = map_walk<BAKED, true, true>(list, n, F, g, v3(ro.x + rd.x * t, ro.y + rd.y * t,
+                                                            ro.z + rd.z * t), t, mi);
+    float ad = fabsf(d);
+    float clamp = nan_max(m - t, kMhd);
+    float exact = nan_min(ad, clamp);
+    bool over = dp > 0.0f && sp > dp + d;
+    float stretch = d > 0.0f ? nan_min(omega * ad, clamp) : exact;
+    float nt = over ? tp + fp : t + stretch;
+    nt = nan_min(nt, t_cap);
+    bool hit = !over && ad < kMhd;
+    bool far = nt > kFar;
+    idx = far ? -1 : mi;
+    if (!over) {
+      tp = t;
+      dp = d;
+      sp = stretch;
+      fp = exact;
+      mp = m;
+    } else {
+      sp = fp;
+    }
+    t = nt;
+    if (hit || far || nt >= t_cap) break;
+    m = tp <= t && t < mp ? mp : next_entry(S, g, t);
+  }
+  return t;
+}
+
+// Debug 4's counters of one warp (megakernel_march.cu STATS), the same in
+// every lane: march iterations of the warp (x), guarded shapes evaluated by
+// at least one lane per iteration (y), and shapes evaluated by at least one
+// lane per normal tap (z, six taps a bounce).
+struct WarpStats {
+  unsigned steps, shapes, aux;
+};
+
+// march_walk() of a warp in lockstep, with debug 4's counters: every lane
+// runs the loop while at least one lane of the warp marches (__any_sync
+// over the full warp, so the counts do not depend on how the compiler
+// reconverges), and a lane that is not live, or done, evaluates nothing.
+// With TCULL each iteration adds one to x and walks the list with
+// COUNT_BOXED's ballots into y; a live lane's t and idx are march_walk()'s.
+// The counters move with TCULL only, as JAX counts in its t-culled march
+// only.  live must be the lanes the list was built from, or a subset.
 template <bool BAKED, bool TCULL>
+__device__ float march_stats_walk(const Scene& S, const int4* __restrict__ list, int n,
+                                  const float* __restrict__ F, const Guards<TCULL>& g, V3 ro,
+                                  V3 rd, int& idx, float t_cap, bool live, WarpStats& st) {
+  float t = 0.0f;
+  float m = kBig;
+  if constexpr (TCULL) {
+    if (live) m = next_entry(S, g, 0.0f);
+  }
+  idx = -1;
+  bool marching = live;
+  for (int step = 0; step < kSteps; ++step) {
+    if (!__any_sync(kFullWarp, marching)) break;
+    const V3 p = v3(ro.x + rd.x * t, ro.y + rd.y * t, ro.z + rd.z * t);
+    int mi;
+    float d;
+    if constexpr (TCULL) {
+      ++st.steps;
+      d = map_walk<BAKED, true, true, COUNT_BOXED>(list, n, F, g, p, t, mi, marching,
+                                                   &st.shapes);
+      if (!marching) continue;
+    } else {
+      if (!marching) continue;
+      d = map_walk<BAKED, false, false>(list, n, F, g, p, t, mi);
+    }
+    float ad = fabsf(d);
+    float nt = TCULL ? t + nan_min(ad, nan_max(m - t, kMhd)) : t + ad;
+    nt = nan_min(nt, t_cap);
+    bool far = nt > kFar;
+    idx = far ? -1 : mi;
+    t = nt;
+    if (ad < kMhd || far || nt >= t_cap) {
+      marching = false;
+    } else if constexpr (TCULL) {
+      if (t >= m) m = next_entry(S, g, t);
+    }
+  }
+  return t;
+}
+
+// calc_grad() over a warp's list: the 6 taps under the full guards, before
+// normalisation.  MAP COUNT_ALL counts debug 4's z (live and tally as for
+// map_walk).
+template <bool BAKED, bool TCULL, int MAP = GUARDED>
 __device__ __forceinline__ V3 grad_walk(const int4* __restrict__ list, int n,
                                         const float* __restrict__ F, const Guards<TCULL>& g,
-                                        V3 p) {
+                                        V3 p, bool live = true, unsigned* tally = nullptr) {
   const float e = kNormalEps;
   int id;
   float d[6];
@@ -800,7 +830,7 @@ __device__ __forceinline__ V3 grad_walk(const int4* __restrict__ list, int n,
     float off = (k & 1) ? -e : e;
     V3 q = v3(p.x + (k / 2 == 0 ? off : 0.0f), p.y + (k / 2 == 1 ? off : 0.0f),
               p.z + (k / 2 == 2 ? off : 0.0f));
-    d[k] = map_walk<BAKED, TCULL, false>(list, n, F, g, q, 0.0f, id);
+    d[k] = map_walk<BAKED, TCULL, false, MAP>(list, n, F, g, q, 0.0f, id, live, tally);
   }
   return v3(d[0] - d[1], d[2] - d[3], d[4] - d[5]);
 }

@@ -22,11 +22,14 @@
 // fill: a warp marches until its slowest ray is done, and lanes fill 37 %
 // of their warps' march iterations.
 //
-// The plain march (megakernel_walk: debug 0-3, analytic_unboxed) and the
-// grid march (megakernel_grid, K6) cut the walk.  The block stages the decoded op records and the leaf table in
-// shared memory once (csg_program.cuh:stage_walk, 16-byte cp.async); each
-// bounce, after the guards, each warp ORs its live lanes' box bits and
-// compacts the records they can need into its own list in shared memory
+// Every march of the kernel cuts the walk: the plain march
+// (megakernel_walk: debug 0-3, analytic_unboxed), the over-relaxed march
+// (megakernel_walk's RELAX instantiation, omega != 1), the grid march
+// (megakernel_grid, K6) and debug 4's counting march (megakernel_stats).
+// The block stages the decoded op records and the leaf table in shared
+// memory once (csg_program.cuh:stage_walk, 16-byte cp.async); each bounce,
+// after the guards, each warp ORs its live lanes' box bits and compacts the
+// records they can need into its own list in shared memory
 // (build_warp_list: every ENTER, LEAVE and guard-less shape, and the
 // guarded shapes whose box some live lane hits), and the march and the
 // normal walk that list, one 16-byte shared load a record.  A tap of the
@@ -34,9 +37,7 @@
 // The list is a warp collective, so the kernel keeps every lane of a warp
 // to the end: out-of-range and finished lanes run on as not live, and the
 // bounce loop runs while any lane of the warp is alive.  The guard bits and
-// t-cull intervals stay in per-thread local memory.  The over-relaxed
-// march (megakernel_relax) and debug 4 keep the walk of the whole program
-// from global memory, unchanged.
+// t-cull intervals stay in per-thread local memory.
 //
 // A program, not generated code: the CSG tree arrives as the int32 op list
 // of render/program.py (ENTER / SHAPE / LEAVE records) and its per-frame
@@ -77,9 +78,12 @@
 //   takes that shape's id and exact normal instead of the 6 taps.  On the
 //   benchmark scene that removes the ground plane and the two lamps from
 //   every map tap of every ray.
-// * omega != 1 (megakernel_relax; JAX :785-820) over-relaxes the t-culled
-//   march with the sphere-overlap revert (csg_program.cuh:march_relax);
-//   omega == 1 runs the march above, unchanged.
+// * omega != 1 (megakernel_walk<.., RELAX>; JAX :785-820) over-relaxes the
+//   t-culled march with the sphere-overlap revert
+//   (csg_program.cuh:march_relax_walk), which keeps the nearest entry
+//   across steps as the exact march does, and recomputes it only where a
+//   step or a revert may have passed it; omega == 1 runs the march above,
+//   unchanged.
 // * dist_grid (K6; megakernel_grid, baked geometry with t_cull only:
 //   _march_while_grid :843, its grid tap render/distgrid.py:187) marches on
 //   the frame's baked lower-bound grid (csg_program.cuh:march_grid_walk): a
@@ -105,10 +109,13 @@
 //   out-of-range or dead lane runs on as done, each loop runs while any lane
 //   of the warp needs it, and each count is one __ballot_sync over the full
 //   warp, so the counts do not depend on how the compiler reconverges
-//   (__activemask would).  Every pixel of a warp gets
-//   the warp's (x, y, z), held bit for bit by kernels/megakernel.py's
-//   MarchStats.  It costs a ballot per shape per tap and a warp-uniform
-//   loop, so it is a diagnostic, not a path to time frames with.
+//   (__activemask would).  It walks the per-warp lists as megakernel_walk
+//   does, one ballot per listed shape: a shape off the list fails the guard
+//   of every lane alive at the bounce, the marching lanes and those taking
+//   the normal taps among them, so its ballot over the whole program was 0
+//   and the counts are the same.  Every pixel of a warp gets the warp's (x,
+//   y, z), held bit for bit by kernels/megakernel.py's MarchStats.  The
+//   ballots and the warp-uniform loop make it slower than debug 0.
 #include "csg_program.cuh"
 
 namespace {
@@ -118,91 +125,21 @@ constexpr int kBlockY = 16;
 
 constexpr int kWarps = kBlockX * kBlockY / 32;
 
-// The march that keeps the walk of the whole program from global memory:
-// the over-relaxed one (omega != 1).  The plain march and the grid march
-// are megakernel_walk's and megakernel_grid's.
-template <bool BAKED, bool TCULL>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-megakernel_relax(Scene S, float* __restrict__ accum, int width, int height, int frame,
-                 int last_clear, int bounces, float fov, float aspect, int debug, float omega) {
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
-  if (x >= width || y >= height) return;
-
-  uint32_t rng;
-  V3 ro, rd;
-  primary_ray(x, y, frame, width, height, fov, aspect, rng, ro, rd);
-  Guards<TCULL> g;
-  V3 col;
-
-  // No launch brings debug 1 or 2 here any more (megakernel_walk takes
-  // them), but the branch stays: without it the kernel compiles to other
-  // code (60 registers for 48, no spills) that takes 12 % longer on an
-  // H100 (PERF.md).
-  if (debug == 1 || debug == 2) {
-    float dbg = compute_guards(S, ro, rd, g);
-    int idx;
-    float t = march<BAKED, TCULL>(S, g, ro, rd, idx);
-    if (debug == 1) {
-      // normals + AABB tint (test_compute.glsl:170-179)
-      if (t > kFar) {
-        col = splat(dbg);
-      } else {
-        V3 n = calc_normal<BAKED, TCULL>(S, g, ro + rd * t);
-        col = (normalize_safe(n) * 0.5f + splat(0.5f)) * 0.2f + splat(dbg);
-      }
-    } else {
-      // first-hit albedo (test_compute.glsl:183-195)
-      const float* mt = S.F + S.f_mat + kMatSize * idx;
-      col = idx >= 0 ? v3(mt[0], mt[1], mt[2]) : splat(0.0f);
-    }
-  } else {
-    V3 ret = v3(0.0f, 0.0f, 0.0f);
-    V3 thr = v3(1.0f, 1.0f, 1.0f);
-    int i_exit = -1;
-    for (int i = 0; i <= bounces; ++i) {
-      compute_guards(S, ro, rd, g);
-      float t_cap = INFINITY;
-      int j_cap = -1;
-      if (S.n_cap > 0) cap_scan(S, ro, rd, t_cap, j_cap);
-      int idx;
-      float t = march_relax<BAKED>(S, g, ro, rd, idx, omega, t_cap);
-      if (t > kFar) {
-        i_exit = i;
-        break;
-      }
-      V3 hit = ro + rd * t;
-      V3 n;
-      if (t >= t_cap) {
-        idx = cap_id(S, j_cap);
-        n = cap_normal(S, j_cap, hit);
-      } else {
-        n = calc_normal<BAKED, TCULL>(S, g, hit);
-      }
-      const float* mt = idx >= 0 ? S.F + S.f_mat + kMatSize * idx : nullptr;
-      if (!scatter(rng, ro, rd, ret, thr, hit, n, mt)) {
-        i_exit = i;
-        break;
-      }
-    }
-    if (i_exit < 0) i_exit = bounces + 1;
-    // debug 3: the bounce heatmap (test_compute.glsl:163).
-    col = debug == 3 ? splat((float)i_exit / (float)bounces) : ret;
-  }
-  write_pixel(accum, x, y, width, col, last_clear, debug);
-}
-
-// The plain march of debug 0-3 (and analytic_unboxed's cap) over per-warp
-// lists of the program staged in shared memory (csg_program.cuh:stage_walk,
-// build_warp_list).  Every lane of a warp runs to the end: a lane out of
-// the frame, or whose path has ended, runs on as not live, so that each
-// bounce's list is built by the whole warp.  A non-null walk_stats (debug 0
-// and 3: 2 (bounces + 1) zeroed uint64) takes record_list's figures.
-template <bool BAKED, bool TCULL>
+// The march of debug 0-3 (and analytic_unboxed's cap) over per-warp lists
+// of the program staged in shared memory (csg_program.cuh:stage_walk,
+// build_warp_list); with RELAX (t-culled, debug 0 and 3) the over-relaxed
+// march by omega (march_relax_walk) in place of march_walk.  Every lane of
+// a warp runs to the end: a lane out of the frame, or whose path has ended,
+// runs on as not live, so that each bounce's list is built by the whole
+// warp.  A non-null walk_stats (debug 0 and 3: 2 (bounces + 1) zeroed
+// uint64) takes record_list's figures.  omega comes last and RELAX compiles
+// out the debug 1/2 branch, so the instantiations without RELAX compile to
+// the same SASS as before it existed.
+template <bool BAKED, bool TCULL, bool RELAX>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 megakernel_walk(Scene S, int f_leaf, float* __restrict__ accum, int width, int height, int frame,
                 int last_clear, int bounces, float fov, float aspect, int debug,
-                unsigned long long* __restrict__ walk_stats) {
+                unsigned long long* __restrict__ walk_stats, float omega) {
   extern __shared__ int4 walk_smem[];
   const int tid = threadIdx.x + kBlockX * threadIdx.y;
   const int warp = tid >> 5, lane = tid & 31;
@@ -218,7 +155,7 @@ megakernel_walk(Scene S, int f_leaf, float* __restrict__ accum, int width, int h
   Guards<TCULL> g;
   V3 col = splat(0.0f);
 
-  if (debug == 1 || debug == 2) {
+  if (!RELAX && (debug == 1 || debug == 2)) {
     float dbg = 0.0f;
     if (inrange) dbg = compute_guards(S, ro, rd, g);
     const int n = build_warp_list(P, S.n_boxed, g, inrange, warp, lane);
@@ -256,7 +193,12 @@ megakernel_walk(Scene S, int f_leaf, float* __restrict__ accum, int width, int h
       record_list(walk_stats, i, n, lane);
       if (!alive) continue;
       int idx;
-      const float t = march_walk<BAKED, TCULL>(S, list, n, P.F, g, ro, rd, idx, t_cap);
+      float t;
+      if constexpr (RELAX) {
+        t = march_relax_walk<BAKED>(S, list, n, P.F, g, ro, rd, idx, omega, t_cap);
+      } else {
+        t = march_walk<BAKED, TCULL>(S, list, n, P.F, g, ro, rd, idx, t_cap);
+      }
       if (t > kFar) {
         i_exit = i;
         alive = false;
@@ -358,11 +300,19 @@ megakernel_grid(Scene S, int f_leaf, float* __restrict__ accum, int width, int h
 }
 
 // Debug 4: the frame's paths as debug 0 traces them, with the warp's
-// counters (csg_program.cuh:WarpStats) written to each in-range pixel.
+// counters (csg_program.cuh:WarpStats) written to each in-range pixel.  The
+// walk is megakernel_walk's: the program staged once, each bounce's list
+// built from the lanes still alive, and the march (march_stats_walk) and
+// the normal taps (grad_walk<COUNT_ALL>) count over that list.
 template <bool BAKED, bool TCULL>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-megakernel_stats(Scene S, float* __restrict__ accum, int width, int height, int frame,
-                 int bounces, float fov, float aspect) {
+megakernel_stats(Scene S, int f_leaf, float* __restrict__ accum, int width, int height,
+                 int frame, int bounces, float fov, float aspect) {
+  extern __shared__ int4 walk_smem[];
+  const int tid = threadIdx.x + kBlockX * threadIdx.y;
+  const int warp = tid >> 5, lane = tid & 31;
+  const Walk P = stage_walk(S, f_leaf, kWarps, walk_smem, tid, kBlockX * kBlockY);
+  const int4* __restrict__ list = P.lists + warp * P.n_ops;
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   const bool inrange = x < width && y < height;
@@ -382,20 +332,22 @@ megakernel_stats(Scene S, float* __restrict__ accum, int width, int height, int 
       compute_guards(S, ro, rd, g);
       if (S.n_cap > 0) cap_scan(S, ro, rd, t_cap, j_cap);
     }
+    const int n = build_warp_list(P, S.n_boxed, g, alive, warp, lane);
     int idx;
-    const float t = march_stats<BAKED, TCULL>(S, g, ro, rd, idx, t_cap, alive, st);
+    const float t =
+        march_stats_walk<BAKED, TCULL>(S, list, n, P.F, g, ro, rd, idx, t_cap, alive, st);
     const bool hit = alive && !(t > kFar);
     const bool capped = hit && t >= t_cap;
     const V3 hp = ro + rd * t;
-    V3 n = normalize_safe(
-        grad_ops<BAKED, TCULL, COUNT_ALL>(S, g, hp, hit && !capped, &st.aux));
+    V3 nrm = normalize_safe(
+        grad_walk<BAKED, TCULL, COUNT_ALL>(list, n, P.F, g, hp, hit && !capped, &st.aux));
     if (hit) {
       if (capped) {
         idx = cap_id(S, j_cap);
-        n = cap_normal(S, j_cap, hp);
+        nrm = cap_normal(S, j_cap, hp);
       }
       const float* mt = idx >= 0 ? S.F + S.f_mat + kMatSize * idx : nullptr;
-      alive = scatter(rng, ro, rd, ret, thr, hp, n, mt);
+      alive = scatter(rng, ro, rd, ret, thr, hp, nrm, mt);
     } else {
       alive = false;
     }
@@ -403,25 +355,6 @@ megakernel_stats(Scene S, float* __restrict__ accum, int width, int height, int 
   if (inrange) {
     write_pixel(accum, x, y, width, v3((float)st.steps, (float)st.shapes, (float)st.aux), 0, 4);
   }
-}
-
-template <bool BAKED, bool TCULL>
-void launch_stats(const Scene& S, float* accum, int width, int height, int frame, int bounces,
-                  float fov, float aspect, cudaStream_t stream) {
-  dim3 block(kBlockX, kBlockY);
-  dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
-  megakernel_stats<BAKED, TCULL><<<grid, block, 0, stream>>>(S, accum, width, height, frame,
-                                                             bounces, fov, aspect);
-}
-
-template <bool BAKED, bool TCULL>
-void launch_relax(const Scene& S, float* accum, int width, int height, int frame, int last_clear,
-                  int bounces, float fov, float aspect, int debug, float omega,
-                  cudaStream_t stream) {
-  dim3 block(kBlockX, kBlockY);
-  dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
-  megakernel_relax<BAKED, TCULL><<<grid, block, 0, stream>>>(
-      S, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, omega);
 }
 
 // Checks a walk kernel's dynamic shared memory against the program's
@@ -433,16 +366,30 @@ cudaError_t walk_smem_ready(Kernel kernel, const Scene& S, int f_leaf, int smem_
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
 }
 
-template <bool BAKED, bool TCULL>
+template <bool BAKED, bool TCULL, bool RELAX>
 int launch_walk(const Scene& S, int f_leaf, int smem_bytes, float* accum, int width, int height,
                 int frame, int last_clear, int bounces, float fov, float aspect, int debug,
-                unsigned long long* walk_stats, cudaStream_t stream) {
-  const cudaError_t err = walk_smem_ready(megakernel_walk<BAKED, TCULL>, S, f_leaf, smem_bytes);
+                unsigned long long* walk_stats, float omega, cudaStream_t stream) {
+  const cudaError_t err =
+      walk_smem_ready(megakernel_walk<BAKED, TCULL, RELAX>, S, f_leaf, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 block(kBlockX, kBlockY);
   dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
-  megakernel_walk<BAKED, TCULL><<<grid, block, smem_bytes, stream>>>(
-      S, f_leaf, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, walk_stats);
+  megakernel_walk<BAKED, TCULL, RELAX><<<grid, block, smem_bytes, stream>>>(
+      S, f_leaf, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, walk_stats,
+      omega);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool BAKED, bool TCULL>
+int launch_stats(const Scene& S, int f_leaf, int smem_bytes, float* accum, int width, int height,
+                 int frame, int bounces, float fov, float aspect, cudaStream_t stream) {
+  const cudaError_t err = walk_smem_ready(megakernel_stats<BAKED, TCULL>, S, f_leaf, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 block(kBlockX, kBlockY);
+  dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
+  megakernel_stats<BAKED, TCULL><<<grid, block, smem_bytes, stream>>>(
+      S, f_leaf, accum, width, height, frame, bounces, fov, aspect);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -467,20 +414,21 @@ int launch_grid(const Scene& S, int f_leaf, int smem_bytes, float* accum, int wi
 // `code` is program_code_on's int32 vector (n_ops op records, n_boxed cull
 // flags, then n_cap cap records), `table` program_table's float32 vector;
 // accum is (height, width, 3) float32, contiguous, updated in place.  The
-// caps and omega != 1 need t_cull and debug 0 or 3; the caller checks that
-// and the program against kMaxDepth and kMaxBoxed.  A non-null grid_cells
-// (dist_grid) marches on the grid: grid_meta f32[9], grid_cells
-// f32[gz*gy*gx], grid_offs the n_planes plane-row and n_k smooth-k offsets
-// (render/distgrid.py:grid_code_on); it needs baked geometry, t_cull, debug
-// 0 or 3 and omega 1.  A non-null grid_stats (5 zeroed uint64) takes the
-// grid march's warp statistics.  Debug 4 (omega 1, no grid) writes the
-// warp statistics of the march to the accumulator instead of a frame.
-// The plain march (debug 0-3, omega 1, no grid) and the grid march run
-// megakernel_walk and megakernel_grid with smem_bytes of dynamic shared
-// memory, which must be walk_smem_bytes(n_ops, f_box, 8)
-// (render/program.py:walk_smem_bytes); a non-null walk_stats (debug 0 or
-// 3; 2 (bounces + 1) zeroed uint64) takes each bounce's summed list length
-// and list count.
+// caps and omega != 1 need t_cull and debug 0 or 3 (the caps also debug 4);
+// the caller checks that and the program against kMaxDepth and kMaxBoxed.
+// A non-null grid_cells (dist_grid) marches on the grid: grid_meta f32[9],
+// grid_cells f32[gz*gy*gx], grid_offs the n_planes plane-row and n_k
+// smooth-k offsets (render/distgrid.py:grid_code_on); it needs baked
+// geometry, t_cull, debug 0 or 3 and omega 1.  A non-null grid_stats (5
+// zeroed uint64) takes the grid march's warp statistics.  Debug 4 (omega 1,
+// no grid) writes the warp statistics of the march to the accumulator
+// instead of a frame.  Every kernel walks per-warp lists of the program
+// with smem_bytes of dynamic shared memory, which must be
+// walk_smem_bytes(n_ops, f_box, 8) (render/program.py:walk_smem_bytes):
+// megakernel_walk (debug 0-3; omega != 1 its RELAX instantiation),
+// megakernel_grid and megakernel_stats (debug 4).  A non-null walk_stats
+// (debug 0 or 3; 2 (bounces + 1) zeroed uint64) takes each bounce's summed
+// list length and list count.
 extern "C" int cpt_megakernel_march(const int* code, int n_ops, const float* table,
                                     int n_boxed, int f_box, int f_mat, int n_cap, int baked,
                                     int t_cull, float omega, float* accum, int width, int height,
@@ -500,37 +448,21 @@ extern "C" int cpt_megakernel_march(const int* code, int n_ops, const float* tab
   }
   if (debug == 4) {
     if (relax || grid_cells != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    if (baked) {
-      if (t_cull) {
-        launch_stats<true, true>(S, accum, width, height, frame, bounces, fov, aspect, st);
-      } else {
-        launch_stats<true, false>(S, accum, width, height, frame, bounces, fov, aspect, st);
-      }
-    } else if (t_cull) {
-      launch_stats<false, true>(S, accum, width, height, frame, bounces, fov, aspect, st);
-    } else {
-      launch_stats<false, false>(S, accum, width, height, frame, bounces, fov, aspect, st);
-    }
-  } else if (grid_cells != nullptr) {
+    auto stats = baked ? (t_cull ? &launch_stats<true, true> : &launch_stats<true, false>)
+                       : (t_cull ? &launch_stats<false, true> : &launch_stats<false, false>);
+    return stats(S, f_box, smem_bytes, accum, width, height, frame, bounces, fov, aspect, st);
+  }
+  if (grid_cells != nullptr) {
     if (!baked || !t_cull || relax || debug == 1 || debug == 2 || gx < 1 || gy < 1 || gz < 1) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     auto fn = grid_stats != nullptr ? &launch_grid<true> : &launch_grid<false>;
     return fn(S, f_box, smem_bytes, accum, width, height, frame, last_clear, bounces, fov, aspect,
               debug, G, grid_stats, walk_stats, st);
-  } else if (relax) {
-    if (baked) {
-      launch_relax<true, true>(S, accum, width, height, frame, last_clear, bounces, fov, aspect,
-                               debug, omega, st);
-    } else {
-      launch_relax<false, true>(S, accum, width, height, frame, last_clear, bounces, fov, aspect,
-                                debug, omega, st);
-    }
-  } else {
-    auto walk = baked ? (t_cull ? &launch_walk<true, true> : &launch_walk<true, false>)
-                      : (t_cull ? &launch_walk<false, true> : &launch_walk<false, false>);
-    return walk(S, f_box, smem_bytes, accum, width, height, frame, last_clear, bounces, fov,
-                aspect, debug, walk_stats, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  auto walk = relax ? (baked ? &launch_walk<true, true, true> : &launch_walk<false, true, true>)
+              : baked ? (t_cull ? &launch_walk<true, true, false> : &launch_walk<true, false, false>)
+                      : (t_cull ? &launch_walk<false, true, false> : &launch_walk<false, false, false>);
+  return walk(S, f_box, smem_bytes, accum, width, height, frame, last_clear, bounces, fov, aspect,
+              debug, walk_stats, omega, st);
 }

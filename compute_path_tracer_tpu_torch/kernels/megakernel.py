@@ -871,10 +871,10 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
     Debug 4 writes :class:`MarchStats`' image per warp, from the kernel's
     STATS instantiation.
 
-    The plain march (debug 0-3, omega 1) and the grid march walk per-warp
-    lists of the program staged in each block's shared memory
-    (``walk_smem_bytes``, which raises for a program too large);
-    ``walk_stats`` (debug 0 or 3), a zeroed int64 CUDA tensor of
+    Every march (debug 0-4, the over-relaxed one and the grid march
+    included) walks per-warp lists of the program staged in each block's
+    shared memory (``walk_smem_bytes``, which raises for a program too
+    large); ``walk_stats`` (debug 0 or 3), a zeroed int64 CUDA tensor of
     2 (bounces + 1), then takes per bounce the summed list length and the
     number of lists (:meth:`MarchStats.walk_lists`)."""
     if debug not in (0, 1, 2, 3, 4):
@@ -891,11 +891,9 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
                          "debug 0 or 3 and omega 1")
     if grid_stats is not None and grid is None:
         raise ValueError("grid_stats needs a grid")
-    walk = debug != 4 and not relax
-    if walk_stats is not None and not (walk and debug in (0, 3)):
-        raise ValueError("walk_stats needs the plain or the grid march of "
-                         "debug 0 or 3")
-    smem = walk_smem_bytes(prog, WARPS) if walk else 0
+    if walk_stats is not None and debug not in (0, 3):
+        raise ValueError("walk_stats needs debug 0 or 3")
+    smem = walk_smem_bytes(prog, WARPS)
     _check_accum(accum)
     device = accum.device
     height, width = accum.shape[0], accum.shape[1]
