@@ -81,7 +81,9 @@ and the modes of the same two kernels that the last bench.py rows run:
   at 320x180 and on the 1080p primary rays, dense and ILP also against K3's
   exact march, bit for bit; their main paths, the measurement scripts of
   ``compute_path_tracer_tpu_torch/benchmarks/`` at 1080p, time them beside
-  K3's t-culled and exact marches;
+  K3's t-culled and exact marches; the dense probe walks the program
+  staged in shared memory, and its row gives ptxas's figures and its own
+  work (every leaf on every tap) at the FP32 rate vpu_peak attains;
 * the hardware probes (kernels/hw_probes.py, ``csrc/hw_probes.cu``:
   vpu_peak's FMA chains at every width, gather_probe's four kernels with
   the table in shared memory and through ``__ldg``, bf16_probe's three
@@ -92,7 +94,12 @@ and the modes of the same two kernels that the last bench.py rows run:
   measurement scripts of ``compute_path_tracer_tpu_torch/benchmarks/``
   (16 tiles of (64, 128); bf16 4 of (256, 128)), time them, and each
   kernel's time at half its reps (a chain's at half its iterations) must
-  be about half its full time;
+  be about half its full time.  The bf16 kernels march two reps a thread
+  in packed halves with an approximate root: its bits for every bf16 bit
+  pattern below 0x8000 must be the card's IEEE root's and the correctly
+  rounded one's, their SASS must hold no HFMA2 that contracts a multiply
+  and an add, and their row gives ptxas's figures and packed instruction
+  counts;
 * the wavefront and gradient probes (kernels/wavefront.py,
   kernels/grad_probes.py; ``csrc/wavefront.cu``, ``csrc/grad_probes.cu``):
   the wavefront renderer's frame (one bounce kernel a bounce, the
@@ -320,6 +327,7 @@ def _hw_probe_checks(hp, mods):
         for label, fn in gat.kernels(inp).items():
             p, ms = plain[label.replace("_ldg", "")]
             record("gather_probe", label, tiles, _bit_diff(fn(), p), ms=ms)
+    res["bf16_probe"]["roots"] = _bf16_root_check(hp, torch.device("cuda"))
     for tiles in (1, bf.TILES):
         ro, rd, sph = bf.inputs(tiles)
         for v in hp.BF16_VARIANTS:
@@ -380,11 +388,11 @@ def _hw_probe_main(hp, mods, other_counts, gpu):
     return runs
 
 
-def _hw_probe_rows(hp, pf, mods, checks, runs, peak):
+def _hw_probe_rows(hp, pf, mods, checks, runs, peak, bf16_extra):
     """The kernels-line rows of the hardware probes: each probe's headline
     kernel (vpu at its best width, gather128 from shared memory, bf16's
     bf16 map, mxu on the tensor cores) with its bound, and the others'
-    times beside."""
+    times beside; ``bf16_extra`` joins the bf16 row."""
     csrc = "compute_path_tracer_tpu_torch/kernels/csrc/hw_probes.cu"
     vpu, gat = mods["vpu_peak"], mods["gather_probe"]
     bf, mxu = mods["bf16_probe"], mods["mxu_transform_probe"]
@@ -441,7 +449,10 @@ def _hw_probe_rows(hp, pf, mods, checks, runs, peak):
         ms_by_variant=out["ms"], bound_ms_by_variant=bounds,
         reps_ratio=out["reps_ratio"],
         speedup_vs_f32={r["variant"]: r["speedup_vs_f32"]
-                        for r in out["rows"] if "speedup_vs_f32" in r}))
+                        for r in out["rows"] if "speedup_vs_f32" in r},
+        state="redesigned: packed __nv_bfloat162 reps, "
+              "sqrt.approx.f32 roots",
+        roots=checks["bf16_probe"]["roots"], **bf16_extra))
 
     # Every rep computes the same t_min, so the bound (both kernels') is one
     # rep's work and the reps' adds; repeating the rep is the probe's
@@ -701,6 +712,101 @@ def _ptxas_k1(build):
         raise AssertionError(f"ptxas figures of {len(figs)} K1 kernels, "
                              f"expected 3")
     return figs
+
+
+def _ptxas_probes(build):
+    """ptxas's figures of the bf16 march (bf16_march<V>) and the dense
+    probe (march_dense), printed; returns them by short name."""
+    import re
+
+    figs = {}
+    for k, v in build.ptxas_figures().items():
+        m = re.search(r"bf16_marchILi(\d)E", k)
+        if m:
+            figs[f"bf16_march<{m.group(1)}>"] = v
+        elif "march_dense" in k:
+            figs["march_dense"] = v
+    for k, v in sorted(figs.items()):
+        print(f"ptxas {k}: {v['registers']} registers, {v.get('stack', 0)} "
+              f"bytes stack frame, {v.get('spill_stores', 0)} bytes spill "
+              f"stores, {v.get('spill_loads', 0)} bytes spill loads")
+    if len(figs) != 4:
+        raise AssertionError(f"ptxas figures of {len(figs)} probe kernels, "
+                             f"expected 4")
+    return figs
+
+
+# The bf16 march's instructions counted in its SASS (opcode stems).
+BF16_OPCODES = ("HADD2", "HMUL2", "HFMA2", "HMNMX2", "MUFU", "F2FP", "FADD",
+                "FMUL", "FSETP", "FSEL", "LDS")
+
+
+def _contracted(ins):
+    """Whether an HFMA2 both multiplies and adds: no multiplier operand is
+    zero or an immediate 1, and its addend is not zero."""
+    import re
+
+    ops = [t.strip() for t in ins.partition(" ")[2].split(",")][1:]
+    add, mul = ops[-1], ops[:-1]
+
+    def zero(t):
+        return re.match(r"-?RZ\b", t) or re.fullmatch(r"-?0(\.0*)?", t)
+
+    def one(t):
+        return re.fullmatch(r"1(\.0*)?", t)
+
+    imm = [t for t in mul if re.fullmatch(r"-?[0-9][0-9.e+-]*", t)]
+    return not (zero(add) or any(zero(t) for t in mul)
+                or (imm and all(one(t) for t in imm)))
+
+
+def _bf16_sass(build):
+    """The packed bf16 march kernels' SASS (bf16_march<1|2>): counts of the
+    instructions in BF16_OPCODES, printed with each distinct HFMA2 form;
+    raises where an HFMA2 contracts a multiply and an add, which would
+    round once where the probe rounds twice."""
+    import re
+
+    out = {}
+    for name, code in build.sass().items():
+        m = re.search(r"bf16_marchILi([12])E", name)
+        if not m:
+            continue
+        key = f"bf16_march<{m.group(1)}>"
+        ops = [i.split()[0].split(".")[0] for i in code]
+        out[key] = {o: ops.count(o) for o in BF16_OPCODES}
+        hfma = sorted({re.sub(r"R\d+", "R", i) for i in code
+                       if i.startswith("HFMA2")})
+        bad = [i for i in code if i.startswith("HFMA2") and _contracted(i)]
+        print(f"SASS {key}: {out[key]}; HFMA2 forms {hfma}")
+        if bad:
+            raise AssertionError(f"{key}: contracted HFMA2 {bad[:4]}")
+    if len(out) != 2:
+        raise AssertionError(f"SASS of {len(out)} bf16 march kernels")
+    return out
+
+
+def _bf16_root_check(hp, dev):
+    """The bf16 march's root (root2: sqrt.approx.f32, rounded) of every bf16
+    bit pattern below 0x8000 on the card, against the card's IEEE root and
+    the plain correctly rounded one: the same bits for zero, the finite
+    values and infinity, a NaN for each NaN."""
+    import torch
+
+    got = hp.bf16_roots(dev).cpu()
+    want = hp.bf16_roots_plain()
+    n_exact = 0x7F81  # 0x0000-0x7F80: zero, the finite values, infinity
+    same = [bool(torch.equal(got[k, :n_exact], want[0, :n_exact]))
+            for k in range(2)]
+    nan = bool(torch.isnan(got[:, n_exact:].view(torch.bfloat16)).all())
+    print(f"check bf16 roots of {hp.BF16_PATTERNS} bit patterns: approximate "
+          f"= correctly rounded {same[0]}, IEEE = correctly rounded "
+          f"{same[1]}, NaN to NaN {nan}")
+    if not (all(same) and nan):
+        diff = torch.nonzero(got[0, :n_exact] != want[0, :n_exact]).flatten()
+        raise AssertionError(f"bf16 roots differ at {diff[:8].tolist()}")
+    return {"patterns": hp.BF16_PATTERNS, "exact": n_exact,
+            "approx_equal": same[0], "ieee_equal": same[1]}
 
 
 _PHASE = {}
@@ -1568,6 +1674,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path}")
     walk_ptxas = _ptxas_walk(build)
     k1_ptxas = _ptxas_k1(build)
+    probe_ptxas = _ptxas_probes(build)
+    bf16_sass = _bf16_sass(build)
     k4_child = _start_k4_child()
 
     def compiled(scene):
@@ -2287,7 +2395,28 @@ def main() -> int:
     hw_checks = _hw_probe_checks(hp, hw_mods)
     hw_runs = _hw_probe_main(hp, hw_mods, (pr.LAUNCHES, km.LAUNCHES,
                                            mk.LAUNCHES, tm.LAUNCHES), gpu)
-    hw_rows = _hw_probe_rows(hp, pf, hw_mods, hw_checks, hw_runs, peak)
+    hw_rows = _hw_probe_rows(
+        hp, pf, hw_mods, hw_checks, hw_runs, peak,
+        {"sass": bf16_sass,
+         "ptxas": {k: v for k, v in probe_ptxas.items()
+                   if k.startswith("bf16_march")}})
+    # The dense probe's own work, every leaf on every tap, at the FP32 rate
+    # vpu_peak attained in this run: the probe cannot come near its bound
+    # (the exact march's guarded work) by design.
+    attained = hw_runs["vpu_peak"][1]["summary"]["attainable_tflops"] * 1e12
+    dense_extra = {"state": "redesigned: the program staged in shared "
+                            "memory, walked densely",
+                   "dense_ops": dense_done,
+                   "dense_work_ms": dense_done / attained * 1e3,
+                   "dense_work_tflops": attained / 1e12,
+                   "ratio_dense_over_cull": probe_runs["dense_probe"][1][
+                       "summary"]["ratio_dense_over_cull"],
+                   "k3_rows_ms": {k: v for k, v in probe_runs["dense_probe"][
+                       1]["rows"].items() if k != "dense plain-map"},
+                   "ptxas": probe_ptxas["march_dense"]}
+    print(f"dense probe: its own work {dense_done:.4e} FP32 ops takes "
+          f"{dense_extra['dense_work_ms']:.4f} ms at the {attained / 1e12:.2f} "
+          f"TFLOP/s vpu_peak attained [{gpu}]")
     print("hardware probe rows: " + json.dumps(hw_rows))
 
     _stamp(start, "wavefront and gradient probes")
@@ -2673,7 +2802,8 @@ def main() -> int:
          "plain_ms": plain, "bound_ms": probe_bounds[name][0],
          "bound_by": probe_bounds[name][1], "library_ms": None, **extra}
         for name, line, row, plain, extra in (
-            ("dense_probe", 119, "dense plain-map", exact_plain_ms, {}),
+            ("dense_probe", 119, "dense plain-map", exact_plain_ms,
+             dense_extra),
             ("analytic_probe", 194, "analytic-capped march", capped_plain_ms,
              {}),
             ("ilp_probe", 184, "fused interleaved rays", exact_plain_ms,

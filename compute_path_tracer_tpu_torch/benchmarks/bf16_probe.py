@@ -8,8 +8,9 @@ landing t per ray (kernels/hw_probes.py:bf16_march), three ways:
   B. a bf16 map (distances and min fold) with float32 t and hit test;
   C. bf16 end to end.
 
-Every bf16 operation rounds to bf16 (scalar ``__nv_bfloat16``, one ray a
-thread); the root is float32's, rounded.  Reports each variant's time, B's
+Every bf16 operation rounds to bf16; B and C march two reps of a ray a
+thread in packed ``__nv_bfloat162`` halves, each root the correctly
+rounded bf16 root (``sqrt.approx.f32``, rounded).  Reports each variant's time, B's
 and C's speed-up over A and their landing-t error against A, and each
 variant's time at 64 reps over its time at 32 (about 2: no rep is hoisted
 away).  4 tiles of (256, 128) rays (131,072 threads; the JAX probe's one

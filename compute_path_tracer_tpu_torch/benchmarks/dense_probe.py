@@ -8,8 +8,10 @@ The JAX probe decided, with this ratio, whether moving the dense map's
 transforms onto the TPU's matrix unit could pay: below 1.5 a stage 2 was
 worth building, above 2.5 it could not reach the 1.5x bar.  On this card it
 asks whether K3's guard branches are worth their cost.  The dense kernel
-(kernels/probes.py:march_dense) gives the exact march's t and id; it is held
-to them, and K3's exact march is timed beside it for context.
+(kernels/probes.py:march_dense) walks the whole program staged in shared
+memory, as K3 walks its per-warp lists, and gives the exact march's t and
+id; it is held to them, and K3's exact march is timed beside it for
+context.
 
 Times the march only (one primary-ray cast at 1920x1080 on the 64-primitive
 benchmark scene, t and id out), by CUDA events over the repeats after a

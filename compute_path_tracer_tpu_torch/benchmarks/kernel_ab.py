@@ -10,19 +10,24 @@ run, alternated A B B A, the kernel launches of K1 (``analytic_all``), K5
 training path calls it: t-culled with the normal, on the 1080p primary rays
 and on the rays that survive their bounce of a plain ``path_trace``) and K4
 (the five fused configurations of ``bench.py``) at 1920x1080, 8 bounces, on
-the 64-primitive benchmark scene unless stated, by CUDA events around each
-launch (a warm-up call first); ``--only REGEX`` times only the rows whose
-name matches.  Every output of every run is hashed, and A's and B's
-must be the same bit for bit: the frames, K3's t, ids and normals, and
-K4's image and its (shape, channel) sums, which the kernel adds in a fixed
-order (the gradient's atomics are torch's, outside the kernel).  It also
+the 64-primitive benchmark scene unless stated, and two probes at their
+drivers' shapes: the bf16 march (``P-bf16 f32``, ``map``, ``all``: 4 tiles
+of (256, 128) rays, 64 reps of 64 steps) and the dense march (``P-dense``:
+the 1080p primary rays), by CUDA events around each launch (a warm-up call
+first); ``--only REGEX`` times only the rows whose name matches.  Every
+output of every run is hashed, and A's and B's must be the same bit for
+bit: the frames, K3's t, ids and normals, K4's image and its (shape,
+channel) sums, which the kernel adds in a fixed order (the gradient's
+atomics are torch's, outside the kernel), and the probes' t (and the dense
+probe's ids).  It also
 prints K6's warp statistics (``launch_march(grid_stats=)``) in both, and
 tells, for each kernel function of the two builds, whether its SASS
 (``cuobjdump -sass``) is the same, so a change to shared device code can be
 seen to leave a kernel alone (a kernel in one build only is matched to one
 of the other's with the same SASS: a rename), and prints ptxas's
 registers, stack frame and spills of K1's and the marching kernels
-(K2's, RELAX's, debug 4's, K6's, K3's, K4's) in both.  Run on a
+(K2's, RELAX's, debug 4's, K6's, K3's, K4's, the dense probe's) and of the
+bf16 march in both.  Run on a
 machine with an NVIDIA GPU and the CUDA toolkit:
 
     python -m compute_path_tracer_tpu_torch.benchmarks.kernel_ab OTHER_DIR [--only REGEX]
@@ -62,11 +67,15 @@ STEPS = (("K4 analytic_all + edge_grad", dict(analytic_all=True, edge_grad=True)
          ("K4 analytic_unboxed", dict(analytic_unboxed=True)),
          ("K4 march", {}))
 RAYS = ("K3 primary", "K3 survivors")
-# The anonymous namespace's name in a mangled kernel name hashes the file.
-ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_[0-9]+_\w+?_cu_[0-9a-f]+")
+BF16 = ("P-bf16 f32", "P-bf16 map", "P-bf16 all")
+DENSE = "P-dense"
+# The anonymous namespace's name in a mangled kernel name hashes the file;
+# it ends in an 8-digit hash, then the kernel name's length.
+ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_[0-9]+_\w+?_cu_[0-9a-f]{8}\d+")
 # The marching kernels, for ptxas's figures.
 WALKERS = re.compile(r"megakernel_analytic|megakernel_walk|megakernel_grid|"
-                     r"megakernel_relax|megakernel_stats|march_rays|train_fused")
+                     r"megakernel_relax|megakernel_stats|march_rays|train_fused|"
+                     r"march_dense|bf16_march")
 
 
 def _sass(root: str) -> dict:
@@ -234,6 +243,24 @@ def _times(root: str, rays: str, only: str) -> dict:
         out[key], _, fused = launches(tm, "launch_train_fused",
                                       lambda: step(params))
         last[key] = _digest(*(v for v in fused if v is not None))
+    if any(pick.search(k) for k in BF16):
+        from compute_path_tracer_tpu_torch.benchmarks import bf16_probe
+        from compute_path_tracer_tpu_torch.kernels import hw_probes as hp
+
+        ro, rd, sph = bf16_probe.inputs(bf16_probe.TILES)
+        for key, v in zip(BF16, hp.BF16_VARIANTS):
+            if pick.search(key):
+                out[key], t, _ = launches(
+                    hp, "bf16_march", lambda v=v: hp.bf16_march(ro, rd, sph, v))
+                last[key] = _digest(t)
+    if pick.search(DENSE):
+        from compute_path_tracer_tpu_torch.benchmarks.common import probe_rays
+        from compute_path_tracer_tpu_torch.kernels import probes as pr
+
+        ro, rd = probe_rays(W, H, dev)
+        out[DENSE], (t, idx), _ = launches(
+            pr, "march_dense", lambda: pr.march_dense(prog, table, ro, rd))
+        last[DENSE] = _digest(t, idx)
     return {"ms": out, "hash": last, "grid_stats": grid_stats.tolist()}
 
 

@@ -13,7 +13,8 @@ contraction and IEEE division and square root, so the kernels round like
 their plain torch versions (see the note in each source).
 
 ``ptxas -v``'s report (registers, stack frame, spills of every function)
-is kept beside the library as ``ptxas.log``; ``ptxas_figures`` reads it.
+is kept beside the library as ``ptxas.log``; ``ptxas_figures`` reads it,
+and ``sass`` lists each kernel's machine code (``cuobjdump``).
 """
 
 from __future__ import annotations
@@ -138,6 +139,27 @@ def parse_ptxas(text: str) -> dict:
     return out
 
 
+def sass(lib: Path = None) -> dict:
+    """{kernel's mangled name: [its SASS instructions, in order]} of the
+    built library (``lib`` by default), by ``cuobjdump -sass`` from nvcc's
+    directory."""
+    dump = subprocess.run(
+        [str(Path(_nvcc()).parent / "cuobjdump"), "-sass",
+         str(lib or library_path())],
+        capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in dump.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+        if m and name:
+            funcs[name].append(m.group(1).strip())
+    return funcs
+
+
 @lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once, and declare every entry point."""
@@ -157,7 +179,7 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [p, i, p, i, i, i, i, i, i] + [p] * 11 + [i, p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_march_dense
-    fn.argtypes = [p, i, p, i, i, i] + [p] * 9
+    fn.argtypes = [p, i, p, i, i, i] + [p] * 8 + [i, p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_march_capped
     fn.argtypes = [p, i, p, i, i, i, i] + [p] * 8
@@ -173,6 +195,9 @@ def load_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.cpt_bf16_march
     fn.argtypes = [i, p, p, p, i, i, i, i, p, p]
+    fn.restype = ctypes.c_int
+    fn = lib.cpt_bf16_roots
+    fn.argtypes = [i, p, p, p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_mxu_scalar
     fn.argtypes = [p, p, p, i, i, i, i, p, p]

@@ -14,8 +14,10 @@
 // from global memory at every map tap and tests each guarded shape's bit
 // per lane: a tap of the 64-primitive benchmark scene loads and skips some
 // 60 records whose box no lane of the warp hits, integer and load work the
-// operation count of app/profiling.py does not see.  Only the probes and
-// the wavefront kernel keep that walk.  Every march of K2 (debug 0-4,
+// operation count of app/profiling.py does not see.  Only the capped and
+// ILP probes, fused-bwd and the wavefront kernel keep that walk.  The dense
+// probe walks the whole program staged in shared memory (map_walk DENSE
+// over stage_walk's records).  Every march of K2 (debug 0-4,
 // analytic_unboxed, the over-relaxed march), its grid march (K6), K3 and
 // K4 take the per-warp walk at the end of this file: the block stages the
 // decoded records and the leaf table in shared memory once (stage_walk),
@@ -201,7 +203,7 @@ __device__ __forceinline__ void fold(int op, float k, float& acc_d, int& acc_i, 
 }
 
 // How a map treats a guarded shape: GUARDED skips it where its guard fails;
-// DENSE (map_ops only: the dense march probe, march_probes.cu) evaluates
+// DENSE (map_walk only: the dense march probe, march_probes.cu) evaluates
 // every leaf at every tap and lets the guard select the fold's operand,
 // with no branch; the two COUNT modes (map_walk only: debug 4,
 // megakernel_march.cu STATS) are GUARDED and add one to *tally for each
@@ -213,14 +215,10 @@ __device__ __forceinline__ void fold(int op, float k, float& acc_d, int& acc_i, 
 enum MapMode { GUARDED = 0, DENSE = 1, COUNT_BOXED = 2, COUNT_ALL = 3 };
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-// The scene map at p in mode MAP (GUARDED or DENSE): interprets the
-// program.  With CULLED a guarded shape marked in box_cull is evaluated only
-// while its interval holds t.  GUARDED keeps its own guard branch, and
-// map_scene and calc_grad their own signatures, so that the kernels without
-// the other mode compile to the same SASS as before it existed: one merged
-// guard test for every mode cost K4's marching configurations 9-11 % on an
-// H100.
-template <bool BAKED, bool TCULL, bool CULLED, int MAP>
+// The scene map at p: interprets the program from global memory, skipping
+// a guarded shape where its guard fails.  With CULLED a guarded shape marked
+// in box_cull is evaluated only while its interval holds t.
+template <bool BAKED, bool TCULL, bool CULLED>
 __device__ __forceinline__ float map_ops(const Scene& S, const Guards<TCULL>& g, V3 p, float t,
                                          int& id) {
   float st_d[kMaxDepth];
@@ -246,23 +244,12 @@ __device__ __forceinline__ float map_ops(const Scene& S, const Guards<TCULL>& g,
       acc_i = -1;
     } else if (opc == OPC_SHAPE) {
       const int box = __ldg(op + 3);
-      if constexpr (MAP == GUARDED) {
-        if (box >= 0) {
-          bool pass = g.check(box);
-          if constexpr (CULLED) {
-            if (pass && __ldg(op + 7)) pass = g.lo[box] <= t && g.hi[box] >= t;
-          }
-          if (!pass) continue;
+      if (box >= 0) {
+        bool pass = g.check(box);
+        if constexpr (CULLED) {
+          if (pass && __ldg(op + 7)) pass = g.lo[box] <= t && g.hi[box] >= t;
         }
-      }
-      bool pass = true;
-      if constexpr (MAP == DENSE) {
-        if (box >= 0) {
-          pass = g.check(box);
-          if constexpr (CULLED) {
-            if (pass && __ldg(op + 7)) pass = g.lo[box] <= t && g.hi[box] >= t;
-          }
-        }
+        if (!pass) continue;
       }
       const int kind = __ldg(op + 1);
       const float* __restrict__ r = F + __ldg(op + 2);
@@ -273,15 +260,7 @@ __device__ __forceinline__ float map_ops(const Scene& S, const Guards<TCULL>& g,
         d = leaf_sdf(kind, xform(p, r), r + 11) * __ldg(r);
       }
       const int k = __ldg(op + 6);
-      if constexpr (MAP == DENSE) {
-        float fd = acc_d;
-        int fi = acc_i;
-        fold(__ldg(op + 5), k >= 0 ? __ldg(F + k) : 0.0f, fd, fi, d, __ldg(op + 4));
-        acc_d = pass ? fd : acc_d;
-        acc_i = pass ? fi : acc_i;
-      } else {
-        fold(__ldg(op + 5), k >= 0 ? __ldg(F + k) : 0.0f, acc_d, acc_i, d, __ldg(op + 4));
-      }
+      fold(__ldg(op + 5), k >= 0 ? __ldg(F + k) : 0.0f, acc_d, acc_i, d, __ldg(op + 4));
     } else {  // OPC_LEAVE
       float d = BAKED ? acc_d : acc_d * __ldg(F + __ldg(op + 1));
       int i = acc_i;
@@ -297,18 +276,17 @@ __device__ __forceinline__ float map_ops(const Scene& S, const Guards<TCULL>& g,
   return acc_d;
 }
 
-// The scene map at p (GUARDED, or DENSE for the dense probe).
-template <bool BAKED, bool TCULL, bool CULLED, int MAP = GUARDED>
+// The scene map at p.
+template <bool BAKED, bool TCULL, bool CULLED>
 __device__ float map_scene(const Scene& S, const Guards<TCULL>& g, V3 p, float t, int& id) {
-  return map_ops<BAKED, TCULL, CULLED, MAP>(S, g, p, t, id);
+  return map_ops<BAKED, TCULL, CULLED>(S, g, p, t, id);
 }
 
 // The 80-step march of one ray (cast_ray, or cast_tcull with TCULL);
 // returns t, and the id of the last map tap in idx (-1 when far).  A finite
 // t_cap (analytic_unboxed) stops the ray on it: t = min(t, t_cap), done once
-// t >= t_cap; the default INFINITY leaves the march as it is.  MAP DENSE is
-// the dense probe's map (the same values).
-template <bool BAKED, bool TCULL, int MAP = GUARDED>
+// t >= t_cap; the default INFINITY leaves the march as it is.
+template <bool BAKED, bool TCULL>
 __device__ float march(const Scene& S, const Guards<TCULL>& g, V3 ro, V3 rd, int& idx,
                        float t_cap = INFINITY) {
   float t = 0.0f;
@@ -317,8 +295,8 @@ __device__ float march(const Scene& S, const Guards<TCULL>& g, V3 ro, V3 rd, int
   idx = -1;
   for (int step = 0; step < kSteps; ++step) {
     int mi;
-    float d = map_scene<BAKED, TCULL, TCULL, MAP>(S, g, v3(ro.x + rd.x * t, ro.y + rd.y * t,
-                                                           ro.z + rd.z * t), t, mi);
+    float d = map_scene<BAKED, TCULL, TCULL>(S, g, v3(ro.x + rd.x * t, ro.y + rd.y * t,
+                                                      ro.z + rd.z * t), t, mi);
     float ad = fabsf(d);
     float nt = TCULL ? t + nan_min(ad, nan_max(m - t, kMhd)) : t + ad;
     nt = nan_min(nt, t_cap);
@@ -600,16 +578,20 @@ __device__ __forceinline__ void record_list(unsigned long long* __restrict__ wal
   }
 }
 
-// map_scene over a warp's list: map_ops' GUARDED arithmetic, record for
-// record, over the records the list holds (the others fail every live
-// lane's guard, so map_ops would skip them).  Each lane still tests its own
-// guard bit and, with CULLED, its own interval.  MAP COUNT_BOXED and
-// COUNT_ALL (debug 4) count into *tally as map_ops counted over the whole
-// program, and only live lanes evaluate: a record off the list fails the
-// guard of every lane the list was built from, so its ballot over lanes
-// among those would be 0.  GUARDED has its own guard branch, and live and
+// map_scene over a warp's list: map_ops' arithmetic, record for record,
+// over the records the list holds (the others fail every live lane's guard,
+// so map_ops would skip them).  Each lane still tests its own guard bit
+// and, with CULLED, its own interval.  MAP COUNT_BOXED and COUNT_ALL (debug
+// 4) count into *tally as map_ops counted over the whole program, and only
+// live lanes evaluate: a record off the list fails the guard of every lane
+// the list was built from, so its ballot over lanes among those would be 0.
+// MAP DENSE walks a list that holds every record (the staged program):
+// each shape's leaf is evaluated by every lane, the fold into a copy of the
+// accumulator, and the lane's guard selects the copy or the accumulator, so
+// the lanes of a warp never part and every record is one broadcast load;
+// the values are GUARDED's.  GUARDED has its own guard branch, and live and
 // tally defaults, so that its callers compile to the same SASS as without
-// the COUNT modes.
+// the other modes.
 template <bool BAKED, bool TCULL, bool CULLED, int MAP = GUARDED>
 __device__ __forceinline__ float map_walk(const int4* __restrict__ list, int n,
                                           const float* __restrict__ F, const Guards<TCULL>& g,
@@ -636,7 +618,25 @@ __device__ __forceinline__ float map_walk(const int4* __restrict__ list, int n,
       acc_i = -1;
     } else if (opc == OPC_SHAPE) {
       const int box = walk_box(r);
-      if constexpr (MAP == GUARDED) {
+      if constexpr (MAP == DENSE) {
+        bool pass = true;
+        if (box >= 0) {
+          pass = g.check(box);
+          if constexpr (CULLED) {
+            if (pass && (r.x & kWalkCull)) pass = g.lo[box] <= t && g.hi[box] >= t;
+          }
+        }
+        const int kind = (r.x >> 2) & 7;
+        const float* __restrict__ gr = F + r.y;
+        const float d = BAKED ? leaf_baked(kind, gr, p)
+                              : leaf_sdf(kind, xform(p, gr), gr + 11) * gr[0];
+        float fd = acc_d;
+        int fi = acc_i;
+        fold(((r.x >> 5) & 15) - 1, __int_as_float(r.w), fd, fi, d, r.z);
+        acc_d = pass ? fd : acc_d;
+        acc_i = pass ? fi : acc_i;
+        continue;
+      } else if constexpr (MAP == GUARDED) {
         if (box >= 0) {
           bool pass = g.check(box);
           if constexpr (CULLED) {
@@ -678,8 +678,9 @@ __device__ __forceinline__ float map_walk(const int4* __restrict__ list, int n,
   return acc_d;
 }
 
-// march() over a warp's list.
-template <bool BAKED, bool TCULL>
+// march() over a warp's list, its map in mode MAP (GUARDED, or DENSE over
+// the staged program).
+template <bool BAKED, bool TCULL, int MAP = GUARDED>
 __device__ float march_walk(const Scene& S, const int4* __restrict__ list, int n,
                             const float* __restrict__ F, const Guards<TCULL>& g, V3 ro, V3 rd,
                             int& idx, float t_cap = INFINITY) {
@@ -689,8 +690,9 @@ __device__ float march_walk(const Scene& S, const int4* __restrict__ list, int n
   idx = -1;
   for (int step = 0; step < kSteps; ++step) {
     int mi;
-    float d = map_walk<BAKED, TCULL, TCULL>(list, n, F, g, v3(ro.x + rd.x * t, ro.y + rd.y * t,
-                                                             ro.z + rd.z * t), t, mi);
+    float d = map_walk<BAKED, TCULL, TCULL, MAP>(list, n, F, g, v3(ro.x + rd.x * t,
+                                                                  ro.y + rd.y * t,
+                                                                  ro.z + rd.z * t), t, mi);
     float ad = fabsf(d);
     float nt = TCULL ? t + nan_min(ad, nan_max(m - t, kMhd)) : t + ad;
     nt = nan_min(nt, t_cap);

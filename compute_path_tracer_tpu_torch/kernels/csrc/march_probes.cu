@@ -4,9 +4,15 @@
 // * march_dense replaces compute_path_tracer_tpu/benchmarks/dense_probe.py
 //   :dense (the pallas_call at :119, body _dense_march_kernel :49): the exact
 //   march with every leaf evaluated at every tap and the guard selecting
-//   the fold's operand (csg_program.cuh map mode DENSE), no branch on a
-//   guard; the id of the last tap, -1 when far.  It asks whether skipping
-//   the shapes a ray's guards reject is worth its branches.
+//   the fold's operand, no branch on a guard; the id of the last tap, -1
+//   when far.  It asks whether skipping the shapes a ray's guards reject is
+//   worth its branches.  Each block stages the decoded records and the leaf
+//   table in shared memory once (csg_program.cuh:stage_walk, with no
+//   per-warp lists), and every tap walks the whole staged program
+//   (march_walk in map mode DENSE).  With no guard branch every lane of a
+//   warp sits on the same record at the same time, so each record and each
+//   leaf value is one broadcast shared-memory load, as the records of K3's
+//   lists are: dense and K3 differ only in the work each tap does.
 // * march_capped replaces benchmarks/analytic_probe.py:capped (:194, body
 //   _make_capped_kernel :47): the program without the guard-less shapes of
 //   analytic_unboxed (render/program.py:build_program(skip_unboxed=True)),
@@ -25,8 +31,10 @@
 //   exact march, so each ray's t is K3's exact march's bit for bit.
 //
 // What bounds them is K3's: operations (leaf SDFs per tap, up to 80 taps a
-// ray) against 24 bytes in and 4-8 out per ray.  They are written to answer
-// their questions simply, not to be fast.  Parity: the flags and helpers of
+// ray) against 24 bytes in and 4-8 out per ray.  The capped and ILP probes
+// read the program from global memory at every tap (csg_program.cuh
+// map_ops); they are written to answer their questions simply, not to be
+// fast.  Parity: the flags and helpers of
 // K2 and K3 (note at the head of megakernel_march.cu); each probe is held
 // bit for bit to its plain version in kernels/probes.py.
 
@@ -45,8 +53,13 @@ __device__ __forceinline__ void load_ray(const Rays& R, int i, V3& ro, V3& rd) {
   rd = v3(R.dx[i], R.dy[i], R.dz[i]);
 }
 
+// Dynamic shared memory: walk_smem_bytes(n_ops, f_leaf, 0).  A thread past
+// the end of the rays helps stage the program, then returns.
 __global__ void __launch_bounds__(kBlock)
-march_dense(Scene S, int n, Rays R, float* __restrict__ t_out, int* __restrict__ idx_out) {
+march_dense(Scene S, int f_leaf, int n, Rays R, float* __restrict__ t_out,
+            int* __restrict__ idx_out) {
+  extern __shared__ int4 walk_smem[];
+  const Walk P = stage_walk(S, f_leaf, 0, walk_smem, threadIdx.x, kBlock);
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= n) return;
   V3 ro, rd;
@@ -54,7 +67,7 @@ march_dense(Scene S, int n, Rays R, float* __restrict__ t_out, int* __restrict__
   Guards<false> g;
   compute_guards(S, ro, rd, g);
   int idx;
-  t_out[i] = march<true, false, DENSE>(S, g, ro, rd, idx);
+  t_out[i] = march_walk<true, false, DENSE>(S, P.prog, P.n_ops, P.F, g, ro, rd, idx);
   idx_out[i] = idx;
 }
 
@@ -217,14 +230,27 @@ Scene probe_scene(const int* code, int n_ops, const float* table, int n_boxed, i
 // cpt_march_rays (program_code_on, program_table with t_cull for capped);
 // the rays are six float32 (n,) arrays ro.x, ro.y, ro.z, rd.x, rd.y, rd.z;
 // t (float32) and, for dense, idx (int32) are (n,).  The caller checks the
-// program against kMaxDepth and kMaxBoxed.
+// program against kMaxDepth and kMaxBoxed.  For dense, smem_bytes, the
+// block's dynamic shared memory, must be walk_smem_bytes(n_ops, f_box, 0)
+// (render/program.py:walk_smem_bytes, which raises for a program a block
+// cannot hold).
 extern "C" int cpt_march_dense(const int* code, int n_ops, const float* table, int n_boxed,
                                int f_box, int n, const float* rox, const float* roy,
                                const float* roz, const float* rdx, const float* rdy,
-                               const float* rdz, float* t, int* idx, void* stream) {
+                               const float* rdz, float* t, int* idx, int smem_bytes,
+                               void* stream) {
+  if (smem_bytes != walk_smem_bytes(n_ops, f_box, 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        march_dense, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const Rays R{rox, roy, roz, rdx, rdy, rdz};
-  march_dense<<<(n + kBlock - 1) / kBlock, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      probe_scene(code, n_ops, table, n_boxed, f_box, 0), n, R, t, idx);
+  march_dense<<<(n + kBlock - 1) / kBlock, kBlock, smem_bytes,
+                static_cast<cudaStream_t>(stream)>>>(
+      probe_scene(code, n_ops, table, n_boxed, f_box, 0), f_box, n, R, t, idx);
   return static_cast<int>(cudaGetLastError());
 }
 

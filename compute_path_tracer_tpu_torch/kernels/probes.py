@@ -5,9 +5,10 @@ Each takes flat (n,) float32 rays and a baked program's table, as
 ``march_rays`` (K3) does, and changes one thing of K3's march:
 
 * ``march_dense`` (``benchmarks/dense_probe.py:dense``): the exact march
-  with every leaf evaluated at every tap, the guards as selects; returns
-  ``(t, idx)``.  Its plain version is ``march_rays_plain(t_cull=False)``:
-  the values are the exact march's, only the work differs.
+  with every leaf evaluated at every tap, the guards as selects, over the
+  program staged in each block's shared memory; returns ``(t, idx)``.  Its
+  plain version is ``march_rays_plain(t_cull=False)``: the values are the
+  exact march's, only the work differs.
 * ``march_capped`` (``benchmarks/analytic_probe.py:capped``): the t-culled
   march of the program without the guard-less shapes
   (``capped_program``), each ray stopped at their closed-form hit; returns
@@ -34,6 +35,7 @@ from ..render.program import (
     make_map_program,
     program_bounds,
     program_code_on,
+    walk_smem_bytes,
 )
 from ..scene.compile import SceneSpec
 from ..scene.model import KIND_PLANE, KIND_SPHERE
@@ -52,9 +54,10 @@ def _baked(prog: Program) -> None:
         raise ValueError("the march probes take a baked program")
 
 
-def _launch(name, fn, prog: Program, table, ro: Vec3, rd: Vec3, outs, *args):
+def _launch(name, fn, prog: Program, table, ro: Vec3, rd: Vec3, outs, *args,
+            tail=()):
     """Launch ``lib.<fn>(code, n_ops, table, n_boxed, f_box, *args, n, rays,
-    *outs, stream)`` on CUDA tensors and count it under ``name``."""
+    *outs, *tail, stream)`` on CUDA tensors and count it under ``name``."""
     if table.device.type != "cuda":
         raise ValueError(f"no kernel for device {table.device}")
     n = _check_rays(prog, table, ro, rd)
@@ -65,7 +68,7 @@ def _launch(name, fn, prog: Program, table, ro: Vec3, rd: Vec3, outs, *args):
                 code.data_ptr(), prog.ops.shape[0], table.data_ptr(),
                 prog.n_boxed, prog.f_box, *args, n,
                 *(c.data_ptr() for c in (*ro, *rd)),
-                *(o.data_ptr() for o in outs),
+                *(o.data_ptr() for o in outs), *tail,
                 torch.cuda.current_stream(table.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -82,13 +85,17 @@ def march_dense_plain(prog: Program, table, ro: Vec3, rd: Vec3, count=None):
 
 
 def march_dense(prog: Program, table, ro: Vec3, rd: Vec3):
-    """The dense probe on flat rays: ``(t, idx)`` as K3's exact march."""
+    """The dense probe on flat rays: ``(t, idx)`` as K3's exact march.  Its
+    blocks hold the program in shared memory (``walk_smem_bytes(prog, 0)``,
+    which raises for a program too large)."""
     _baked(prog)
     if table.device.type == "cpu":
         return march_dense_plain(prog, table, ro, rd)
+    smem = walk_smem_bytes(prog, 0)
     t = torch.empty_like(ro.x)
     idx = torch.empty(t.shape, dtype=torch.int32, device=t.device)
-    _launch("march_dense", "cpt_march_dense", prog, table, ro, rd, (t, idx))
+    _launch("march_dense", "cpt_march_dense", prog, table, ro, rd, (t, idx),
+            tail=(smem,))
     return t, idx
 
 
