@@ -79,11 +79,14 @@ and the modes of the same two kernels that the last bench.py rows run:
 * the march probes (kernels/probes.py, ``csrc/march_probes.cu``: dense,
   capped, ILP seq and fused) against their plain versions on four scenes
   at 320x180 and on the 1080p primary rays, dense and ILP also against K3's
-  exact march, bit for bit; their main paths, the measurement scripts of
-  ``compute_path_tracer_tpu_torch/benchmarks/`` at 1080p, time them beside
-  K3's t-culled and exact marches; the dense probe walks the program
-  staged in shared memory, and its row gives ptxas's figures and its own
-  work (every leaf on every tap) at the FP32 rate vpu_peak attains;
+  exact march, bit for bit, and ILP on an odd ray count; their main paths,
+  the measurement scripts of ``compute_path_tracer_tpu_torch/benchmarks/``
+  at 1080p, time them beside K3's t-culled and exact marches; the dense
+  probe walks the program staged in shared memory, and its row gives
+  ptxas's figures and its own work (every leaf on every tap) at the FP32
+  rate vpu_peak attains; the ILP probe walks K3's per-warp lists of the
+  staged program, and its row gives ptxas's figures and the mean list
+  lengths;
 * the hardware probes (kernels/hw_probes.py, ``csrc/hw_probes.cu``:
   vpu_peak's FMA chains at every width, gather_probe's four kernels with
   the table in shared memory and through ``__ldg``, bf16_probe's three
@@ -104,14 +107,17 @@ and the modes of the same two kernels that the last bench.py rows run:
   kernels/grad_probes.py; ``csrc/wavefront.cu``, ``csrc/grad_probes.cu``):
   the wavefront renderer's frame (one bounce kernel a bounce, the
   compaction in torch) bit for bit its plain frame at 320x180 on the
-  benchmark scene and csg_demo and at 1080p, where it is also K2's
-  faithful exact frame bit for bit; the fused-bwd probe's loss within
+  benchmark scene and csg_demo, compacted and sorted, with the bounce's
+  per-warp list figures equal to the plain model's, and at 1080p, where it
+  is also K2's faithful exact frame bit for bit; the fused-bwd probe's
+  loss within
   FB_LOSS_TOL of its plain version (autograd through the implicit march)
   at the JAX probe's tile and over the 1080p frame, both gradients all
   zero and finite; the segment sum within SEGSUM_TOL of a float64 sum at
   the JAX probe's shape and at K4's; their main paths, the measurement
   scripts of ``compute_path_tracer_tpu_torch/benchmarks/``
-  (``frozen_wavefront``: 1080p frames, sorted and not, beside K2's;
+  (``frozen_wavefront``: 1080p frames, sorted and not, beside K2's, with
+  the mean list length per bounce of each;
   ``probe_fused_bwd``: the tile and the frame beside K4's time a bounce;
   ``probe_inkernel_segsum``: both shapes beside ``index_add_``);
 
@@ -496,13 +502,42 @@ def _counts_zero(*counts):
             c[k] = 0
 
 
+def _walked_frames(fw, wf, sspec, sparams, sort_rays, **kw):
+    """One wavefront frame through the kernel and one through its plain
+    version (on the card), each bounce passed a zeroed ``walk_stats``;
+    returns (kernel frame, plain frame, the kernel's (summed length, lists)
+    per bounce, the plain model's)."""
+    import torch
+
+    orig, rows = wf.wavefront_bounce, {"kernel": [], "plain": []}
+
+    def walked(label, fn):
+        def bounce(prog, table, k, ray, rng):
+            ws = torch.zeros(2, dtype=torch.int64, device=ray.device)
+            rows[label].append(ws)
+            return fn(prog, table, k, ray, rng, walk_stats=ws)
+        return bounce
+
+    try:
+        frames = []
+        for label, fn in (("kernel", orig), ("plain", wf.wavefront_bounce_plain)):
+            wf.wavefront_bounce = walked(label, fn)
+            frames.append(fw.render_frame_wavefront(
+                sspec, sparams, sort_rays=sort_rays, **kw))
+    finally:
+        wf.wavefront_bounce = orig
+    return (*frames, *(torch.stack(rows[k]).tolist()
+                       for k in ("kernel", "plain")))
+
+
 def _wavefront_phase(fw, wf, mk, pf, spec, sp, scenes, all_counts, peak,
-                     gpu):
+                     gpu, ptxas):
     """The wavefront bounce kernel: bit for bit its plain frame at
-    CHECK_W x CHECK_H on ``scenes``, and at 1080p bit for bit K2's faithful
-    exact frame and the plain frame that counts the work; then its main
-    path, the port's benchmarks/frozen_wavefront.py.  Returns its
-    kernels-line row."""
+    CHECK_W x CHECK_H on ``scenes``, compacted and sorted, with its
+    per-warp list figures (``walk_stats``) equal to the plain model's, and
+    at 1080p bit for bit K2's faithful exact frame and the plain frame that
+    counts the work; then its main path, the port's
+    benchmarks/frozen_wavefront.py.  Returns its kernels-line row."""
     import torch
 
     from compute_path_tracer_tpu_torch.render.program import build_program
@@ -510,16 +545,26 @@ def _wavefront_phase(fw, wf, mk, pf, spec, sp, scenes, all_counts, peak,
     err = 0.0
     kw = dict(bounces=BOUNCES, frame=1, last_clear=1)
     for name, (sspec, sparams) in scenes:
-        before = wf.LAUNCHES["wavefront_bounce"]
-        k = fw.render_frame_wavefront(sspec, sparams, width=CHECK_W,
-                                      height=CHECK_H, **kw)
-        torch.cuda.synchronize()
-        if wf.LAUNCHES["wavefront_bounce"] - before != BOUNCES + 1:
-            raise AssertionError(f"wavefront {name}: not one launch a bounce")
-        p = fw.render_frame_wavefront(sspec, sparams, width=CHECK_W,
-                                      height=CHECK_H, count={}, **kw)
-        err = max(err, _compare(f"wavefront {name} {CHECK_W}x{CHECK_H}", k, p,
-                                exact=True)[1])
+        for sort_rays in (False, True):
+            order = "sorted" if sort_rays else "compacted"
+            before = wf.LAUNCHES["wavefront_bounce"]
+            k, p, walk_k, walk_p = _walked_frames(
+                fw, wf, sspec, sparams, sort_rays, width=CHECK_W,
+                height=CHECK_H, **kw)
+            torch.cuda.synchronize()
+            if wf.LAUNCHES["wavefront_bounce"] - before != BOUNCES + 1:
+                raise AssertionError(f"wavefront {name}: not one launch a "
+                                     f"bounce")
+            err = max(err, _compare(f"wavefront {name} {order} {CHECK_W}x"
+                                    f"{CHECK_H}", k, p, exact=True)[1])
+            print(f"wavefront {name} {order} {CHECK_W}x{CHECK_H} per-warp "
+                  f"lists per bounce (summed length, lists): kernel {walk_k}, "
+                  f"plain model {walk_p}; mean "
+                  + ", ".join(f"{m:.2f}" for m in _walk_means(walk_k)))
+            if walk_k != walk_p:
+                raise AssertionError(f"wavefront {name} {order}: the "
+                                     f"per-warp lists differ from the plain "
+                                     f"model")
     main = dict(width=MAIN_W, height=MAIN_H, **kw)
     k = fw.render_frame_wavefront(spec, sp, **main)
     k2 = mk.render_frame_megakernel(spec, sp, torch.zeros_like(k), **main)
@@ -550,19 +595,26 @@ def _wavefront_phase(fw, wf, mk, pf, spec, sp, scenes, all_counts, peak,
           f"plain frame {plain_ms:.1f} ms while counting {int(count['taps'])} "
           f"taps; bound {bound[0]:.4f} ms ({bound[1]}: {ops:.4e} FP32 ops, "
           f"{n_bytes:.4e} bytes) [{gpu}]")
+    k2 = out["rows"]["K2 faithful exact"]
     return {"name": "wavefront_bounce", "route": "cuda",
             "source": "compute_path_tracer_tpu_torch/kernels/csrc/wavefront.cu",
             "replaces": "benchmarks/frozen_wavefront.py:182",
             "launches": launches, "max_abs_err": err,
             "main_shape_share_off": share, "ms": wave["bounce_kernels_ms"],
             "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": None, "ms_per_frame": wave["ms_per_frame"],
+            "library_ms": None,
+            "state": "redesigned, PR 16 (K2's per-warp walk of the staged "
+                     "program, persistent blocks)",
+            "ms_per_frame": wave["ms_per_frame"],
             "glue_ms": wave["glue_ms"],
             "alive_per_bounce": wave["alive_per_bounce"],
+            "mean_list_per_bounce": wave["mean_list_per_bounce"],
             "sorted_ms_per_frame": srt["ms_per_frame"],
             "sorted_bounce_kernels_ms": srt["bounce_kernels_ms"],
-            "k2_faithful_ms_per_frame":
-                out["rows"]["K2 faithful exact"]["ms_per_frame"]}
+            "sorted_mean_list_per_bounce": srt["mean_list_per_bounce"],
+            "k2_faithful_ms_per_frame": k2["ms_per_frame"],
+            "k2_mean_list_per_bounce": k2["mean_list_per_bounce"],
+            "ptxas": ptxas["wavefront_bounce"]}
 
 
 def _grad_probe_phase(gp, pf, fbm, sgm, spec, sp, all_counts, peak, gpu):
@@ -715,8 +767,10 @@ def _ptxas_k1(build):
 
 
 def _ptxas_probes(build):
-    """ptxas's figures of the bf16 march (bf16_march<V>) and the dense
-    probe (march_dense), printed; returns them by short name."""
+    """ptxas's figures of the bf16 march (bf16_march<V>), the dense and ILP
+    probes (march_dense, march_ilp_seq, march_ilp_fused) and the
+    wavefront's bounce (wavefront_bounce), printed; returns them by short
+    name."""
     import re
 
     figs = {}
@@ -724,15 +778,17 @@ def _ptxas_probes(build):
         m = re.search(r"bf16_marchILi(\d)E", k)
         if m:
             figs[f"bf16_march<{m.group(1)}>"] = v
-        elif "march_dense" in k:
-            figs["march_dense"] = v
+        for name in ("march_dense", "march_ilp_seq", "march_ilp_fused",
+                     "wavefront_bounce"):
+            if name in k:
+                figs[name] = v
     for k, v in sorted(figs.items()):
         print(f"ptxas {k}: {v['registers']} registers, {v.get('stack', 0)} "
               f"bytes stack frame, {v.get('spill_stores', 0)} bytes spill "
               f"stores, {v.get('spill_loads', 0)} bytes spill loads")
-    if len(figs) != 4:
+    if len(figs) != 7:
         raise AssertionError(f"ptxas figures of {len(figs)} probe kernels, "
-                             f"expected 4")
+                             f"expected 7")
     return figs
 
 
@@ -2330,6 +2386,27 @@ def main() -> int:
             ("sphere_and_plane", sap, False)):
         probe_checks(f"{name} {CHECK_W}x{CHECK_H}", sspec, sparams, cro, crd,
                      rejects)
+    # The ILP probe on an odd ray count: the last block's second rays fall
+    # past n, and its lanes take part in the lists as not live.
+    n_odd = CHECK_W * CHECK_H - 37
+    oro, ord_ = (type(v)(*(c[:n_odd].contiguous() for c in v))
+                 for v in (cro, crd))
+    oprog = build_program(spec, "baked")
+    otable = program_table(oprog, sp, False)
+    pt = pr.march_ilp_plain(oprog, otable, oro, ord_)
+    k3t = km.march_rays(oprog, otable, oro, ord_, t_cull=False,
+                        with_normal=False)[0]
+    ok = {f"ilp {'fused' if i else 'seq'}": torch.equal(
+        pr.march_ilp(oprog, otable, oro, ord_, interleave=i), pt)
+        for i in (False, True)}
+    ok["plain = K3 exact"] = torch.equal(pt, k3t)
+    print(f"check ILP probe on {n_odd} rays (odd), benchmark_scene({N_PRIMS}): "
+          + ", ".join(f"{k} {'yes' if v else 'NO'}" for k, v in ok.items())
+          + "; mean list " + json.dumps(
+              pr.ilp_list_lengths(oprog, otable, oro, ord_)))
+    if not all(ok.values()):
+        raise AssertionError(f"ILP probe on an odd ray count: {ok}")
+    del oro, ord_
     n_main = MAIN_W * MAIN_H
     pro, prd = probe_rays(MAIN_W, MAIN_H, dev)
     exact_count, capped_count = {"segments": n_main}, {"segments": n_main}
@@ -2427,7 +2504,7 @@ def main() -> int:
     wave_row = _wavefront_phase(
         frozen_wavefront, wf, mk, pf, spec, sp,
         ((f"benchmark_scene({N_PRIMS})", bench), ("csg_demo", csg)),
-        all_counts, peak, gpu)
+        all_counts, peak, gpu, probe_ptxas)
     grad_rows = _grad_probe_phase(gp, pf, probe_fused_bwd,
                                   probe_inkernel_segsum, spec, sp, all_counts,
                                   peak, gpu)
@@ -2807,8 +2884,13 @@ def main() -> int:
             ("analytic_probe", 194, "analytic-capped march", capped_plain_ms,
              {}),
             ("ilp_probe", 184, "fused interleaved rays", exact_plain_ms,
-             {"seq_ms": probe_runs["ilp_probe"][1]["rows"][
-                 "sequential rays (dep-chain baseline)"]}))] + hw_rows
+             {"state": "redesigned, PR 16 (K3's per-warp walk of the staged "
+                       "program; fused: one list over both rays' guards)",
+              "seq_ms": probe_runs["ilp_probe"][1]["rows"][
+                  "sequential rays (dep-chain baseline)"],
+              "mean_list": probe_runs["ilp_probe"][1]["summary"]["mean_list"],
+              "ptxas": {k: v for k, v in probe_ptxas.items()
+                        if k.startswith("march_ilp")}}))] + hw_rows
         + [wave_row] + grad_rows}
     _stamp(start, "report")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")

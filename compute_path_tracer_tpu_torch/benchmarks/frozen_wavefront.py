@@ -11,8 +11,9 @@ live rays together at the cost of a compaction per bounce.
 
 ``render_frame_wavefront`` keeps JAX's signature (less ``interpret``) and
 its frame: per bounce one launch of the bounce kernel
-(kernels/wavefront.py) over the whole flat ray buffer, whose threads past
-the live count return, then in torch the radiance scatter-add into the
+(kernels/wavefront.py), whose persistent blocks shade the live rays of the
+flat ray buffer 32 at a time and zero the rest, then in torch the
+radiance scatter-add into the
 image and the compaction of the survivors to the front of the buffer
 (``compact``: a cumsum and an order-preserving scatter; ``compact_sorted``:
 an argsort on direction octant x 8^3 origin cell).  The rays start in JAX's
@@ -24,9 +25,13 @@ term; the other slots add +0.0).  No step reads the live count on the host.
 
 The measurement (1920x1080, 8 bounces, ``benchmark_scene(64)``): ms per
 frame by the host clock, the bounce kernels' summed device time and the
-rest (glue) by CUDA events, the live count per bounce, the same with
-``sort_rays=True``, and K2's faithful exact frame in the same process.  Run
-on a machine with an NVIDIA GPU:
+rest (glue) by CUDA events, the live count per bounce, the mean length of
+the warps' lists of the program per bounce (the kernel's ``walk_stats``),
+the same with ``sort_rays=True``, and K2's faithful exact frame and its
+per-bounce list lengths in the same process.  Both walk per-warp lists of
+the program, so the comparison is of two ways to schedule the rays: K2
+keeps a finished path's lane idle, the wavefront compacts.  Run on a
+machine with an NVIDIA GPU:
 
     python -m compute_path_tracer_tpu_torch.benchmarks.frozen_wavefront
 """
@@ -42,6 +47,7 @@ import torch
 
 from ..constants import DEFAULT_BOUNCES, DEFAULT_FOV
 from ..kernels import wavefront as wf
+from ..kernels import megakernel as mk
 from ..kernels.megakernel import render_frame_megakernel
 from ..render.program import build_program, program_table
 from ..render.reference import camera_rays, running_mean
@@ -170,11 +176,12 @@ def render_frame_wavefront(
 
 def _frame_times(fn, frames: int):
     """(host ms per frame, stream ms per frame by events, the bounce
-    kernels' ms per frame, the live counts of the last frame) over
-    ``frames`` frames after a warm-up: ``wf.wavefront_bounce``, which the
-    renderer resolves at call time, is wrapped with CUDA events and keeps
-    each launch's live count.  The stream time outside the bounce kernels
-    is the glue's, and any wait for the host's launches."""
+    kernels' ms per frame, each bounce's kernel ms per frame, the live
+    counts of the last frame) over ``frames`` frames after a warm-up:
+    ``wf.wavefront_bounce``, which the renderer resolves at call time, is
+    wrapped with CUDA events and keeps each launch's live count.  The
+    stream time outside the bounce kernels is the glue's, and any wait for
+    the host's launches."""
     fn()
     torch.cuda.synchronize()
     orig, rec = wf.wavefront_bounce, []
@@ -201,10 +208,36 @@ def _frame_times(fn, frames: int):
         host = (time.perf_counter() - t0) * 1e3 / frames
     finally:
         wf.wavefront_bounce = orig
-    kernels = sum(a.elapsed_time(b) for a, b, _ in rec) / frames
+    ms = [a.elapsed_time(b) for a, b, _ in rec]
     per = len(rec) // frames
+    by_bounce = [sum(ms[j::per]) / frames for j in range(per)]
     alive = [int(k) for _, _, k in rec[-per:]]
-    return host, start.elapsed_time(end) / frames, kernels, alive
+    return (host, start.elapsed_time(end) / frames, sum(ms) / frames,
+            by_bounce, alive)
+
+
+def _means(rows):
+    """Mean list length of each (summed length, lists) row; 0 where no
+    list was built."""
+    return [a / b if b else 0.0 for a, b in rows]
+
+
+def _list_lengths(fn):
+    """The mean length of the warps' lists in each bounce of one frame of
+    ``fn``, from the kernel's ``walk_stats`` (its plain model on the
+    CPU): ``wf.wavefront_bounce`` is wrapped to pass one per bounce."""
+    orig, rows = wf.wavefront_bounce, []
+
+    def walked(prog, table, k, ray, rng):
+        rows.append(torch.zeros(2, dtype=torch.int64, device=ray.device))
+        return orig(prog, table, k, ray, rng, walk_stats=rows[-1])
+
+    wf.wavefront_bounce = walked
+    try:
+        fn()
+    finally:
+        wf.wavefront_bounce = orig
+    return _means(torch.stack(rows).tolist())
 
 
 def measure(frames: int = FRAMES, device="cuda") -> dict:
@@ -215,14 +248,22 @@ def measure(frames: int = FRAMES, device="cuda") -> dict:
     kw = dict(width=W, height=H, bounces=BOUNCES)
     rows = {}
     for name, sort_rays in (("wavefront", False), ("wavefront sorted", True)):
-        host, device, kernels, alive = _frame_times(
-            lambda s=sort_rays: render_frame_wavefront(
-                spec, params, frame=1, last_clear=1, sort_rays=s, **kw),
-            frames)
+        def frame(s=sort_rays):
+            return render_frame_wavefront(spec, params, frame=1, last_clear=1,
+                                          sort_rays=s, **kw)
+
+        host, device, kernels, by_bounce, alive = _frame_times(frame, frames)
         rows[name] = {"ms_per_frame": host, "device_ms": device,
                       "bounce_kernels_ms": kernels,
-                      "glue_ms": device - kernels, "alive_per_bounce": alive}
+                      "kernel_ms_per_bounce": by_bounce,
+                      "glue_ms": device - kernels, "alive_per_bounce": alive,
+                      "mean_list_per_bounce": _list_lengths(frame)}
     acc = torch.zeros((H, W, 3), device=dev)
+    prog = build_program(spec, "faithful")
+    walk = torch.zeros(2 * (BOUNCES + 1), dtype=torch.int64, device=dev)
+    mk.launch_march(prog, program_table(prog, params), torch.zeros_like(acc),
+                    frame=1, last_clear=1, bounces=BOUNCES, fov=DEFAULT_FOV,
+                    aspect=W / H, debug=0, t_cull=False, walk_stats=walk)
 
     def k2():
         return render_frame_megakernel(spec, params, acc, 1, 1, **kw)
@@ -234,7 +275,8 @@ def measure(frames: int = FRAMES, device="cuda") -> dict:
         k2()
     torch.cuda.synchronize()
     rows["K2 faithful exact"] = {
-        "ms_per_frame": (time.perf_counter() - t0) * 1e3 / frames}
+        "ms_per_frame": (time.perf_counter() - t0) * 1e3 / frames,
+        "mean_list_per_bounce": _means(walk.view(-1, 2).tolist())}
     wave = rows["wavefront"]
     return {"rows": rows, "summary": {
         "wavefront_over_k2": (wave["ms_per_frame"]

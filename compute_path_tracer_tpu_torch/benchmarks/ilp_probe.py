@@ -8,7 +8,11 @@ TPU's scheduling gap.  Here each thread marches two rays, ray i and ray i
 (A, seq) or in one loop whose map walks the program once for both (B,
 fused).  The thread count halves, so occupancy falls as the instruction-level
 parallelism rises.  Both are the exact march (bit for bit K3's, which is
-timed beside them for context, one ray per thread).
+timed beside them for context, one ray per thread) over K3's per-warp walk
+of the program staged in shared memory: seq walks K3's list of each 32
+rays, fused one list per warp over the union of its two rays' guards; the
+summary gives the mean length of both (``ilp_list_lengths``, the plain
+model).
 
 ratio = t(A) / t(B); the JAX probe integrated above 1.2 and closed the
 hypothesis below 1.1.  One primary-ray cast at 1920x1080 on the
@@ -25,7 +29,7 @@ import json
 import torch
 
 from ..kernels.march import march_rays
-from ..kernels.probes import march_ilp
+from ..kernels.probes import ilp_list_lengths, march_ilp
 from ..render.program import build_program, program_table
 from .common import bench_scene, cuda_ms, probe_rays, require_card
 
@@ -63,6 +67,8 @@ def measure(reps: int = REPS) -> dict:
         "verdict_hint": ("integrate in round 4" if ratio > 1.2 else
                          "ILP hypothesis closed negative" if ratio < 1.1
                          else "borderline"),
+        "mean_list": ilp_list_lengths(prog, table, ro, rd),
+        "n_ops": int(prog.ops.shape[0]),
     }}
 
 

@@ -10,24 +10,28 @@ run, alternated A B B A, the kernel launches of K1 (``analytic_all``), K5
 training path calls it: t-culled with the normal, on the 1080p primary rays
 and on the rays that survive their bounce of a plain ``path_trace``) and K4
 (the five fused configurations of ``bench.py``) at 1920x1080, 8 bounces, on
-the 64-primitive benchmark scene unless stated, and two probes at their
+the 64-primitive benchmark scene unless stated, and four probes at their
 drivers' shapes: the bf16 march (``P-bf16 f32``, ``map``, ``all``: 4 tiles
-of (256, 128) rays, 64 reps of 64 steps) and the dense march (``P-dense``:
-the 1080p primary rays), by CUDA events around each launch (a warm-up call
+of (256, 128) rays, 64 reps of 64 steps), the dense march (``P-dense``)
+and the ILP march (``P-ilp seq``, ``P-ilp fused``) on the 1080p primary
+rays, and the wavefront's bounce (``P-wavefront``, ``P-wavefront
+sorted``: one 1080p frame's 9 launches summed, the rays compacted, or
+compacted and sorted), by CUDA events around each launch (a warm-up call
 first); ``--only REGEX`` times only the rows whose name matches.  Every
 output of every run is hashed, and A's and B's must be the same bit for
 bit: the frames, K3's t, ids and normals, K4's image and its (shape,
 channel) sums, which the kernel adds in a fixed order (the gradient's
-atomics are torch's, outside the kernel), and the probes' t (and the dense
-probe's ids).  It also
+atomics are torch's, outside the kernel), the probes' t (and the dense
+probe's ids), and the wavefront's frame with its ray buffer and RNG after
+the last bounce.  It also
 prints K6's warp statistics (``launch_march(grid_stats=)``) in both, and
 tells, for each kernel function of the two builds, whether its SASS
 (``cuobjdump -sass``) is the same, so a change to shared device code can be
 seen to leave a kernel alone (a kernel in one build only is matched to one
 of the other's with the same SASS: a rename), and prints ptxas's
 registers, stack frame and spills of K1's and the marching kernels
-(K2's, RELAX's, debug 4's, K6's, K3's, K4's, the dense probe's) and of the
-bf16 march in both.  Run on a
+(K2's, RELAX's, debug 4's, K6's, K3's, K4's, the dense and ILP probes',
+the wavefront's) and of the bf16 march in both.  Run on a
 machine with an NVIDIA GPU and the CUDA toolkit:
 
     python -m compute_path_tracer_tpu_torch.benchmarks.kernel_ab OTHER_DIR [--only REGEX]
@@ -69,13 +73,15 @@ STEPS = (("K4 analytic_all + edge_grad", dict(analytic_all=True, edge_grad=True)
 RAYS = ("K3 primary", "K3 survivors")
 BF16 = ("P-bf16 f32", "P-bf16 map", "P-bf16 all")
 DENSE = "P-dense"
+ILP = ("P-ilp seq", "P-ilp fused")
+WAVE = ("P-wavefront", "P-wavefront sorted")
 # The anonymous namespace's name in a mangled kernel name hashes the file;
 # it ends in an 8-digit hash, then the kernel name's length.
 ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_[0-9]+_\w+?_cu_[0-9a-f]{8}\d+")
 # The marching kernels, for ptxas's figures.
 WALKERS = re.compile(r"megakernel_analytic|megakernel_walk|megakernel_grid|"
                      r"megakernel_relax|megakernel_stats|march_rays|train_fused|"
-                     r"march_dense|bf16_march")
+                     r"march_dense|march_ilp|wavefront_bounce|bf16_march")
 
 
 def _sass(root: str) -> dict:
@@ -180,9 +186,11 @@ def _times(root: str, rays: str, only: str) -> dict:
     pick = re.compile(only)
     last = {}
 
-    def launches(mod, attr, fn):
-        """(sorted ms of the REPS timed launches of ``mod.attr`` under
-        ``fn``, fn's last result, the last launch's own result)."""
+    def launches(mod, attr, fn, group=1, last_args=None):
+        """(sorted ms of the REPS timed calls of ``fn``, each the sum of
+        its ``group`` launches of ``mod.attr``, fn's last result, the last
+        launch's own result); ``last_args``, a list, takes the last
+        launch's arguments."""
         orig, events, outs = getattr(mod, attr), [], [None]
 
         def timed(*a, **kw):
@@ -193,6 +201,8 @@ def _times(root: str, rays: str, only: str) -> dict:
             end.record()
             events.append((start, end))
             outs[0] = out
+            if last_args is not None:
+                last_args[:] = a
             return out
 
         fn()
@@ -204,7 +214,9 @@ def _times(root: str, rays: str, only: str) -> dict:
             torch.cuda.synchronize()
         finally:
             setattr(mod, attr, orig)
-        return sorted(a.elapsed_time(b) for a, b in events), res, outs[0]
+        ms = [a.elapsed_time(b) for a, b in events]
+        return (sorted(sum(ms[i:i + group]) for i in range(0, len(ms), group)),
+                res, outs[0])
 
     out = {}
     for key, mode, n in FRAMES:
@@ -261,6 +273,29 @@ def _times(root: str, rays: str, only: str) -> dict:
         out[DENSE], (t, idx), _ = launches(
             pr, "march_dense", lambda: pr.march_dense(prog, table, ro, rd))
         last[DENSE] = _digest(t, idx)
+    if any(pick.search(k) for k in ILP):
+        from compute_path_tracer_tpu_torch.benchmarks.common import probe_rays
+        from compute_path_tracer_tpu_torch.kernels import probes as pr
+
+        ro, rd = probe_rays(W, H, dev)
+        for key, inter in zip(ILP, (False, True)):
+            if pick.search(key):
+                out[key], t, _ = launches(
+                    pr, "march_ilp", lambda i=inter: pr.march_ilp(
+                        prog, table, ro, rd, interleave=i))
+                last[key] = _digest(t)
+    if any(pick.search(k) for k in WAVE):
+        from compute_path_tracer_tpu_torch.benchmarks import frozen_wavefront as fw
+        from compute_path_tracer_tpu_torch.kernels import wavefront as wf
+
+        for key, sort in zip(WAVE, (False, True)):
+            if pick.search(key):
+                args = []
+                out[key], img, _ = launches(
+                    wf, "wavefront_bounce", lambda s=sort: fw.render_frame_wavefront(
+                        spec, params, frame=1, last_clear=1, width=W, height=H,
+                        bounces=BOUNCES, sort_rays=s), BOUNCES + 1, args)
+                last[key] = _digest(img, args[3], args[4])
     return {"ms": out, "hash": last, "grid_stats": grid_stats.tolist()}
 
 

@@ -185,7 +185,7 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [p, i, p, i, i, i, i] + [p] * 8
     fn.restype = ctypes.c_int
     fn = lib.cpt_march_ilp
-    fn.argtypes = [p, i, p, i, i, i, i] + [p] * 8
+    fn.argtypes = [p, i, p, i, i, i, i] + [p] * 7 + [i, p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_vpu_chains
     fn.argtypes = [p, i, i, i, p, p]
@@ -206,7 +206,7 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_wavefront_bounce
-    fn.argtypes = [p, i, p, i, i, i, p, i, p, p, p, p, p]
+    fn.argtypes = [p, i, p, i, i, i, p, i, p, p, p, p, p, p, i, p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_fused_bwd
     fn.argtypes = [p, i, p, i, i, i, i, i, i, i, i, i, i, f, f, p, p, i, p]

@@ -14,12 +14,13 @@
 // from global memory at every map tap and tests each guarded shape's bit
 // per lane: a tap of the 64-primitive benchmark scene loads and skips some
 // 60 records whose box no lane of the warp hits, integer and load work the
-// operation count of app/profiling.py does not see.  Only the capped and
-// ILP probes, fused-bwd and the wavefront kernel keep that walk.  The dense
-// probe walks the whole program staged in shared memory (map_walk DENSE
-// over stage_walk's records).  Every march of K2 (debug 0-4,
-// analytic_unboxed, the over-relaxed march), its grid march (K6), K3 and
-// K4 take the per-warp walk at the end of this file: the block stages the
+// operation count of app/profiling.py does not see.  Only the capped probe
+// and fused-bwd keep that walk.  The dense probe walks the whole program
+// staged in shared memory (map_walk DENSE over stage_walk's records).
+// Every march of K2 (debug 0-4, analytic_unboxed, the over-relaxed march),
+// its grid march (K6), K3, K4, the wavefront's bounce and the ILP probe
+// (march_probes.cu, with its own pair walk for two rays a thread) take the
+// per-warp walk at the end of this file: the block stages the
 // decoded records and the leaf table in shared memory once (stage_walk),
 // each warp compacts the records its live lanes can need into a list after
 // the bounce's guards (build_warp_list), and the map, the marches and the
@@ -437,7 +438,7 @@ __device__ V3 calc_normal(const Scene& S, const Guards<TCULL>& g, V3 p) {
   return normalize_safe(calc_grad<BAKED, TCULL>(S, g, p));
 }
 
-// -- the per-warp walk (K2, K6, K3, K4) --------------------------------------
+// -- the per-warp walk (K2, K6, K3, K4, the wavefront, the ILP probe) ---------
 //
 // Shared memory of a block of W warps, from its base (16-byte aligned):
 //   n_ops decoded records (int4), the program in walk order;

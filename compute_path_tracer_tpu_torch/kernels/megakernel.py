@@ -766,17 +766,18 @@ def _kernel_meta(layout: SoaSmemLayout, device: torch.device):
 LANE_STATS = ("warp_casts", "lane_casts", "warp_shapes", "lane_shapes",
               "slow_casts")
 
-# K1's tile counter, one int32 per (device, stream), made at the first
-# launch there: launches on one stream run in order, and the kernel's entry
-# point zeroes the counter on the stream before each one.
-_TILE_NEXT = {}
+# The work counter of the persistent kernels (K1's tiles, the wavefront
+# bounce's ray chunks), one int32 per (device, stream), made at the first
+# launch there: launches on one stream run in order, and each kernel's entry
+# point zeroes the counter on the stream before its launch.
+_WORK_COUNTER = {}
 
 
-def _tile_next(device: torch.device, stream: int) -> torch.Tensor:
+def work_counter(device: torch.device, stream: int) -> torch.Tensor:
     key = (device, stream)
-    if key not in _TILE_NEXT:
-        _TILE_NEXT[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _TILE_NEXT[key]
+    if key not in _WORK_COUNTER:
+        _WORK_COUNTER[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _WORK_COUNTER[key]
 
 
 def launch_megakernel(layout: SoaSmemLayout, soa_f: torch.Tensor,
@@ -814,7 +815,7 @@ def launch_megakernel(layout: SoaSmemLayout, soa_f: torch.Tensor,
             soa_f.data_ptr(), soa_i.data_ptr(), src.data_ptr(),
             staged.meta.ctypes.data, accum.data_ptr(), width, height,
             int(frame), int(last_clear), int(bounces), float(fov),
-            float(aspect), int(debug), _tile_next(device, stream).data_ptr(),
+            float(aspect), int(debug), work_counter(device, stream).data_ptr(),
             None if lane_stats is None else lane_stats.data_ptr(),
             int(bool(per_tile)), stream)
     if err != 0:

@@ -16,7 +16,10 @@ Each takes flat (n,) float32 rays and a baked program's table, as
   ``make_analytic_unboxed``'s cap.
 * ``march_ilp`` (``benchmarks/ilp_probe.py:run``): the exact march with
   two rays per thread, one after the other (``interleave=False``) or in one
-  loop (``interleave=True``); returns ``t``, the exact march's.
+  loop (``interleave=True``), over per-warp lists of the program staged in
+  each block's shared memory; returns ``t``, the exact march's.
+  ``ilp_warps`` gives the list each ray's march walks, ``ilp_list_lengths``
+  their mean length (``warp_records``, the lists' plain model).
 
 On CUDA tensors each launches its kernel on the current stream without
 synchronising and counts the launch in ``LAUNCHES``; on CPU tensors it runs
@@ -36,12 +39,13 @@ from ..render.program import (
     program_bounds,
     program_code_on,
     walk_smem_bytes,
+    warp_records,
 )
 from ..scene.compile import SceneSpec
 from ..scene.model import KIND_PLANE, KIND_SPHERE
 from ..vecmath import Vec3
 from .build import load_library
-from .march import _check_rays, march_rays_plain
+from .march import WARPS, _check_rays, march_rays_plain
 from .megakernel import make_analytic_unboxed
 
 # Launches per kernel since import (or since a caller reset them).
@@ -150,15 +154,46 @@ def march_ilp_plain(prog: Program, table, ro: Vec3, rd: Vec3, count=None):
     return march_dense_plain(prog, table, ro, rd, count)[0]
 
 
+def ilp_warps(n: int, interleave: bool, device=None) -> torch.Tensor:
+    """The (n,) index of the per-warp list each of ``n`` rays is marched
+    over.  A block of the probe takes 256 rays; its thread j (4 warps of 32)
+    marches rays j and j + 128.  Sequential: a list per 32 consecutive rays,
+    K3's warp (``i // 32``); interleaved: one list per warp over both its
+    halves, the union of their guards."""
+    i = torch.arange(n, device=device)
+    if not interleave:
+        return i // 32
+    return (i // 256) * WARPS + (i % 128) // 32
+
+
+def ilp_list_lengths(prog: Program, table, ro: Vec3, rd: Vec3) -> dict:
+    """The mean length of the lists the ILP probe's warps walk on these
+    rays, from the plain model (``warp_records`` over the exact march's
+    guards): ``{"seq": ..., "fused": ...}``, of ``prog.ops.shape[0]``
+    records."""
+    _baked(prog)
+    with torch.no_grad():
+        checks, _ = program_bounds(prog, table, ro, rd, False)
+        n = ro.x.shape[0]
+        return {name: float(warp_records(
+            prog, checks[0], ilp_warps(n, fused, ro.x.device))
+            .sum(1).double().mean())
+                for name, fused in (("seq", False), ("fused", True))}
+
+
 def march_ilp(prog: Program, table, ro: Vec3, rd: Vec3, *,
               interleave: bool = False):
     """The ILP probe on flat rays: ``t`` of the exact march, each thread
     marching rays i and i + 128 of its 256-ray block one after the other
-    or, with ``interleave``, in one loop."""
+    or, with ``interleave``, in one loop.  Its blocks hold the program in
+    shared memory (``walk_smem_bytes(prog, 4)``, which raises for a program
+    too large)."""
     _baked(prog)
     if table.device.type == "cpu":
         return march_ilp_plain(prog, table, ro, rd)
+    smem = walk_smem_bytes(prog, WARPS)
     t = torch.empty_like(ro.x)
     _launch("march_ilp_fused" if interleave else "march_ilp_seq",
-            "cpt_march_ilp", prog, table, ro, rd, (t,), int(bool(interleave)))
+            "cpt_march_ilp", prog, table, ro, rd, (t,), int(bool(interleave)),
+            tail=(smem,))
     return t

@@ -15,9 +15,14 @@ returns ``(add, alive)``: (n, 3) float32 radiance to add to each ray's
 pixel and (n,) int32 survivors, zero for every ray at or past ``k``.
 
 On CUDA tensors it launches the kernel on the current stream without
-synchronising and counts the launch in ``LAUNCHES``; on CPU tensors it
-runs :func:`wavefront_bounce_plain`; on any other device it raises.  The
-renderer around it is the port's ``benchmarks/frozen_wavefront.py``.
+synchronising and counts the launch in ``LAUNCHES``: persistent blocks of
+``WARPS`` warps, each holding the program in shared memory
+(``walk_smem_bytes``, which raises for a program too large), each warp
+taking 32 consecutive live rays at a time and walking the list of the
+program's records they can need (``render/program.py:warp_records`` is its
+plain model).  On CPU tensors it runs :func:`wavefront_bounce_plain`; on
+any other device it raises.  The renderer around it is the port's
+``benchmarks/frozen_wavefront.py``.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from ..render.program import (
     make_map_program,
     program_bounds,
     program_code_on,
+    walk_smem_bytes,
+    warp_records,
 )
 from ..render.reference import (
     calc_normal,
@@ -41,9 +48,13 @@ from ..render.reference import (
 )
 from ..vecmath import Vec3, vwhere
 from .build import load_library
+from .megakernel import work_counter
 
 # Launches since import (or since a caller reset them).
 LAUNCHES = {"wavefront_bounce": 0}
+# Warps in a block of the kernel (csrc/wavefront.cu: 128 threads), each with
+# its own list of the program in shared memory; a warp takes 32 live rays.
+WARPS = 4
 
 _U32 = 0xFFFFFFFF
 
@@ -69,11 +80,16 @@ def _check(prog: Program, table, k, ray, rng) -> int:
 
 
 @torch.no_grad()
-def wavefront_bounce_plain(prog: Program, table, k, ray, rng, count=None):
+def wavefront_bounce_plain(prog: Program, table, k, ray, rng, count=None,
+                           walk_stats=None):
     """The kernel's bounce in vectorized torch over the live rays ``[0,
     k)`` (``k`` is read on the host).  ``count``, a dict, accumulates the
     kernel's work: ``"segments"`` (the live rays), ``"survivors"`` and the
-    map's tally (``make_map_program``) of the march and the normal taps."""
+    map's tally (``make_map_program``) of the march and the normal taps.
+    ``walk_stats``, a (2,) int64 tensor, takes the kernel's figures of its
+    per-warp lists: it adds the summed length of the lists of the 32-ray
+    chunks of ``[0, k)`` (``warp_records`` over their guards) and their
+    number."""
     n = _check(prog, table, k, ray, rng)
     live = int(k[0])
     add = torch.zeros((n, 3), dtype=torch.float32, device=ray.device)
@@ -89,6 +105,10 @@ def wavefront_bounce_plain(prog: Program, table, k, ray, rng, count=None):
         return map_fn(p, checks[0])
 
     checks, _ = program_bounds(prog, table, ro, rd, False)
+    if walk_stats is not None:
+        warp = torch.arange(live, device=ray.device) // 32
+        walk_stats[0] += warp_records(prog, checks[0], warp).sum()
+        walk_stats[1] += -(-live // 32)
     t, idx = cast_ray(map_checked, ro, rd, checks)
     hit = ~(t > FP)
     lanes = torch.nonzero(hit).flatten()
@@ -111,27 +131,39 @@ def wavefront_bounce_plain(prog: Program, table, k, ray, rng, count=None):
     return add, alive
 
 
-def wavefront_bounce(prog: Program, table, k, ray, rng):
+def wavefront_bounce(prog: Program, table, k, ray, rng, walk_stats=None):
     """One bounce of the live rays ``[0, k)`` of the buffer; returns ``(add,
     alive)`` and updates ``ray`` and ``rng`` in place (see the module
     note).  ``prog`` is ``build_program(spec, "faithful")``, ``table`` its
-    ``program_table(prog, params)``."""
+    ``program_table(prog, params)``.  ``walk_stats``, a zeroed (2,) int64
+    tensor on the buffer's device, takes the summed length of the warps'
+    lists and their number (:func:`wavefront_bounce_plain`'s model on the
+    CPU)."""
     if table.device.type == "cpu":
-        return wavefront_bounce_plain(prog, table, k, ray, rng)
+        return wavefront_bounce_plain(prog, table, k, ray, rng,
+                                      walk_stats=walk_stats)
+    smem = walk_smem_bytes(prog, WARPS)
     if table.device.type != "cuda":
         raise ValueError(f"no kernel for device {table.device}")
     n = _check(prog, table, k, ray, rng)
+    if walk_stats is not None and (
+            walk_stats.device != table.device
+            or walk_stats.dtype != torch.int64
+            or tuple(walk_stats.shape) != (2,)):
+        raise ValueError(f"walk_stats must be int64 (2,) on {table.device}")
     add = torch.empty((n, 3), dtype=torch.float32, device=ray.device)
     alive = torch.empty(n, dtype=torch.int32, device=ray.device)
     if n:
         code = program_code_on(prog, table.device)
+        stream = torch.cuda.current_stream(table.device).cuda_stream
         with torch.cuda.device(table.device):
             err = load_library().cpt_wavefront_bounce(
                 code.data_ptr(), prog.ops.shape[0], table.data_ptr(),
                 prog.n_boxed, prog.f_box, prog.f_mat, k.data_ptr(), n,
                 ray.data_ptr(), rng.data_ptr(), add.data_ptr(),
-                alive.data_ptr(),
-                torch.cuda.current_stream(table.device).cuda_stream)
+                alive.data_ptr(), work_counter(table.device, stream).data_ptr(),
+                None if walk_stats is None else walk_stats.data_ptr(), smem,
+                stream)
         if err != 0:
             raise RuntimeError(f"wavefront_bounce launch failed: CUDA error "
                                f"{err}")
