@@ -92,8 +92,8 @@ and the modes of the same two kernels that the last bench.py rows run:
   the table in shared memory and through ``__ldg``, bf16_probe's three
   marches, mxu_transform_probe's scalar and tensor-core transforms) against
   their plain versions at one tile (the JAX probe's) and at the main
-  path's tile count, bit for bit but the tensor-core kernel, which is held
-  to ``hw_probes.mxu_tensor_diff``'s tolerance; their main paths, the
+  path's tile count, bit for bit but the tensor-core kernel (wgmma), which
+  is held to ``hw_probes.mxu_tensor_diff``'s tolerance; their main paths, the
   measurement scripts of ``compute_path_tracer_tpu_torch/benchmarks/``
   (16 tiles of (64, 128); bf16 4 of (256, 128)), time them, and each
   kernel's time at half its reps (a chain's at half its iterations) must
@@ -113,7 +113,8 @@ and the modes of the same two kernels that the last bench.py rows run:
   loss within
   FB_LOSS_TOL of its plain version (autograd through the implicit march)
   at the JAX probe's tile and over the 1080p frame, both gradients all
-  zero and finite; the segment sum within SEGSUM_TOL of a float64 sum at
+  zero and finite, its per-warp list figures at the tile equal to the
+  plain model's; the segment sum within SEGSUM_TOL of a float64 sum at
   the JAX probe's shape and at K4's; their main paths, the measurement
   scripts of ``compute_path_tracer_tpu_torch/benchmarks/``
   (``frozen_wavefront``: 1080p frames, sorted and not, beside K2's, with
@@ -334,6 +335,13 @@ def _hw_probe_checks(hp, mods):
             p, ms = plain[label.replace("_ldg", "")]
             record("gather_probe", label, tiles, _bit_diff(fn(), p), ms=ms)
     res["bf16_probe"]["roots"] = _bf16_root_check(hp, torch.device("cuda"))
+    bad = hp.mxu_rcp_check(torch.device("cuda")).tolist()
+    print(f"check mxu reciprocal (rcp_rn) over every float32 bit pattern: "
+          f"{bad[0]} differ from the correctly rounded one where 1e-9 < |x| "
+          f"< 2**126, {bad[1]} outside")
+    if bad[0]:
+        raise AssertionError(f"mxu reciprocal: {bad[0]} patterns differ")
+    res["mxu_transform_probe"]["rcp_mismatches"] = bad
     for tiles in (1, bf.TILES):
         ro, rd, sph = bf.inputs(tiles)
         for v in hp.BF16_VARIANTS:
@@ -394,11 +402,12 @@ def _hw_probe_main(hp, mods, other_counts, gpu):
     return runs
 
 
-def _hw_probe_rows(hp, pf, mods, checks, runs, peak, bf16_extra):
+def _hw_probe_rows(hp, pf, mods, checks, runs, peak, bf16_extra, mxu_extra):
     """The kernels-line rows of the hardware probes: each probe's headline
     kernel (vpu at its best width, gather128 from shared memory, bf16's
     bf16 map, mxu on the tensor cores) with its bound, and the others'
-    times beside; ``bf16_extra`` joins the bf16 row."""
+    times beside; ``bf16_extra`` joins the bf16 row, ``mxu_extra`` the mxu
+    row."""
     csrc = "compute_path_tracer_tpu_torch/kernels/csrc/hw_probes.cu"
     vpu, gat = mods["vpu_peak"], mods["gather_probe"]
     bf, mxu = mods["bf16_probe"], mods["mxu_transform_probe"]
@@ -480,7 +489,7 @@ def _hw_probe_rows(hp, pf, mods, checks, runs, peak, bf16_extra):
             "mxu scalar"],
         speedup_vs_scalar=out["ms"]["scalar"] / out["ms"]["tensor"],
         reps_ratio=out["reps_ratio"],
-        hit_flip_share=out["rows"][1]["hit_flip_share"]))
+        hit_flip_share=out["rows"][1]["hit_flip_share"], **mxu_extra))
     return rows
 
 
@@ -617,7 +626,8 @@ def _wavefront_phase(fw, wf, mk, pf, spec, sp, scenes, all_counts, peak,
             "ptxas": ptxas["wavefront_bounce"]}
 
 
-def _grad_probe_phase(gp, pf, fbm, sgm, spec, sp, all_counts, peak, gpu):
+def _grad_probe_phase(gp, pf, fbm, sgm, spec, sp, all_counts, peak, gpu,
+                      ptxas):
     """fused_bwd at the probe's tile and over the 1080p frame, and segsum at
     the probe's shape and K4's, against their plain versions; then each
     measurement script's measure() as its main path.  Returns their
@@ -631,21 +641,31 @@ def _grad_probe_phase(gp, pf, fbm, sgm, spec, sp, all_counts, peak, gpu):
     fb = {}
     for label, rect in (("tile", gp.TILE_RECT), ("frame", gp.FRAME_RECT)):
         before = gp.LAUNCHES["fused_bwd"]
-        loss, grad = gp.fused_bwd(spec, sp, bv, rect)
+        ws = torch.zeros(2, dtype=torch.int64, device=sp.device)
+        loss, grad = gp.fused_bwd(spec, sp, bv, rect, walk_stats=ws)
+        # The plain model of the lists at the tile only: no 1080p pass more.
+        pws = (torch.zeros(2, dtype=torch.int64, device=sp.device)
+               if label == "tile" else None)
         (p_loss, p_grad), ms = _plain_timed(
-            lambda r=rect: gp.fused_bwd_plain(spec, sp, bv, r))
+            lambda r=rect: gp.fused_bwd_plain(spec, sp, bv, r, pws))
         if gp.LAUNCHES["fused_bwd"] - before != 1:
             raise AssertionError(f"fused_bwd {label} did not launch once")
         rel = abs(float(loss[0]) - float(p_loss[0])) / abs(float(p_loss[0]))
         zero = all(bool(torch.isfinite(g).all()) and not bool(g.any())
                    for g in (grad, p_grad))
+        lists = ws.tolist()
         fb[label] = dict(loss=float(loss[0]), plain_loss=float(p_loss[0]),
-                         rel=rel, plain_ms=ms)
+                         rel=rel, plain_ms=ms, walk_stats=lists,
+                         mean_list=lists[0] / lists[1])
         print(f"check fused_bwd {label} {rect}: loss {float(loss[0]):.6f}, "
               f"plain {float(p_loss[0]):.6f}, relative diff {rel:.3e} (limit "
               f"{FB_LOSS_TOL}); gradients of {grad.shape[0]} slots all zero "
-              f"and finite: {zero}; plain {ms:.1f} ms")
-        if rel > FB_LOSS_TOL or not zero or p_grad.shape != grad.shape:
+              f"and finite: {zero}; walk_stats {lists} (mean list "
+              f"{lists[0] / lists[1]:.3f} records)"
+              + (f", plain model {pws.tolist()}" if pws is not None else "")
+              + f"; plain {ms:.1f} ms")
+        if rel > FB_LOSS_TOL or not zero or p_grad.shape != grad.shape \
+                or (pws is not None and lists != pws.tolist()):
             raise AssertionError(f"fused_bwd {label}")
     prog, table = gp.fused_bwd_tables(spec, sp, bv)
     _, ro, rd = gp.fused_bwd_rays(gp.FRAME_RECT, sp.device)
@@ -702,6 +722,11 @@ def _grad_probe_phase(gp, pf, fbm, sgm, spec, sp, all_counts, peak, gpu):
          "library_ms": None, "tile_ms": fbo["rows"]["tile"],
          "tile_plain_ms": fb["tile"]["plain_ms"],
          "k4_bounce_ms": fbo["rows"]["K4 per bounce"],
+         "state": "redesigned, PR 17 (K3's per-warp walk of the staged "
+                  "program)",
+         "mean_list": {k: r["mean_list"] for k, r in fb.items()},
+         "walk_stats": {k: r["walk_stats"] for k, r in fb.items()},
+         "ptxas": ptxas["fused_bwd"],
          "summary": fbo["summary"]},
         {"name": "segsum", "route": "cuda", "source": csrc,
          "replaces": "benchmarks/probe_inkernel_segsum.py:55",
@@ -768,9 +793,9 @@ def _ptxas_k1(build):
 
 def _ptxas_probes(build):
     """ptxas's figures of the bf16 march (bf16_march<V>), the dense and ILP
-    probes (march_dense, march_ilp_seq, march_ilp_fused) and the
-    wavefront's bounce (wavefront_bounce), printed; returns them by short
-    name."""
+    probes (march_dense, march_ilp_seq, march_ilp_fused), the wavefront's
+    bounce (wavefront_bounce), the box transforms (mxu_scalar, mxu_tensor)
+    and fused-bwd (fused_bwd), printed; returns them by short name."""
     import re
 
     figs = {}
@@ -779,16 +804,17 @@ def _ptxas_probes(build):
         if m:
             figs[f"bf16_march<{m.group(1)}>"] = v
         for name in ("march_dense", "march_ilp_seq", "march_ilp_fused",
-                     "wavefront_bounce"):
+                     "wavefront_bounce", "mxu_scalar", "mxu_tensor",
+                     "fused_bwd"):
             if name in k:
                 figs[name] = v
     for k, v in sorted(figs.items()):
         print(f"ptxas {k}: {v['registers']} registers, {v.get('stack', 0)} "
               f"bytes stack frame, {v.get('spill_stores', 0)} bytes spill "
               f"stores, {v.get('spill_loads', 0)} bytes spill loads")
-    if len(figs) != 7:
+    if len(figs) != 10:
         raise AssertionError(f"ptxas figures of {len(figs)} probe kernels, "
-                             f"expected 7")
+                             f"expected 10")
     return figs
 
 
@@ -839,6 +865,26 @@ def _bf16_sass(build):
             raise AssertionError(f"{key}: contracted HFMA2 {bad[:4]}")
     if len(out) != 2:
         raise AssertionError(f"SASS of {len(out)} bf16 march kernels")
+    return out
+
+
+# The box transforms' instructions counted in their SASS (opcode stems).
+MXU_OPCODES = ("HGMMA", "WARPGROUP", "LDS", "STS", "MUFU", "SHFL", "BAR")
+
+
+def _mxu_sass(build):
+    """The box transforms' SASS (mxu_scalar, mxu_tensor): counts of the
+    instructions in MXU_OPCODES, printed; raises unless mxu_tensor issues
+    the 12 HGMMA (wgmma.mma_async) of a rep, six a half."""
+    out = {}
+    for name, code in build.sass().items():
+        for key in ("mxu_scalar", "mxu_tensor"):
+            if key in name:
+                ops = [i.split()[0].split(".")[0] for i in code]
+                out[key] = {o: ops.count(o) for o in MXU_OPCODES}
+                print(f"SASS {key}: {out[key]}")
+    if len(out) != 2 or out["mxu_tensor"]["HGMMA"] < 12:
+        raise AssertionError(f"SASS of the box transforms: {out}")
     return out
 
 
@@ -1732,6 +1778,7 @@ def main() -> int:
     k1_ptxas = _ptxas_k1(build)
     probe_ptxas = _ptxas_probes(build)
     bf16_sass = _bf16_sass(build)
+    mxu_sass = _mxu_sass(build)
     k4_child = _start_k4_child()
 
     def compiled(scene):
@@ -2476,7 +2523,15 @@ def main() -> int:
         hp, pf, hw_mods, hw_checks, hw_runs, peak,
         {"sass": bf16_sass,
          "ptxas": {k: v for k, v in probe_ptxas.items()
-                   if k.startswith("bf16_march")}})
+                   if k.startswith("bf16_march")}},
+        {"state": "redesigned, PR 17 (tensor: wgmma m64n48k8 3xTF32, the "
+                  "rays' fragments in registers, the fold from the "
+                  "accumulators; scalar: two rays a thread, 12-float "
+                  "records by 16-byte loads; both: the branch-free "
+                  "reciprocal)",
+         "rcp_mismatches": hw_checks["mxu_transform_probe"]["rcp_mismatches"],
+         "ptxas": {k: probe_ptxas[k] for k in ("mxu_scalar", "mxu_tensor")},
+         "sass": mxu_sass})
     # The dense probe's own work, every leaf on every tap, at the FP32 rate
     # vpu_peak attained in this run: the probe cannot come near its bound
     # (the exact march's guarded work) by design.
@@ -2507,7 +2562,7 @@ def main() -> int:
         all_counts, peak, gpu, probe_ptxas)
     grad_rows = _grad_probe_phase(gp, pf, probe_fused_bwd,
                                   probe_inkernel_segsum, spec, sp, all_counts,
-                                  peak, gpu)
+                                  peak, gpu, probe_ptxas)
     print("wavefront and gradient probe rows: "
           + json.dumps([wave_row] + grad_rows))
 

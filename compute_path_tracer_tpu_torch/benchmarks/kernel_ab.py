@@ -14,16 +14,25 @@ the 64-primitive benchmark scene unless stated, and four probes at their
 drivers' shapes: the bf16 march (``P-bf16 f32``, ``map``, ``all``: 4 tiles
 of (256, 128) rays, 64 reps of 64 steps), the dense march (``P-dense``)
 and the ILP march (``P-ilp seq``, ``P-ilp fused``) on the 1080p primary
-rays, and the wavefront's bounce (``P-wavefront``, ``P-wavefront
+rays, the wavefront's bounce (``P-wavefront``, ``P-wavefront
 sorted``: one 1080p frame's 9 launches summed, the rays compacted, or
-compacted and sorted), by CUDA events around each launch (a warm-up call
-first); ``--only REGEX`` times only the rows whose name matches.  Every
-output of every run is hashed, and A's and B's must be the same bit for
-bit: the frames, K3's t, ids and normals, K4's image and its (shape,
-channel) sums, which the kernel adds in a fixed order (the gradient's
-atomics are torch's, outside the kernel), the probes' t (and the dense
-probe's ids), and the wavefront's frame with its ray buffer and RNG after
-the last bounce.  It also
+compacted and sorted), the box transforms (``P-mxu scalar``, ``P-mxu
+tensor``: 16 tiles of (64, 128) rays, 32 shapes, 64 reps) and the fused
+forward-plus-adjoint bounce (``P-fused-bwd frame``, ``P-fused-bwd tile``:
+the 1080p frame and the probe's (64, 128) tile), by CUDA events around each
+launch (a warm-up call first; the last two probes' launches queued behind
+a sleep, so that the host's time to issue them is not counted); ``--only
+REGEX`` times only the rows whose name matches.  Every output of every run
+is hashed, and A's and B's must be the same bit for bit: the frames, K3's
+t, ids and normals, K4's image and its (shape, channel) sums, which the
+kernel adds in a fixed order (the gradient's atomics are torch's, outside
+the kernel), the probes' t (and the dense probe's ids), the wavefront's
+frame with its ray buffer and RNG after the last bounce, the scalar
+transforms' sums and fused-bwd's zero gradient.  The tensor-core sums and
+fused-bwd's loss (a float64 sum added by atomics in no fixed order) are
+not hashed: in each run they are held to their own build's plain version
+(``hw_probes.mxu_tensor_diff``; the loss within ``FB_LOSS_TOL``
+relative), and a run that fails its check fails the script.  It also
 prints K6's warp statistics (``launch_march(grid_stats=)``) in both, and
 tells, for each kernel function of the two builds, whether its SASS
 (``cuobjdump -sass``) is the same, so a change to shared device code can be
@@ -31,7 +40,8 @@ seen to leave a kernel alone (a kernel in one build only is matched to one
 of the other's with the same SASS: a rename), and prints ptxas's
 registers, stack frame and spills of K1's and the marching kernels
 (K2's, RELAX's, debug 4's, K6's, K3's, K4's, the dense and ILP probes',
-the wavefront's) and of the bf16 march in both.  Run on a
+the wavefront's), of the bf16 march and of the box transforms and
+fused-bwd in both.  Run on a
 machine with an NVIDIA GPU and the CUDA toolkit:
 
     python -m compute_path_tracer_tpu_torch.benchmarks.kernel_ab OTHER_DIR [--only REGEX]
@@ -75,13 +85,20 @@ BF16 = ("P-bf16 f32", "P-bf16 map", "P-bf16 all")
 DENSE = "P-dense"
 ILP = ("P-ilp seq", "P-ilp fused")
 WAVE = ("P-wavefront", "P-wavefront sorted")
+MXU = ("P-mxu scalar", "P-mxu tensor")
+FUSED_BWD = ("P-fused-bwd frame", "P-fused-bwd tile")
+# fused-bwd's loss against its plain version (chip_smoke.py's FB_LOSS_TOL).
+FB_LOSS_TOL = 1e-5
+# The sleep queued before each launch of those rows: about 2 ms.
+QUEUE_CYCLES = 4_000_000
 # The anonymous namespace's name in a mangled kernel name hashes the file;
 # it ends in an 8-digit hash, then the kernel name's length.
 ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_[0-9]+_\w+?_cu_[0-9a-f]{8}\d+")
 # The marching kernels, for ptxas's figures.
 WALKERS = re.compile(r"megakernel_analytic|megakernel_walk|megakernel_grid|"
                      r"megakernel_relax|megakernel_stats|march_rays|train_fused|"
-                     r"march_dense|march_ilp|wavefront_bounce|bf16_march")
+                     r"march_dense|march_ilp|wavefront_bounce|bf16_march|"
+                     r"mxu_scalar|mxu_tensor|fused_bwd")
 
 
 def _sass(root: str) -> dict:
@@ -162,8 +179,9 @@ def _rays(root: str, out: str) -> dict:
 
 def _times(root: str, rays: str, only: str) -> dict:
     """{"ms": {kernel: sorted ms of REPS launches}, "hash": {kernel: digest
-    of its last output}} with ``root``'s package, K3 on ``rays``, for the
-    rows whose name matches ``only``."""
+    of its last output}, "checks": {kernel: its check against its plain
+    version}} with ``root``'s package, K3 on ``rays``, for the rows whose
+    name matches ``only``."""
     sys.path.insert(0, root)
     import torch
     from compute_path_tracer_tpu_torch.kernels import march as km
@@ -186,11 +204,11 @@ def _times(root: str, rays: str, only: str) -> dict:
     pick = re.compile(only)
     last = {}
 
-    def launches(mod, attr, fn, group=1, last_args=None):
+    def launches(mod, attr, fn, group=1, last_args=None, queued=False):
         """(sorted ms of the REPS timed calls of ``fn``, each the sum of
         its ``group`` launches of ``mod.attr``, fn's last result, the last
         launch's own result); ``last_args``, a list, takes the last
-        launch's arguments."""
+        launch's arguments; ``queued`` queues a sleep before each call."""
         orig, events, outs = getattr(mod, attr), [], [None]
 
         def timed(*a, **kw):
@@ -210,6 +228,8 @@ def _times(root: str, rays: str, only: str) -> dict:
         setattr(mod, attr, timed)
         try:
             for _ in range(REPS):
+                if queued:
+                    torch.cuda._sleep(QUEUE_CYCLES)
                 res = fn()
             torch.cuda.synchronize()
         finally:
@@ -218,7 +238,7 @@ def _times(root: str, rays: str, only: str) -> dict:
         return (sorted(sum(ms[i:i + group]) for i in range(0, len(ms), group)),
                 res, outs[0])
 
-    out = {}
+    out, checks = {}, {}
     for key, mode, n in FRAMES:
         if not pick.search(key):
             continue
@@ -296,7 +316,45 @@ def _times(root: str, rays: str, only: str) -> dict:
                         spec, params, frame=1, last_clear=1, width=W, height=H,
                         bounces=BOUNCES, sort_rays=s), BOUNCES + 1, args)
                 last[key] = _digest(img, args[3], args[4])
-    return {"ms": out, "hash": last, "grid_stats": grid_stats.tolist()}
+    if any(pick.search(k) for k in MXU):
+        from compute_path_tracer_tpu_torch.benchmarks import mxu_transform_probe as mxp
+        from compute_path_tracer_tpu_torch.kernels import hw_probes as hp
+
+        ro, rd, m, mat, off = mxp.inputs(mxp.TILES)
+        if pick.search(MXU[0]):
+            out[MXU[0]], t, _ = launches(
+                hp, "mxu_scalar", lambda: hp.mxu_scalar(ro, rd, m), queued=True)
+            last[MXU[0]] = _digest(t)
+        if pick.search(MXU[1]):
+            out[MXU[1]], t, _ = launches(
+                hp, "mxu_tensor", lambda: hp.mxu_tensor(ro, rd, mat, off),
+                queued=True)
+            err, share, flips = hp.mxu_tensor_diff(
+                t, hp.mxu_tensor_plain(ro, rd, mat, off), hp.MXU_REPS)
+            checks[MXU[1]] = {"max_abs_diff": err, "share_off": share,
+                              "flips": flips,
+                              "ok": share <= hp.MXU_SHARE_OFF}
+    if any(pick.search(k) for k in FUSED_BWD):
+        from compute_path_tracer_tpu_torch.kernels import grad_probes as gp
+
+        with torch.no_grad():
+            bv = bake(spec, params)
+        fprog, ftable = gp.fused_bwd_tables(spec, params, bv)
+        for key, rect in zip(FUSED_BWD, (gp.FRAME_RECT, gp.TILE_RECT)):
+            if not pick.search(key):
+                continue
+            out[key], (loss, grad), _ = launches(
+                gp, "launch_fused_bwd", lambda r=rect: gp.launch_fused_bwd(
+                    fprog, ftable, r, bv.shape[0]), queued=True)
+            plain = float(gp.fused_bwd_plain(spec, params, bv, rect)[0][0])
+            rel = abs(float(loss[0]) - plain) / abs(plain)
+            zero = bool(torch.isfinite(grad).all()) and not bool(grad.any())
+            checks[key] = {"loss": float(loss[0]), "plain_loss": plain,
+                           "rel": rel, "zero_grad": zero,
+                           "ok": rel <= FB_LOSS_TOL and zero}
+            last[key] = _digest(grad)
+    return {"ms": out, "hash": last, "checks": checks,
+            "grid_stats": grid_stats.tolist()}
 
 
 def sass_same(sass: dict) -> dict:
@@ -397,11 +455,19 @@ def main() -> int:
         digests = {r["hash"][key] for label in "AB" for r in runs[label]}
         equal[key] = len(digests) == 1
         print(f"output {key}: {'A = B bit for bit' if equal[key] else 'DIFFERS'}")
+    passed = True
+    for label in "AB":
+        for i, r in enumerate(runs[label]):
+            for key, c in r["checks"].items():
+                passed &= c["ok"]
+                print(f"check {key} {label}{i}: "
+                      f"{'passed' if c['ok'] else 'FAILED'} {json.dumps(c)}")
     same = sass_same(sass)
     print(json.dumps({"gpu": gpu, "ms": summary, "bit_equal": equal,
+                      "checks_passed": passed,
                       "grid_stats": {k: runs[k][0]["grid_stats"] for k in "AB"},
                       "ptxas": ptxas, "sass": same}))
-    return 0 if all(equal.values()) else 1
+    return 0 if all(equal.values()) and passed else 1
 
 
 if __name__ == "__main__":

@@ -6,10 +6,12 @@ For 32 box shapes, three row transforms each (oq = M ro + c, dq = M rd) and
 the slab fold to the nearest hit, summed over 64 identical reps
 (kernels/hw_probes.py), two ways:
 
-  A. as float32 multiply-adds, the matrix in shared memory (``mxu_scalar``);
-  B. on the tensor cores inside the kernel (``mxu_tensor``): WMMA TF32
-     fragments in the 3xTF32 split for float32 accuracy, the product staged
-     through shared memory, each thread folding its ray.
+  A. as float32 multiply-adds, the matrix in shared memory, two rays a
+     thread (``mxu_scalar``);
+  B. on the tensor cores inside the kernel (``mxu_tensor``): Hopper's
+     warpgroup product (wgmma, TF32) in the 3xTF32 split for float32
+     accuracy, the rays' fragments in registers, each lane folding whole
+     shapes from its accumulator registers.
 
 Reports both times, B's speed-up over A, the largest difference of their
 sums and the share of rays off by ``mxu_tensor_diff``'s tolerance, and each

@@ -205,11 +205,15 @@ def load_library() -> ctypes.CDLL:
     fn = lib.cpt_mxu_tensor
     fn.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
     fn.restype = ctypes.c_int
+    fn = lib.cpt_mxu_rcp_check
+    fn.argtypes = [p, p]
+    fn.restype = ctypes.c_int
     fn = lib.cpt_wavefront_bounce
     fn.argtypes = [p, i, p, i, i, i, p, i, p, p, p, p, p, p, i, p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_fused_bwd
-    fn.argtypes = [p, i, p, i, i, i, i, i, i, i, i, i, i, f, f, p, p, i, p]
+    fn.argtypes = [p, i, p, i, i, i, i, i, i, i, i, i, i, f, f, p, p, i, p, i,
+                   p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_segsum
     fn.argtypes = [p, p, i, i, i, i, p, i, p]

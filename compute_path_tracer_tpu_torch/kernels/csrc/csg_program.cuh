@@ -15,11 +15,12 @@
 // per lane: a tap of the 64-primitive benchmark scene loads and skips some
 // 60 records whose box no lane of the warp hits, integer and load work the
 // operation count of app/profiling.py does not see.  Only the capped probe
-// and fused-bwd keep that walk.  The dense probe walks the whole program
+// keeps that walk (march).  The dense probe walks the whole program
 // staged in shared memory (map_walk DENSE over stage_walk's records).
 // Every march of K2 (debug 0-4, analytic_unboxed, the over-relaxed march),
-// its grid march (K6), K3, K4, the wavefront's bounce and the ILP probe
-// (march_probes.cu, with its own pair walk for two rays a thread) take the
+// its grid march (K6), K3, K4, the wavefront's bounce, the ILP probe
+// (march_probes.cu, with its own pair walk for two rays a thread) and the
+// fused-bwd probe (grad_probes.cu) take the
 // per-warp walk at the end of this file: the block stages the
 // decoded records and the leaf table in shared memory once (stage_walk),
 // each warp compacts the records its live lanes can need into a list after
@@ -415,30 +416,7 @@ __device__ void closest_scan(const Scene& S, V3 ro, V3 rd, float& d_ca, float& t
   }
 }
 
-// Central differences of the map, 6 taps under the bounce's full guards,
-// before normalisation (calc_grad, funcs.glsl:21-35).
-template <bool BAKED, bool TCULL>
-__device__ V3 calc_grad(const Scene& S, const Guards<TCULL>& g, V3 p) {
-  const float e = kNormalEps;
-  int id;
-  float d[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    float off = (k & 1) ? -e : e;
-    V3 q = v3(p.x + (k / 2 == 0 ? off : 0.0f), p.y + (k / 2 == 1 ? off : 0.0f),
-              p.z + (k / 2 == 2 ? off : 0.0f));
-    d[k] = map_scene<BAKED, TCULL, false>(S, g, q, 0.0f, id);
-  }
-  return v3(d[0] - d[1], d[2] - d[3], d[4] - d[5]);
-}
-
-// Central-difference normal (calc_normal).
-template <bool BAKED, bool TCULL>
-__device__ V3 calc_normal(const Scene& S, const Guards<TCULL>& g, V3 p) {
-  return normalize_safe(calc_grad<BAKED, TCULL>(S, g, p));
-}
-
-// -- the per-warp walk (K2, K6, K3, K4, the wavefront, the ILP probe) ---------
+// -- the per-warp walk (K2, K6, K3, K4, the wavefront, the ILP, fused-bwd) ----
 //
 // Shared memory of a block of W warps, from its base (16-byte aligned):
 //   n_ops decoded records (int4), the program in walk order;
@@ -818,8 +796,9 @@ __device__ float march_stats_walk(const Scene& S, const int4* __restrict__ list,
   return t;
 }
 
-// calc_grad() over a warp's list: the 6 taps under the full guards, before
-// normalisation.  MAP COUNT_ALL counts debug 4's z (live and tally as for
+// Central differences of the map over a warp's list, 6 taps under the
+// bounce's full guards, before normalisation (calc_grad, funcs.glsl:21-35).
+// MAP COUNT_ALL counts debug 4's z (live and tally as for
 // map_walk).
 template <bool BAKED, bool TCULL, int MAP = GUARDED>
 __device__ __forceinline__ V3 grad_walk(const int4* __restrict__ list, int n,
@@ -838,7 +817,7 @@ __device__ __forceinline__ V3 grad_walk(const int4* __restrict__ list, int n,
   return v3(d[0] - d[1], d[2] - d[3], d[4] - d[5]);
 }
 
-// calc_normal() over a warp's list.
+// The central-difference normal (calc_normal) over a warp's list.
 template <bool BAKED, bool TCULL>
 __device__ V3 normal_walk(const int4* __restrict__ list, int n, const float* __restrict__ F,
                           const Guards<TCULL>& g, V3 p) {

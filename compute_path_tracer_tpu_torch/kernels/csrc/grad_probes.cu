@@ -20,7 +20,15 @@
 // computed all the same, as the probe's forward computes it, and an empty
 // asm keeps the compiler from dropping it and the normal with it.
 // What bounds it on an H100: operations, those of K3's exact march and the
-// normal's taps; it writes only the loss and the zero gradient.
+// normal's taps; it writes only the loss and the zero gradient.  So it takes
+// K3's per-warp walk (march_rays.cu, csg_program.cuh): the block stages the
+// decoded program and its leaf table in shared memory, each warp of 32
+// consecutive pixels of a rectangle row compacts once, after its lanes'
+// guards, the records they can need into its own list, and the march and
+// the normal walk that list (walk_stats, when given, counts it).  A lane
+// past the rectangle takes part in the list as not live and marches
+// nothing.  t, the winner id, the normal and each pixel's term are the full
+// walk's bit for bit.
 //
 // segsum replaces benchmarks/probe_inkernel_segsum.py:main (the pallas_call
 // at probe_inkernel_segsum.py:55, kernel body `kernel` at :33), which asked
@@ -43,25 +51,35 @@ namespace {
 // -- fused_bwd ------------------------------------------------------------------
 
 constexpr int kFbBlock = 256;
+constexpr int kFbWarps = kFbBlock / 32;
 
+// Dynamic shared memory: walk_smem_bytes(n_ops, f_box, kFbWarps).
 __global__ void __launch_bounds__(kFbBlock)
 fused_bwd(Scene S, int x0, int y0, int rw, int rh, int width, int height, int frame, float fov,
-          float aspect, double* __restrict__ loss, float* __restrict__ grad, int n_grad) {
+          float aspect, double* __restrict__ loss, float* __restrict__ grad, int n_grad,
+          unsigned long long* __restrict__ walk_stats) {
+  extern __shared__ int4 walk_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Walk P = stage_walk(S, S.f_box, kFbWarps, walk_smem, threadIdx.x, kFbBlock);
   const int i = blockIdx.x * kFbBlock + threadIdx.x;
   // The gradient in bv: zero, see the note at the head.
   for (int j = i; j < n_grad; j += gridDim.x * kFbBlock) grad[j] = 0.0f;
+  const bool live = i < rw * rh;
+  uint32_t rng = 0;
+  V3 ro = splat(0.0f), rd = splat(0.0f);
+  if (live) primary_ray(x0 + i % rw, y0 + i / rw, frame, width, height, fov, aspect, rng, ro, rd);
+  Guards<false> g;
+  if (live) compute_guards(S, ro, rd, g);
+  const int len = build_warp_list(P, S.n_boxed, g, live, warp, lane);
+  if (i - lane < rw * rh) record_list(walk_stats, 0, len, lane);
   double term = 0.0;
-  if (i < rw * rh) {
-    uint32_t rng;
-    V3 ro, rd;
-    primary_ray(x0 + i % rw, y0 + i / rw, frame, width, height, fov, aspect, rng, ro, rd);
-    Guards<false> g;
-    compute_guards(S, ro, rd, g);
+  if (live) {
+    const int4* __restrict__ list = P.lists + warp * P.n_ops;
     int idx;
-    const float t = march<true, false>(S, g, ro, rd, idx);
+    const float t = march_walk<true, false>(S, list, len, P.F, g, ro, rd, idx);
     if (!(t > kFar)) {
       const V3 hit = ro + rd * t;
-      const V3 nrm = calc_normal<true, false>(S, g, hit);
+      const V3 nrm = normal_walk<true, false>(list, len, P.F, g, hit);
       const float* mt = idx >= 0 ? S.F + S.f_mat + kMatSize * idx : nullptr;
       const Shade s = shade_bounce(rng, rd, hit, nrm, mt);
       asm volatile("" ::"f"(s.ro.x), "f"(s.ro.y), "f"(s.ro.z), "f"(s.rd.x), "f"(s.rd.y),
@@ -70,14 +88,14 @@ fused_bwd(Scene S, int x0, int y0, int rw, int rh, int width, int height, int fr
       term = (double)((col.x + col.y) + col.z);
     }
   }
-  __shared__ double part[kFbBlock / 32];
+  __shared__ double part[kFbWarps];
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) term += __shfl_down_sync(kFullWarp, term, o);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = term;
+  if (lane == 0) part[warp] = term;
   __syncthreads();
   if (threadIdx.x == 0) {
     double sum = 0.0;
-    for (int w = 0; w < kFbBlock / 32; ++w) sum += part[w];
+    for (int w = 0; w < kFbWarps; ++w) sum += part[w];
     atomicAdd(loss, sum);
   }
 }
@@ -132,15 +150,28 @@ segsum(const int* __restrict__ idx, const float* __restrict__ cot, int n_b, int 
 // and `table` are a baked program's (program_table without t-cull), as
 // for cpt_march_rays, with its materials at f_mat.  `loss` is one float64,
 // zeroed by the caller, to which every block adds; `grad` (n_grad float32)
-// is overwritten with zeros.
+// is overwritten with zeros.  A non-null walk_stats (2 zeroed uint64) takes
+// the summed length of the warps' lists and their number.  smem_bytes, the
+// block's dynamic shared memory, must be walk_smem_bytes(n_ops, f_box, 8)
+// (render/program.py:walk_smem_bytes).  The caller checks the program
+// against kMaxDepth and kMaxBoxed.
 extern "C" int cpt_fused_bwd(const int* code, int n_ops, const float* table, int n_boxed,
                              int f_box, int f_mat, int x0, int y0, int rw, int rh, int width,
                              int height, int frame, float fov, float aspect, double* loss,
-                             float* grad, int n_grad, void* stream) {
+                             float* grad, int n_grad, unsigned long long* walk_stats,
+                             int smem_bytes, void* stream) {
   const Scene S{code, n_ops, table, n_boxed, f_box, f_box + 6 * n_boxed, f_mat, nullptr, 0};
+  if (smem_bytes != walk_smem_bytes(n_ops, f_box, kFbWarps)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int grid = (rw * rh + kFbBlock - 1) / kFbBlock;
-  fused_bwd<<<grid, kFbBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      S, x0, y0, rw, rh, width, height, frame, fov, aspect, loss, grad, n_grad);
+  fused_bwd<<<grid, kFbBlock, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      S, x0, y0, rw, rh, width, height, frame, fov, aspect, loss, grad, n_grad, walk_stats);
   return static_cast<int>(cudaGetLastError());
 }
 

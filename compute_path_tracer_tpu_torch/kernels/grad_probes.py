@@ -11,6 +11,12 @@
   loss reads the hit mask and the materials only; see the note in
   ``csrc/grad_probes.cu``).  The kernel writes that zero; the plain version
   computes it with autograd, through ``diff/vjp.py:make_implicit_cast``.
+  The kernel takes K3's per-warp walk of the program staged in shared
+  memory (``walk_smem_bytes``, which raises for a program too large for a
+  block); a warp is 32 consecutive pixels of a rectangle row, and
+  ``walk_stats`` takes the summed length of the warps' lists and their
+  number (on the CPU, the plain model: ``warp_records`` over the same
+  warps).
 * ``segsum(idx, cot, n_seg)`` (``benchmarks/probe_inkernel_segsum.py:
   main``): ``out[s, c]`` = the sum of ``cot[b, c, i]`` over the ``(b, i)``
   with ``idx[b, i] == s``, ``idx == -1`` dropping out; idx (B, n) int32,
@@ -32,7 +38,14 @@ from torch.utils.checkpoint import checkpoint
 from ..constants import FP
 from ..diff.vjp import make_implicit_cast
 from ..render.baked import baked_layout, make_bounds_baked, make_map_baked
-from ..render.program import build_program, program_code_on, program_table
+from ..render.program import (
+    build_program,
+    program_bounds,
+    program_code_on,
+    program_table,
+    walk_smem_bytes,
+    warp_records,
+)
 from ..render.reference import (
     calc_normal,
     camera_rays,
@@ -53,6 +66,8 @@ CAMERA_W, CAMERA_H, CAMERA_FRAME, CAMERA_FOV = 1920, 1080, 1, 1.0
 CAMERA_ASPECT = float(np.float32(CAMERA_W / CAMERA_H))
 TILE_RECT = (0, 0, 128, 64)                  # the probe's (64, 128) tile
 FRAME_RECT = (0, 0, CAMERA_W, CAMERA_H)
+# The kernel's block: 256 threads, 8 warps of 32 consecutive pixels.
+FB_WARPS = 8
 # segsum's grid: 4 blocks of 256 threads on each of 132 SMs, whatever the
 # size: a block flushes only its partial's nonzero entries, so a small input
 # spread over many blocks costs few global atomics, and each thread's chain
@@ -81,18 +96,24 @@ def fused_bwd_rays(rect, device):
                        width=CAMERA_W, height=CAMERA_H)
 
 
-def fused_bwd_plain(spec: SceneSpec, params, bv, rect=TILE_RECT):
+def fused_bwd_plain(spec: SceneSpec, params, bv, rect=TILE_RECT,
+                    walk_stats=None):
     """The probe's bounce loss over ``rect`` and its autograd gradient in
     ``bv``: the march is ``make_implicit_cast`` over the baked map (its
     backward the implicit gradient), the normal the 6-tap ``calc_normal``
     (checkpointed: its tape would hold the map six times over, and no
-    cotangent reaches it), the guards boolean, so taken without a tape."""
+    cotangent reaches it), the guards boolean, so taken without a tape.
+    ``walk_stats``, a (2,) int64 tensor, takes :func:`fused_bwd_walk_stats`
+    of the rectangle."""
     map_fn, bounds = make_map_baked(spec), make_bounds_baked(spec)
     slots = torch.as_tensor(material_slot_matrix(spec), dtype=torch.int64,
                             device=params.device)
     mats = params.detach()[slots]
     gv = bv.detach().requires_grad_()
     rng, ro, rd = fused_bwd_rays(rect, params.device)
+    if walk_stats is not None:
+        walk_stats += fused_bwd_walk_stats(*fused_bwd_tables(spec, params, bv),
+                                           ro, rd)
     with torch.no_grad():
         checks, _ = bounds(ro, rd, gv)
     with torch.enable_grad():
@@ -119,16 +140,42 @@ def fused_bwd_tables(spec: SceneSpec, params, bv):
         return prog, program_table(prog, params, False, bv)
 
 
-def launch_fused_bwd(prog, table, rect, n_grad: int):
+def fused_bwd_warps(n: int, device=None):
+    """The kernel's warp of each of ``n`` pixels of a rectangle, in its
+    row-major order: 32 consecutive pixels a warp (a rectangle row of the
+    probe's tile or frame holds whole warps)."""
+    return torch.arange(n, device=device) // 32
+
+
+def fused_bwd_walk_stats(prog, table, ro, rd):
+    """The kernel's per-warp list figures over the flat rays ``(ro, rd)`` of
+    a rectangle: (the summed length of the warps' lists, their number),
+    ``warp_records`` over the baked guards; an int64 (2,) tensor."""
+    n = ro.x.shape[0]
+    with torch.no_grad():
+        checks, _ = program_bounds(prog, table, ro, rd, False)
+        lists = warp_records(prog, checks[0], fused_bwd_warps(n, ro.x.device))
+    return torch.tensor([int(lists.sum()), lists.shape[0]], dtype=torch.int64,
+                        device=ro.x.device)
+
+
+def launch_fused_bwd(prog, table, rect, n_grad: int, walk_stats=None):
     """One launch of the fused_bwd kernel on a program and its table
-    (``fused_bwd_tables``); returns ``(loss, grad)`` as :func:`fused_bwd`."""
+    (``fused_bwd_tables``); returns ``(loss, grad)`` as :func:`fused_bwd`.
+    ``walk_stats``, a zeroed (2,) int64 tensor on the table's device, takes
+    the summed length of the warps' lists and their number."""
     x0, y0, w, h = _check_rect(rect)
+    smem = walk_smem_bytes(prog, FB_WARPS)
     device = table.device
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     if table.dtype != torch.float32 or table.shape != (prog.f_len,) \
             or not table.is_contiguous():
         raise ValueError(f"table must be contiguous float32 ({prog.f_len},)")
+    if walk_stats is not None and (
+            walk_stats.device != device or walk_stats.dtype != torch.int64
+            or tuple(walk_stats.shape) != (2,)):
+        raise ValueError(f"walk_stats must be int64 (2,) on {device}")
     acc = torch.zeros(1, dtype=torch.float64, device=device)
     grad = torch.empty(n_grad, dtype=torch.float32, device=device)
     code = program_code_on(prog, device)
@@ -137,25 +184,28 @@ def launch_fused_bwd(prog, table, rect, n_grad: int):
             code.data_ptr(), prog.ops.shape[0], table.data_ptr(),
             prog.n_boxed, prog.f_box, prog.f_mat, x0, y0, w, h, CAMERA_W,
             CAMERA_H, CAMERA_FRAME, CAMERA_FOV, CAMERA_ASPECT,
-            acc.data_ptr(), grad.data_ptr(),
-            n_grad, torch.cuda.current_stream(device).cuda_stream)
+            acc.data_ptr(), grad.data_ptr(), n_grad,
+            None if walk_stats is None else walk_stats.data_ptr(), smem,
+            torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_bwd launch failed: CUDA error {err}")
     LAUNCHES["fused_bwd"] += 1
     return acc.to(torch.float32), grad
 
 
-def fused_bwd(spec: SceneSpec, params, bv, rect=TILE_RECT):
-    """The probe's ``(loss, grad)`` over ``rect`` (see the module note)."""
+def fused_bwd(spec: SceneSpec, params, bv, rect=TILE_RECT, walk_stats=None):
+    """The probe's ``(loss, grad)`` over ``rect`` (see the module note);
+    ``walk_stats``, a zeroed (2,) int64 tensor on ``params``' device, takes
+    the kernel's list figures (its plain model on the CPU)."""
     if params.device.type == "cpu":
-        return fused_bwd_plain(spec, params, bv, rect)
+        return fused_bwd_plain(spec, params, bv, rect, walk_stats)
     if params.device.type != "cuda":
         raise ValueError(f"no kernel for device {params.device}")
     if bv.shape != (baked_layout(spec).n_slots,):
         raise ValueError(f"bv must be the baked vector of "
                          f"{baked_layout(spec).n_slots} slots")
     prog, table = fused_bwd_tables(spec, params, bv)
-    return launch_fused_bwd(prog, table, rect, bv.shape[0])
+    return launch_fused_bwd(prog, table, rect, bv.shape[0], walk_stats)
 
 
 def segsum_plain(idx, cot, n_seg: int):
