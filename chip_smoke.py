@@ -86,7 +86,9 @@ and the modes of the same two kernels that the last bench.py rows run:
   ptxas's figures and its own work (every leaf on every tap) at the FP32
   rate vpu_peak attains; the ILP probe walks K3's per-warp lists of the
   staged program, and its row gives ptxas's figures and the mean list
-  lengths;
+  lengths; the capped probe takes K3's t-culled kernel over the capped
+  program, and its per-warp list figures must be the plain model's
+  (``probes.capped_list_lengths``) on every scene and at 1080p;
 * the hardware probes (kernels/hw_probes.py, ``csrc/hw_probes.cu``:
   vpu_peak's FMA chains at every width, gather_probe's four kernels with
   the table in shared memory and through ``__ldg``, bf16_probe's three
@@ -97,7 +99,14 @@ and the modes of the same two kernels that the last bench.py rows run:
   measurement scripts of ``compute_path_tracer_tpu_torch/benchmarks/``
   (16 tiles of (64, 128); bf16 4 of (256, 128)), time them, and each
   kernel's time at half its reps (a chain's at half its iterations) must
-  be about half its full time.  The bf16 kernels march two reps a thread
+  be about half its full time.  The shared-memory gather chains, over
+  replicated rows, take their index by one add rounded toward zero on rows
+  that pass a range test and by F2I on the others: both paths are held
+  bit for bit on rows made to take each; gather_arith's branch-free root
+  must equal ``__fsqrt_rn`` on every float32 of ``hw_probes.ROOT_DOMAIN``,
+  which holds every root argument of the driver's inputs, its SASS must
+  call no slow path, and ``correct128`` is timed beside ``torch.gather``.
+  The bf16 kernels march two reps a thread
   in packed halves with an approximate root: its bits for every bf16 bit
   pattern below 0x8000 must be the card's IEEE root's and the correctly
   rounded one's, their SASS must hold no HFMA2 that contracts a multiply
@@ -334,6 +343,8 @@ def _hw_probe_checks(hp, mods):
         for label, fn in gat.kernels(inp).items():
             p, ms = plain[label.replace("_ldg", "")]
             record("gather_probe", label, tiles, _bit_diff(fn(), p), ms=ms)
+    res["gather_probe"]["conversions"] = _gather_conversion_check(hp)
+    res["gather_probe"]["root_mismatches"] = _gather_root_check(hp, gat)
     res["bf16_probe"]["roots"] = _bf16_root_check(hp, torch.device("cuda"))
     bad = hp.mxu_rcp_check(torch.device("cuda")).tolist()
     print(f"check mxu reciprocal (rcp_rn) over every float32 bit pattern: "
@@ -371,6 +382,62 @@ def _hw_probe_checks(hp, mods):
     return res
 
 
+def _gather_conversion_check(hp):
+    """Both index conversions of the shared-memory chains on the card, bit
+    for bit their plain version, the layout's model and the __ldg chain: a
+    (1, 64, entries) table whose even rows lie in [0, 2**23) (one add
+    rounded toward zero) and whose odd rows each hold a negative entry and
+    one of 2**23 or more (the exact conversion), 512 iterations."""
+    import numpy as np
+    import torch
+
+    out = {}
+    rng = np.random.default_rng(18)
+    for entries in (hp.LANES, hp.GRID_ENTRIES):
+        tab = rng.uniform(0.0, hp.RZ_LIMIT, (1, hp.GATHER_H, entries))
+        tab = tab.astype(np.float32)
+        tab[0, 1::2, 5] = -7.25
+        tab[0, 1::2, 9] = 3.0e7
+        idx = rng.integers(0, entries, (1, hp.GATHER_H, hp.LANES))
+        idx = idx.astype(np.int32)
+        rz = hp.gather_rows_in_rz(tab[0])
+        assert rz[0::2].all() and not rz[1::2].any()
+        t, i = torch.from_numpy(tab).cuda(), torch.from_numpy(idx).cuda()
+        plain = hp.gather_chain_plain(t, i).cpu()
+        model = torch.from_numpy(hp.gather_chain_model(tab, idx))
+        got = {load: hp.gather_chain(t, i, load=load).cpu()
+               for load in ("smem", "ldg")}
+        same = {"model": bool(torch.equal(model, plain)),
+                **{load: bool(torch.equal(v, plain)) for load, v in got.items()}}
+        print(f"check gather{entries} index conversions (32 rows one add "
+              f"rounded toward zero, 32 the exact conversion): bit for bit "
+              f"the plain chain {same}")
+        if not all(same.values()):
+            raise AssertionError(f"gather{entries} conversions: {same}")
+        out[f"gather{entries}"] = same
+    return out
+
+
+def _gather_root_check(hp, gat):
+    """gather_arith's branch-free root (sqrt_rn_dom) against __fsqrt_rn on
+    the card over every non-negative float32 pattern, and every root
+    argument of the driver's inputs inside the domain where 0 differ."""
+    import torch
+
+    args = hp.gather_arith_roots(gat.inputs(gat.TILES)["idx"])
+    lo, hi = hp.ROOT_DOMAIN
+    inside = bool(((args >= lo) & (args <= hi)).all())
+    bad = hp.gather_root_check(torch.device("cuda")).tolist()
+    print(f"check gather_arith root (sqrt_rn_dom) over every non-negative "
+          f"float32 bit pattern: {bad[0]} differ from __fsqrt_rn in "
+          f"[{lo:g}, {hi:g}], {bad[1]} outside; the driver's root arguments "
+          f"lie in [{float(args.min()):g}, {float(args.max()):g}], inside "
+          f"{inside}")
+    if bad[0] or not inside:
+        raise AssertionError(f"gather_arith root: {bad}, inside {inside}")
+    return bad
+
+
 def _hw_probe_main(hp, mods, other_counts, gpu):
     """Each measurement script's ``measure()``, with every kernel count set
     to 0 just before and read just after: (launches by kernel, result) per
@@ -402,12 +469,13 @@ def _hw_probe_main(hp, mods, other_counts, gpu):
     return runs
 
 
-def _hw_probe_rows(hp, pf, mods, checks, runs, peak, bf16_extra, mxu_extra):
+def _hw_probe_rows(hp, pf, mods, checks, runs, peak, gather_extra,
+                   bf16_extra, mxu_extra):
     """The kernels-line rows of the hardware probes: each probe's headline
     kernel (vpu at its best width, gather128 from shared memory, bf16's
     bf16 map, mxu on the tensor cores) with its bound, and the others'
-    times beside; ``bf16_extra`` joins the bf16 row, ``mxu_extra`` the mxu
-    row."""
+    times beside; ``gather_extra``, ``bf16_extra`` and ``mxu_extra`` join
+    the gather, bf16 and mxu rows."""
     csrc = "compute_path_tracer_tpu_torch/kernels/csrc/hw_probes.cu"
     vpu, gat = mods["vpu_peak"], mods["gather_probe"]
     bf, mxu = mods["bf16_probe"], mods["mxu_transform_probe"]
@@ -445,18 +513,30 @@ def _hw_probe_rows(hp, pf, mods, checks, runs, peak, bf16_extra, mxu_extra):
                              ("arith", "arith", 0)):
         ops, words = pf.gather_work(kind, lanes, hp.GATHER_ITERS)
         bounds[k] = pf.bound_ms(4 * lanes * (2 + entries // hp.LANES), ops,
-                                peak, words)
+                                peak, words,
+                                pf.gather_mufu(kind, lanes, hp.GATHER_ITERS))
     rows.append(row(
         "gather_probe", 132, out["rows"]["gather128"],
         checks["gather_probe"]["plain_ms"]["gather128"], bounds["gather128"],
         ms_by_kernel=out["rows"], bound_ms_by_kernel=bounds,
-        **{k: v for k, v in out["summary"].items() if k.endswith("maptap")}))
+        library_ms_by_kernel={k: {"torch.gather": v}
+                              for k, v in out["library"].items()},
+        state="redesigned, PR 18 (chains: replicated rows, one bank a "
+              "lane, the index by one add rounded toward zero; arith: the "
+              "branch-free root sqrt_rn_dom)",
+        conversions=checks["gather_probe"]["conversions"],
+        root_mismatches=checks["gather_probe"]["root_mismatches"],
+        **gather_extra,
+        **{k: v for k, v in out["summary"].items()
+           if k.endswith("maptap") or k.endswith("torch_gather")}))
 
     out = runs["bf16_probe"][1]
     rays = bf.TILES * hp.BF16_H * hp.LANES
     ray_bytes = 28 * rays + bf.TILES * hp.N_SPHERES * 16
     bounds = {v: pf.bound_ms(ray_bytes, pf.bf16_ops(v, rays, hp.BF16_REPS,
-                                                    hp.BF16_STEPS), peak)
+                                                    hp.BF16_STEPS), peak,
+                             mufu=pf.bf16_mufu(rays, hp.BF16_REPS,
+                                               hp.BF16_STEPS))
               for v in hp.BF16_VARIANTS}
     rows.append(row(
         "bf16_probe", 116, out["ms"]["map"],
@@ -476,7 +556,8 @@ def _hw_probe_rows(hp, pf, mods, checks, runs, peak, bf16_extra, mxu_extra):
     rays = mxu.TILES * hp.MXU_H * hp.LANES
     need = pf.mxu_ops(rays, hp.MXU_SHAPES, hp.MXU_REPS)
     done = hp.MXU_REPS * pf.mxu_ops(rays, hp.MXU_SHAPES, 1)
-    bound = pf.bound_ms(28 * rays + mxu.TILES * hp.MXU_ROWS * 16, need, peak)
+    bound = pf.bound_ms(28 * rays + mxu.TILES * hp.MXU_ROWS * 16, need, peak,
+                        mufu=pf.mxu_mufu(rays, hp.MXU_SHAPES))
     print(f"mxu_transform_probe: bound {bound[0]:.6f} ms ({bound[1]}) for "
           f"{need:.4e} FP32 ops; its {hp.MXU_REPS} reps do {done:.4e}, "
           f"{done / need:.2f}x")
@@ -803,18 +884,18 @@ def _ptxas_probes(build):
         m = re.search(r"bf16_marchILi(\d)E", k)
         if m:
             figs[f"bf16_march<{m.group(1)}>"] = v
-        for name in ("march_dense", "march_ilp_seq", "march_ilp_fused",
-                     "wavefront_bounce", "mxu_scalar", "mxu_tensor",
-                     "fused_bwd"):
+        for name in ("march_dense", "march_capped", "march_ilp_seq",
+                     "march_ilp_fused", "wavefront_bounce", "mxu_scalar",
+                     "mxu_tensor", "fused_bwd"):
             if name in k:
                 figs[name] = v
     for k, v in sorted(figs.items()):
         print(f"ptxas {k}: {v['registers']} registers, {v.get('stack', 0)} "
               f"bytes stack frame, {v.get('spill_stores', 0)} bytes spill "
               f"stores, {v.get('spill_loads', 0)} bytes spill loads")
-    if len(figs) != 10:
+    if len(figs) != 11:
         raise AssertionError(f"ptxas figures of {len(figs)} probe kernels, "
-                             f"expected 10")
+                             f"expected 11")
     return figs
 
 
@@ -885,6 +966,39 @@ def _mxu_sass(build):
                 print(f"SASS {key}: {out[key]}")
     if len(out) != 2 or out["mxu_tensor"]["HGMMA"] < 12:
         raise AssertionError(f"SASS of the box transforms: {out}")
+    return out
+
+
+# The gather kernels' instructions counted in their SASS (opcode stems,
+# FADD.RZ whole).
+GATHER_OPCODES = ("LDS", "FADD", "FADD.RZ", "F2I", "LEA", "LOP3", "MUFU",
+                  "CALL")
+
+
+def _gather_sass(build):
+    """The gather kernels' SASS (gather_chain_smem, gather_chain_ldg,
+    gather_arith): counts of the instructions in GATHER_OPCODES, printed;
+    raises unless gather_arith takes its 12 roots as MUFU with no call to
+    a slow path, and each shared-memory chain has its FADD.RZ form."""
+    import re
+
+    out = {}
+    for name, code in build.sass().items():
+        m = re.search(r"(gather_chain_smem|gather_chain_ldg)ILi(\d+)E(?:Li(\d+)E)?"
+                      r"|(gather_arith)", name)
+        if not m:
+            continue
+        key = (m.group(4) or f"{m.group(1)}<{m.group(2)}"
+               + (f",{m.group(3)}>" if m.group(3) else ">"))
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", i).split()[0] for i in code]
+        out[key] = {o: sum(1 for op in ops if op == o or (
+            o != "FADD.RZ" and op.split(".")[0] == o)) for o in GATHER_OPCODES}
+        print(f"SASS {key}: {out[key]}")
+    smem = [k for k in out if k.startswith("gather_chain_smem")]
+    arith = out.get("gather_arith", {})
+    if (len(smem) != 2 or any(out[k]["FADD.RZ"] < 1 for k in smem)
+            or arith.get("CALL", 1) or arith.get("MUFU", 0) < 12):
+        raise AssertionError(f"SASS of the gather kernels: {out}")
     return out
 
 
@@ -1779,6 +1893,7 @@ def main() -> int:
     probe_ptxas = _ptxas_probes(build)
     bf16_sass = _bf16_sass(build)
     mxu_sass = _mxu_sass(build)
+    gather_sass = _gather_sass(build)
     k4_child = _start_k4_child()
 
     def compiled(scene):
@@ -2410,8 +2525,12 @@ def main() -> int:
             pc = pr.march_capped_plain(cprog, ctable, ro, rd, count_capped)
             torch.cuda.synchronize()
             capped_ms = (time.perf_counter() - t0) * 1e3
-            kc = pr.march_capped(cprog, ctable, ro, rd)
+            walk = torch.zeros(2, dtype=torch.int64, device=dev)
+            kc = pr.march_capped(cprog, ctable, ro, rd, walk_stats=walk)
             ok["capped"] = eq(kc, pc)
+            lengths = pr.capped_list_lengths(cprog, ctable, ro, rd)
+            ok["capped lists = model"] = walk.tolist() == [
+                int(lengths.sum()), lengths.numel()]
             diffs["analytic_probe"] = ray_diff([(kc, pc)])
         torch.cuda.synchronize()
         launched = {k: pr.LAUNCHES[k] - before[k] for k in before}
@@ -2521,6 +2640,7 @@ def main() -> int:
                                            mk.LAUNCHES, tm.LAUNCHES), gpu)
     hw_rows = _hw_probe_rows(
         hp, pf, hw_mods, hw_checks, hw_runs, peak,
+        {"sass": gather_sass},
         {"sass": bf16_sass,
          "ptxas": {k: v for k, v in probe_ptxas.items()
                    if k.startswith("bf16_march")}},
@@ -2937,7 +3057,14 @@ def main() -> int:
             ("dense_probe", 119, "dense plain-map", exact_plain_ms,
              dense_extra),
             ("analytic_probe", 194, "analytic-capped march", capped_plain_ms,
-             {}),
+             {"state": "redesigned, PR 18 (K3's t-culled kernel: its per-warp "
+                       "walk of the staged capped program, march_walk with "
+                       "the cap)",
+              "k3_tcull_ms": probe_runs["analytic_probe"][1]["rows"][
+                  "t_cull march (baseline)"],
+              "mean_list": probe_runs["analytic_probe"][1]["summary"][
+                  "mean_list"],
+              "ptxas": probe_ptxas["march_capped"]}),
             ("ilp_probe", 184, "fused interleaved rays", exact_plain_ms,
              {"state": "redesigned, PR 16 (K3's per-warp walk of the staged "
                        "program; fused: one list over both rays' guards)",

@@ -6,8 +6,10 @@
 * The operation counts per executed item, read off the CUDA sources, and
   ``bound_ms``: the least time the card could take for a work count, the
   largest of its bytes over the memory rate, its FP32 operations over
-  ``fp32_peak`` and, for table taps, its shared-memory words over
-  ``smem_rate``.  chip_smoke.py's bounds read them from here.
+  ``fp32_peak``, for table taps its shared-memory words over
+  ``smem_rate`` and, where a kernel's roots and reciprocals are counted,
+  its MUFU instructions over ``mufu_rate``.  chip_smoke.py's bounds read
+  them from here.
 * ``measured_frame_cost``: a frame's executed work from debug 4, per warp of
   K2 (kernels/megakernel.py:MarchStats).
 * ``measure_frame_time``: the median time of a frame on the card.
@@ -141,6 +143,14 @@ GATHER_CHAIN_OPS = 1
 GATHER_ARITH_OPS = 12 * 7 + 2
 BF16_STEP_OPS = {"f32": (141, 0), "map": (20, 121), "all": (12, 129)}
 MXU_SHAPE_OPS = 3 * (6 + 5 + 11) + 4
+# Their MUFU instructions, which the operation counts above take as one
+# FP32 operation each: gather_probe's arithmetic tap one MUFU.RSQ a root,
+# 12 an iteration; bf16_probe one a sphere and ray-step (the float32
+# root's MUFU.RSQ, or each packed half's sqrt.approx.f32: 24 a pair-step);
+# mxu_transform_probe one MUFU.RCP a row, 3 a shape.
+GATHER_ARITH_MUFU = 12
+BF16_STEP_MUFU = 12
+MXU_SHAPE_MUFU = 3
 # The wavefront renderer's bytes (csrc/wavefront.cu and the compaction of
 # benchmarks/frozen_wavefront.py): the kernel reads and writes a live ray's
 # state (9 floats and the RNG word) and writes its add (3 floats) and alive
@@ -154,6 +164,10 @@ WAVE_COMPACT_BYTES = 2 * (WAVE_STATE_BYTES + 8)
 # Programming Guide, shared memory of compute capability 9.0).
 _SM_LANES = 128
 SMEM_WORDS_PER_SM_CLOCK = 32
+# MUFU instructions an SM issues a clock, per lane: 16 (the same guide's
+# throughput table, compute capability 9.0: reciprocal, reciprocal square
+# root, square root, log2, exp2, sine, cosine).
+MUFU_PER_SM_CLOCK = 16
 
 
 def gpu_line(query: str = "name,power.limit") -> str:
@@ -186,13 +200,24 @@ def smem_rate(device=0) -> float:
     return sms * SMEM_WORDS_PER_SM_CLOCK * hz
 
 
-def bound_ms(n_bytes, ops, peak, smem_words=0):
+def mufu_rate(device=0) -> float:
+    """MUFU instructions (lanes) per second at the clock ``fp32_peak``
+    uses: its SMs x 16 x ``clocks.max.sm`` (4.18e12 on 132 SMs at 1,980
+    MHz)."""
+    sms, hz = _sms_and_clock(device)
+    return sms * MUFU_PER_SM_CLOCK * hz
+
+
+def bound_ms(n_bytes, ops, peak, smem_words=0, mufu=0):
     """(bound ms, what sets it): the largest of the bytes over the memory
-    rate ("bytes"), the operations over ``peak`` ("operations") and the
-    shared-memory words over ``smem_rate`` ("shared memory")."""
+    rate ("bytes"), the operations over ``peak`` ("operations"), the
+    shared-memory words over ``smem_rate`` ("shared memory") and the MUFU
+    instructions over ``mufu_rate`` ("MUFU")."""
     terms = {"bytes": n_bytes / HBM_BYTES_PER_S, "operations": ops / peak}
     if smem_words:
         terms["shared memory"] = smem_words / smem_rate()
+    if mufu:
+        terms["MUFU"] = mufu / mufu_rate()
     by = max(terms, key=terms.get)
     return terms[by] * 1e3, by
 
@@ -317,6 +342,26 @@ def gather_work(kind, elems, iters):
     if kind == "arith":
         return float(elems) * iters * GATHER_ARITH_OPS, 0.0
     raise ValueError(f"unknown gather kind {kind!r}")
+
+
+def gather_mufu(kind, elems, iters) -> float:
+    """MUFU instructions of a gather_probe kernel on ``elems`` lanes: the
+    arithmetic tap's roots (``"arith"``); the taps take none."""
+    if kind not in ("once", "chain", "arith"):
+        raise ValueError(f"unknown gather kind {kind!r}")
+    return float(elems) * iters * GATHER_ARITH_MUFU if kind == "arith" else 0.0
+
+
+def bf16_mufu(rays, reps, steps) -> float:
+    """MUFU instructions of bf16_probe's march, any variant: a root a
+    sphere and ray-step."""
+    return float(rays) * reps * steps * BF16_STEP_MUFU
+
+
+def mxu_mufu(rays, n_shapes) -> float:
+    """MUFU instructions of the work mxu_transform_probe's output needs (one
+    rep, as ``mxu_ops``): a reciprocal a row."""
+    return float(rays) * n_shapes * MXU_SHAPE_MUFU
 
 
 def bf16_ops(variant, rays, reps, steps) -> float:

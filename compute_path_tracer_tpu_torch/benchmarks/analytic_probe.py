@@ -11,9 +11,11 @@ K2b's cap on K3's march).  The JAX probe adopted the design above 1.15x;
 K2b (``analytic_unboxed``) is that design on this card.
 
 Prints the t-culled march (K3, the baseline) and the capped march times,
-K3's exact march for context, and the mismatch statistics; one primary-ray
-cast at 1920x1080 on the 64-primitive benchmark scene, by CUDA events over
-the repeats after a warm-up, in one process.  Run on a machine with an
+K3's exact march for context, the mismatch statistics and the mean length
+of the capped kernel's per-warp lists (its ``walk_stats``) beside the plain
+model's (``capped_list_lengths``); one primary-ray cast at 1920x1080 on
+the 64-primitive benchmark scene, by CUDA events over the repeats after a
+warm-up, in one process.  Run on a machine with an
 NVIDIA GPU:
 
     python -m compute_path_tracer_tpu_torch.benchmarks.analytic_probe
@@ -27,7 +29,8 @@ import torch
 
 from ..constants import FP
 from ..kernels.march import march_rays
-from ..kernels.probes import capped_program, march_capped
+from ..kernels.probes import (capped_list_lengths, capped_program,
+                              march_capped)
 from ..render.program import build_program, program_table
 from .common import bench_scene, cuda_ms, probe_rays, require_card
 
@@ -65,12 +68,19 @@ def measure(reps: int = REPS) -> dict:
          - torch.clamp(capped(), max=FP + 1.0)).abs()
     q = torch.quantile(d, torch.tensor([0.5, 0.99], device=dev))
     ratio = rows["t_cull march (baseline)"] / rows["analytic-capped march"]
+    walk = torch.zeros(2, dtype=torch.int64, device=dev)
+    march_capped(cprog, ctable, ro, rd, walk_stats=walk)
+    lengths = capped_list_lengths(cprog, ctable, ro, rd)
     return {"rows": rows, "summary": {
         "speedup": ratio,
         "t_diff_p50": float(q[0]), "t_diff_p99": float(q[1]),
         "t_diff_over_5mhd_frac": float((d > 5e-3).float().mean()),
         "verdict_hint": ("adopt for round-4 integration" if ratio > 1.15
                          else "joins the measured negatives"),
+        "walk_stats": walk.tolist(),
+        "mean_list": float(walk[0]) / float(walk[1]),
+        "mean_list_model": float(lengths.double().mean()),
+        "n_ops": int(cprog.ops.shape[0]),
     }}
 
 

@@ -18,7 +18,9 @@ block is one row of the tile, its table in shared memory or read through
 16 tiles of (64, 128) (131,072 threads), times by CUDA events over the
 repeats queued behind a sleep (``common.queued_ms``), in one process; the
 chains are also timed at half their iterations, to show every tap is in the
-time.  Run on a machine with an NVIDIA GPU:
+time, and ``correct128`` beside ``torch.gather`` on the same table and
+indices (the one PyTorch call that computes it; its int64 index made
+before timing).  Run on a machine with an NVIDIA GPU:
 
     python -m compute_path_tracer_tpu_torch.benchmarks.gather_probe
 """
@@ -97,14 +99,19 @@ def measure(tiles: int = TILES, reps: int = REPS) -> dict:
     half = {k: queued_ms(fn, reps)
             for k, fn in kernels(inp, GATHER_ITERS // 2).items()
             if not k.startswith("correct")}
+    idx64 = inp["correct_idx"].long()
+    library = {"correct128": queued_ms(
+        lambda: torch.gather(inp["correct_tab"], 2, idx64), reps)}
     lanes = inp["idx"].numel() * GATHER_ITERS
-    summary = {"correct128": ok, "iters": GATHER_ITERS, "tiles": tiles}
+    summary = {"correct128": ok, "iters": GATHER_ITERS, "tiles": tiles,
+               "correct128_over_torch_gather": (rows["correct128"]
+                                                / library["correct128"])}
     for k in ("gather128", "gather128_ldg", "gather512", "gather512_ldg"):
         summary[f"{k}_ns_per_lane_tap"] = rows[k] * 1e6 / lanes
         summary[f"{k}_vs_maptap"] = rows[k] / rows["arith"]
     summary["arith_maptap_ns_per_lane_tap"] = rows["arith"] * 1e6 / lanes
     summary["iters_ratio"] = {k: rows[k] / v for k, v in half.items()}
-    return {"rows": rows, "summary": summary}
+    return {"rows": rows, "library": library, "summary": summary}
 
 
 def main() -> int:
@@ -114,6 +121,8 @@ def main() -> int:
                       "ok": out["summary"]["correct128"]}), flush=True)
     for name, ms in out["rows"].items():
         print(json.dumps({"kernel": name, "ms": ms}), flush=True)
+    for name, ms in out["library"].items():
+        print(json.dumps({"kernel": name, "torch.gather_ms": ms}), flush=True)
     print(json.dumps(dict(out["summary"], probe="throughput", gpu=gpu)),
           flush=True)
     return 0 if out["summary"]["correct128"] else 1

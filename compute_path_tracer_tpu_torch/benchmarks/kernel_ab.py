@@ -17,18 +17,22 @@ and the ILP march (``P-ilp seq``, ``P-ilp fused``) on the 1080p primary
 rays, the wavefront's bounce (``P-wavefront``, ``P-wavefront
 sorted``: one 1080p frame's 9 launches summed, the rays compacted, or
 compacted and sorted), the box transforms (``P-mxu scalar``, ``P-mxu
-tensor``: 16 tiles of (64, 128) rays, 32 shapes, 64 reps) and the fused
+tensor``: 16 tiles of (64, 128) rays, 32 shapes, 64 reps), the fused
 forward-plus-adjoint bounce (``P-fused-bwd frame``, ``P-fused-bwd tile``:
-the 1080p frame and the probe's (64, 128) tile), by CUDA events around each
-launch (a warm-up call first; the last two probes' launches queued behind
-a sleep, so that the host's time to issue them is not counted); ``--only
-REGEX`` times only the rows whose name matches.  Every output of every run
-is hashed, and A's and B's must be the same bit for bit: the frames, K3's
-t, ids and normals, K4's image and its (shape, channel) sums, which the
-kernel adds in a fixed order (the gradient's atomics are torch's, outside
-the kernel), the probes' t (and the dense probe's ids), the wavefront's
-frame with its ray buffer and RNG after the last bounce, the scalar
-transforms' sums and fused-bwd's zero gradient.  The tensor-core sums and
+the 1080p frame and the probe's (64, 128) tile), the capped march
+(``P-capped``, the 1080p primary rays) and the gather probe's kernels
+from shared memory (``P-gather correct128``, ``gather128``,
+``gather512``, ``arith``: 16 tiles of (64, 128) lanes, 512 iterations), by
+CUDA events around each launch (a warm-up call first; the launches of the
+last four probes queued behind a sleep, so that the host's time to issue
+them is not counted); ``--only REGEX`` times only the rows whose name
+matches.  Every output of every run is hashed, and A's and B's must be the
+same bit for bit: the frames, K3's t, ids and normals, K4's image and its
+(shape, channel) sums, which the kernel adds in a fixed order (the
+gradient's atomics are torch's, outside the kernel), the probes' t (and
+the dense probe's ids), the wavefront's frame with its ray buffer and RNG
+after the last bounce, the scalar transforms' sums, fused-bwd's zero
+gradient and the gather kernels' outputs.  The tensor-core sums and
 fused-bwd's loss (a float64 sum added by atomics in no fixed order) are
 not hashed: in each run they are held to their own build's plain version
 (``hw_probes.mxu_tensor_diff``; the loss within ``FB_LOSS_TOL``
@@ -39,9 +43,9 @@ tells, for each kernel function of the two builds, whether its SASS
 seen to leave a kernel alone (a kernel in one build only is matched to one
 of the other's with the same SASS: a rename), and prints ptxas's
 registers, stack frame and spills of K1's and the marching kernels
-(K2's, RELAX's, debug 4's, K6's, K3's, K4's, the dense and ILP probes',
-the wavefront's), of the bf16 march and of the box transforms and
-fused-bwd in both.  Run on a
+(K2's, RELAX's, debug 4's, K6's, K3's, K4's, the dense, capped and ILP
+probes', the wavefront's), of the bf16 march, the box transforms,
+fused-bwd and the gather kernels in both.  Run on a
 machine with an NVIDIA GPU and the CUDA toolkit:
 
     python -m compute_path_tracer_tpu_torch.benchmarks.kernel_ab OTHER_DIR [--only REGEX]
@@ -87,6 +91,9 @@ ILP = ("P-ilp seq", "P-ilp fused")
 WAVE = ("P-wavefront", "P-wavefront sorted")
 MXU = ("P-mxu scalar", "P-mxu tensor")
 FUSED_BWD = ("P-fused-bwd frame", "P-fused-bwd tile")
+CAPPED = "P-capped"
+GATHER = ("P-gather correct128", "P-gather gather128", "P-gather gather512",
+          "P-gather arith")
 # fused-bwd's loss against its plain version (chip_smoke.py's FB_LOSS_TOL).
 FB_LOSS_TOL = 1e-5
 # The sleep queued before each launch of those rows: about 2 ms.
@@ -97,8 +104,9 @@ ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_[0-9]+_\w+?_cu_[0-9a-f]{8}\d+")
 # The marching kernels, for ptxas's figures.
 WALKERS = re.compile(r"megakernel_analytic|megakernel_walk|megakernel_grid|"
                      r"megakernel_relax|megakernel_stats|march_rays|train_fused|"
-                     r"march_dense|march_ilp|wavefront_bounce|bf16_march|"
-                     r"mxu_scalar|mxu_tensor|fused_bwd")
+                     r"march_dense|march_capped|march_ilp|wavefront_bounce|"
+                     r"bf16_march|mxu_scalar|mxu_tensor|fused_bwd|gather_once|"
+                     r"gather_chain|gather_arith")
 
 
 def _sass(root: str) -> dict:
@@ -353,6 +361,35 @@ def _times(root: str, rays: str, only: str) -> dict:
                            "rel": rel, "zero_grad": zero,
                            "ok": rel <= FB_LOSS_TOL and zero}
             last[key] = _digest(grad)
+    if pick.search(CAPPED):
+        from compute_path_tracer_tpu_torch.benchmarks.common import probe_rays
+        from compute_path_tracer_tpu_torch.kernels import probes as pr
+
+        ro, rd = probe_rays(W, H, dev)
+        cprog = pr.capped_program(spec)
+        with torch.no_grad():
+            ctable = program_table(cprog, params, True)
+        out[CAPPED], t, _ = launches(
+            pr, "march_capped", lambda: pr.march_capped(cprog, ctable, ro, rd),
+            queued=True)
+        last[CAPPED] = _digest(t)
+    if any(pick.search(k) for k in GATHER):
+        from compute_path_tracer_tpu_torch.benchmarks import gather_probe as gpr
+        from compute_path_tracer_tpu_torch.kernels import hw_probes as hp
+
+        inp = gpr.inputs(gpr.TILES)
+        calls = {GATHER[0]: ("gather_once", lambda: hp.gather_once(
+                     inp["correct_tab"], inp["correct_idx"])),
+                 GATHER[1]: ("gather_chain", lambda: hp.gather_chain(
+                     inp["tab"], inp["idx"])),
+                 GATHER[2]: ("gather_chain", lambda: hp.gather_chain(
+                     inp["tab512"], inp["idx512"])),
+                 GATHER[3]: ("gather_arith", lambda: hp.gather_arith(
+                     inp["idx"]))}
+        for key, (attr, fn) in calls.items():
+            if pick.search(key):
+                out[key], res, _ = launches(hp, attr, fn, queued=True)
+                last[key] = _digest(res)
     return {"ms": out, "hash": last, "checks": checks,
             "grid_stats": grid_stats.tolist()}
 

@@ -182,7 +182,7 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [p, i, p, i, i, i] + [p] * 8 + [i, p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_march_capped
-    fn.argtypes = [p, i, p, i, i, i, i] + [p] * 8
+    fn.argtypes = [p, i, p, i, i, i, i] + [p] * 8 + [i, p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_march_ilp
     fn.argtypes = [p, i, p, i, i, i, i] + [p] * 7 + [i, p]
@@ -204,6 +204,9 @@ def load_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.cpt_mxu_tensor
     fn.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
+    fn.restype = ctypes.c_int
+    fn = lib.cpt_gather_root_check
+    fn.argtypes = [p, p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_mxu_rcp_check
     fn.argtypes = [p, p]

@@ -10,26 +10,23 @@
 // here has internal linkage, so each kernel's translation unit carries its
 // own copy.
 //
-// Two walks of the program.  map_ops reads every op record of the program
-// from global memory at every map tap and tests each guarded shape's bit
-// per lane: a tap of the 64-primitive benchmark scene loads and skips some
-// 60 records whose box no lane of the warp hits, integer and load work the
-// operation count of app/profiling.py does not see.  Only the capped probe
-// keeps that walk (march).  The dense probe walks the whole program
-// staged in shared memory (map_walk DENSE over stage_walk's records).
-// Every march of K2 (debug 0-4, analytic_unboxed, the over-relaxed march),
-// its grid march (K6), K3, K4, the wavefront's bounce, the ILP probe
-// (march_probes.cu, with its own pair walk for two rays a thread) and the
-// fused-bwd probe (grad_probes.cu) take the
-// per-warp walk at the end of this file: the block stages the
-// decoded records and the leaf table in shared memory once (stage_walk),
-// each warp compacts the records its live lanes can need into a list after
-// the bounce's guards (build_warp_list), and the map, the marches and the
-// gradient walk that list (map_walk, march_walk, march_relax_walk,
-// march_stats_walk, march_grid_walk, grad_walk) with the same per-lane
-// guard tests and the same arithmetic in the same order, so every lane
-// folds the shapes it folded before and every frame, ray, sum and debug-4
-// count stays bit for bit.
+// One walk of the program.  The block stages the decoded records and the
+// leaf table in shared memory once (stage_walk).  Every march of K2 (debug
+// 0-4, analytic_unboxed, the over-relaxed march), its grid march (K6), K3,
+// K4, the wavefront's bounce, the ILP and capped probes (march_probes.cu,
+// the ILP's fused kernel with its own pair walk for two rays a thread) and
+// the fused-bwd probe (grad_probes.cu) then take the per-warp walk at the
+// end of this file: each warp compacts the records its live lanes can
+// need into a list after the bounce's guards (build_warp_list), and the
+// map, the marches and the gradient walk that list (map_walk, march_walk,
+// march_relax_walk, march_stats_walk, march_grid_walk, grad_walk), each
+// lane testing its own guard bits, so a lane folds exactly the shapes its
+// guards pass, in program order.  The dense probe walks the whole staged
+// program (map_walk DENSE).  A walk that read every op record from global
+// memory at every tap, and skipped the shapes whose box no lane of the
+// warp hits, paid integer and load work that the operation count of
+// app/profiling.py does not see; the lists leave a tap of the 64-primitive
+// benchmark scene some 6-11 of its 66 records.
 
 #pragma once
 
@@ -205,113 +202,17 @@ __device__ __forceinline__ void fold(int op, float k, float& acc_d, int& acc_i, 
 }
 
 // How a map treats a guarded shape: GUARDED skips it where its guard fails;
-// DENSE (map_walk only: the dense march probe, march_probes.cu) evaluates
-// every leaf at every tap and lets the guard select the fold's operand,
-// with no branch; the two COUNT modes (map_walk only: debug 4,
-// megakernel_march.cu STATS) are GUARDED and add one to *tally for each
-// listed shape that at least one live lane of the warp evaluates: the
-// guarded shapes only (COUNT_BOXED, the march) or every shape (COUNT_ALL,
-// the normal taps).  The COUNT modes take one __ballot_sync over the full
-// warp per listed shape, so every lane of the warp must walk the list
-// together; a lane that is not live evaluates nothing.
+// DENSE (the dense march probe, march_probes.cu) evaluates every leaf at
+// every tap and lets the guard select the fold's operand, with no branch;
+// the two COUNT modes (debug 4, megakernel_march.cu STATS) are GUARDED
+// and add one to *tally for each listed shape that at least one live lane
+// of the warp evaluates: the guarded shapes only (COUNT_BOXED, the march)
+// or every shape (COUNT_ALL, the normal taps).  The COUNT modes take one
+// __ballot_sync over the full warp per listed shape, so every lane of the
+// warp must walk the list together; a lane that is not live evaluates
+// nothing.
 enum MapMode { GUARDED = 0, DENSE = 1, COUNT_BOXED = 2, COUNT_ALL = 3 };
 constexpr unsigned kFullWarp = 0xffffffffu;
-
-// The scene map at p: interprets the program from global memory, skipping
-// a guarded shape where its guard fails.  With CULLED a guarded shape marked
-// in box_cull is evaluated only while its interval holds t.
-template <bool BAKED, bool TCULL, bool CULLED>
-__device__ __forceinline__ float map_ops(const Scene& S, const Guards<TCULL>& g, V3 p, float t,
-                                         int& id) {
-  float st_d[kMaxDepth];
-  int st_i[kMaxDepth];
-  V3 st_p[BAKED ? 1 : kMaxDepth];
-  int sp = 0;
-  float acc_d = kMaxDist;
-  int acc_i = -1;
-  const float* __restrict__ F = S.F;
-  for (int pc = 0; pc < S.n_ops; ++pc) {
-    const int* __restrict__ op = S.code + OP_WIDTH * pc;
-    const int opc = __ldg(op);
-    if (opc == OPC_ENTER) {
-      st_d[sp] = acc_d;
-      st_i[sp] = acc_i;
-      if (!BAKED) {
-        st_p[sp] = p;
-        p = xform(p, F + __ldg(op + 1));
-      }
-      ++sp;
-      const int init = __ldg(op + 2);
-      acc_d = init >= 0 ? __ldg(F + init) : kMaxDist;
-      acc_i = -1;
-    } else if (opc == OPC_SHAPE) {
-      const int box = __ldg(op + 3);
-      if (box >= 0) {
-        bool pass = g.check(box);
-        if constexpr (CULLED) {
-          if (pass && __ldg(op + 7)) pass = g.lo[box] <= t && g.hi[box] >= t;
-        }
-        if (!pass) continue;
-      }
-      const int kind = __ldg(op + 1);
-      const float* __restrict__ r = F + __ldg(op + 2);
-      float d;
-      if (BAKED) {
-        d = leaf_baked(kind, r, p);
-      } else {
-        d = leaf_sdf(kind, xform(p, r), r + 11) * __ldg(r);
-      }
-      const int k = __ldg(op + 6);
-      fold(__ldg(op + 5), k >= 0 ? __ldg(F + k) : 0.0f, acc_d, acc_i, d, __ldg(op + 4));
-    } else {  // OPC_LEAVE
-      float d = BAKED ? acc_d : acc_d * __ldg(F + __ldg(op + 1));
-      int i = acc_i;
-      --sp;
-      acc_d = st_d[sp];
-      acc_i = st_i[sp];
-      if (!BAKED) p = st_p[sp];
-      const int k = __ldg(op + 3);
-      fold(__ldg(op + 2), k >= 0 ? __ldg(F + k) : 0.0f, acc_d, acc_i, d, i);
-    }
-  }
-  id = acc_i;
-  return acc_d;
-}
-
-// The scene map at p.
-template <bool BAKED, bool TCULL, bool CULLED>
-__device__ float map_scene(const Scene& S, const Guards<TCULL>& g, V3 p, float t, int& id) {
-  return map_ops<BAKED, TCULL, CULLED>(S, g, p, t, id);
-}
-
-// The 80-step march of one ray (cast_ray, or cast_tcull with TCULL);
-// returns t, and the id of the last map tap in idx (-1 when far).  A finite
-// t_cap (analytic_unboxed) stops the ray on it: t = min(t, t_cap), done once
-// t >= t_cap; the default INFINITY leaves the march as it is.
-template <bool BAKED, bool TCULL>
-__device__ float march(const Scene& S, const Guards<TCULL>& g, V3 ro, V3 rd, int& idx,
-                       float t_cap = INFINITY) {
-  float t = 0.0f;
-  float m = kBig;
-  if constexpr (TCULL) m = next_entry(S, g, 0.0f);
-  idx = -1;
-  for (int step = 0; step < kSteps; ++step) {
-    int mi;
-    float d = map_scene<BAKED, TCULL, TCULL>(S, g, v3(ro.x + rd.x * t, ro.y + rd.y * t,
-                                                      ro.z + rd.z * t), t, mi);
-    float ad = fabsf(d);
-    float nt = TCULL ? t + nan_min(ad, nan_max(m - t, kMhd)) : t + ad;
-    nt = nan_min(nt, t_cap);
-    bool far = nt > kFar;
-    idx = far ? -1 : mi;
-    t = nt;
-    if (ad < kMhd || far || nt >= t_cap) break;
-    if constexpr (TCULL) {
-      if (t >= m) m = next_entry(S, g, t);
-    }
-  }
-  return t;
-}
 
 // -- the distance grid (K6) -----------------------------------------------------
 
@@ -557,13 +458,15 @@ __device__ __forceinline__ void record_list(unsigned long long* __restrict__ wal
   }
 }
 
-// map_scene over a warp's list: map_ops' arithmetic, record for record,
-// over the records the list holds (the others fail every live lane's guard,
-// so map_ops would skip them).  Each lane still tests its own guard bit
-// and, with CULLED, its own interval.  MAP COUNT_BOXED and COUNT_ALL (debug
-// 4) count into *tally as map_ops counted over the whole program, and only
-// live lanes evaluate: a record off the list fails the guard of every lane
-// the list was built from, so its ballot over lanes among those would be 0.
+// The scene map at p over a warp's list: the program's records in walk
+// order, those the list holds (the others fail every live lane's guard, so
+// a walk of the whole program would skip them).  Each lane still tests its
+// own guard bit and, with CULLED (t_cull), evaluates a guarded shape marked
+// in box_cull only while its interval holds t.  MAP COUNT_BOXED and
+// COUNT_ALL (debug 4) count into *tally as a walk of the whole program
+// would, and only live lanes evaluate: a record off the list fails the
+// guard of every lane the list was built from, so its ballot over lanes
+// among those would be 0.
 // MAP DENSE walks a list that holds every record (the staged program):
 // each shape's leaf is evaluated by every lane, the fold into a copy of the
 // accumulator, and the lane's guard selects the copy or the accumulator, so
@@ -657,8 +560,12 @@ __device__ __forceinline__ float map_walk(const int4* __restrict__ list, int n,
   return acc_d;
 }
 
-// march() over a warp's list, its map in mode MAP (GUARDED, or DENSE over
-// the staged program).
+// The 80-step march of one ray (cast_ray, or cast_tcull with TCULL) over a
+// warp's list, its map in mode MAP (GUARDED, or DENSE over the staged
+// program); returns t, and the id of the last map tap in idx (-1 when
+// far).  A finite t_cap (analytic_unboxed, the capped probe) stops the ray
+// on it: t = min(t, t_cap), done once t >= t_cap; the default INFINITY
+// leaves the march as it is.
 template <bool BAKED, bool TCULL, int MAP = GUARDED>
 __device__ float march_walk(const Scene& S, const int4* __restrict__ list, int n,
                             const float* __restrict__ F, const Guards<TCULL>& g, V3 ro, V3 rd,

@@ -16,9 +16,10 @@
 // * march_capped replaces benchmarks/analytic_probe.py:capped (:194, body
 //   _make_capped_kernel :47): the program without the guard-less shapes of
 //   analytic_unboxed (render/program.py:build_program(skip_unboxed=True)),
-//   the per-thread t-culled march, and each ray stopped at the closed-form
-//   hit of those shapes (cap_scan, K1's leaf_t): K2b's cap on K3's march.
-//   It asks what the guard-less shapes cost the march.
+//   the t-culled march, and each ray stopped at the closed-form hit of those
+//   shapes (cap_scan, K1's leaf_t): K2b's cap on K3's t-culled march, with
+//   K3's per-warp walk of the program staged in shared memory.  It asks
+//   what the guard-less shapes cost the march.
 // * march_ilp_seq and march_ilp_fused replace benchmarks/ilp_probe.py:run
 //   (:184, seq_kernel :75, fused_kernel :86).  The TPU question is whether
 //   two independent dependency chains per program close the scheduling gap;
@@ -36,11 +37,9 @@
 //   for bit.
 //
 // What bounds them is K3's: operations (leaf SDFs per tap, up to 80 taps a
-// ray) against 24 bytes in and 4-8 out per ray.  The capped probe reads the
-// program from global memory at every tap (csg_program.cuh map_ops); it is
-// written to answer its question simply, not to be fast.  Parity: the
-// flags and helpers of K2 and K3 (note at the head of megakernel_march.cu);
-// each probe is held bit for bit to its plain version in kernels/probes.py.
+// ray) against 24 bytes in and 4-8 out per ray.  Parity: the flags and
+// helpers of K2 and K3 (note at the head of megakernel_march.cu); each
+// probe is held bit for bit to its plain version in kernels/probes.py.
 
 #include "csg_program.cuh"
 
@@ -76,18 +75,34 @@ march_dense(Scene S, int f_leaf, int n, Rays R, float* __restrict__ t_out,
   idx_out[i] = idx;
 }
 
+// Dynamic shared memory: walk_smem_bytes(n_ops, f_leaf, kWarps).  K3's
+// t-culled kernel (march_rays.cu) with the cap: each warp of 32 consecutive
+// rays builds K3's list of them over the capped program, and each ray's
+// march stops at its cap.  A lane past the end of the rays takes part in
+// the list as not live, then returns.  walk_stats, when not null, takes
+// each warp's list (record_list, row 0).
 __global__ void __launch_bounds__(kBlock)
-march_capped(Scene S, int n, Rays R, float* __restrict__ t_out) {
+march_capped(Scene S, int f_leaf, int n, Rays R, float* __restrict__ t_out,
+             unsigned long long* __restrict__ walk_stats) {
+  extern __shared__ int4 walk_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Walk P = stage_walk(S, f_leaf, kWarps, walk_smem, threadIdx.x, kBlock);
   const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n) return;
-  V3 ro, rd;
-  load_ray(R, i, ro, rd);
+  const bool live = i < n;
+  V3 ro = splat(0.0f), rd = splat(0.0f);
   Guards<true> g;
-  compute_guards(S, ro, rd, g);
+  if (live) {
+    load_ray(R, i, ro, rd);
+    compute_guards(S, ro, rd, g);
+  }
+  const int len = build_warp_list(P, S.n_boxed, g, live, warp, lane);
+  record_list(walk_stats, 0, len, lane);
+  if (!live) return;
   float t_cap;
   int j_cap, idx;
   cap_scan(S, ro, rd, t_cap, j_cap);
-  t_out[i] = march<true, true>(S, g, ro, rd, idx, t_cap);
+  t_out[i] = march_walk<true, true>(S, P.lists + warp * P.n_ops, len, P.F, g, ro, rd, idx,
+                                    t_cap);
 }
 
 // Dynamic shared memory: walk_smem_bytes(n_ops, f_leaf, kWarps).  Warp w
@@ -145,7 +160,7 @@ __device__ __forceinline__ void leaf_pair(int kind, const float* __restrict__ g,
 // either ray's guard passes, and each is folded where its own guard
 // passes.  A ray that is not marching (m0, m1) folds nothing.  The list
 // holds every record either ray's guards pass, so each marching ray's (d,
-// id) is map_walk's over its own list, and map_ops' over the program.
+// id) is map_walk's over its own list.
 __device__ void map_pair_walk(const int4* __restrict__ list, int len,
                               const float* __restrict__ F, const Guards<false>& g0,
                               const Guards<false>& g1, V3 p0, V3 p1, bool m0, bool m1,
@@ -294,14 +309,29 @@ extern "C" int cpt_march_dense(const int* code, int n_ops, const float* table, i
 }
 
 // `code` is a skip_unboxed program's, whose n_cap cap records follow the
-// cull flags.
+// cull flags.  smem_bytes, the block's dynamic shared memory, must be
+// walk_smem_bytes(n_ops, f_box, 4) (render/program.py:walk_smem_bytes,
+// which raises for a program a block cannot hold).  A non-null walk_stats
+// (2 zeroed uint64) takes the summed length of the warps' lists and their
+// number.
 extern "C" int cpt_march_capped(const int* code, int n_ops, const float* table, int n_boxed,
                                 int f_box, int n_cap, int n, const float* rox,
                                 const float* roy, const float* roz, const float* rdx,
-                                const float* rdy, const float* rdz, float* t, void* stream) {
+                                const float* rdy, const float* rdz, float* t,
+                                unsigned long long* walk_stats, int smem_bytes,
+                                void* stream) {
+  if (smem_bytes != walk_smem_bytes(n_ops, f_box, kWarps)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        march_capped, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const Rays R{rox, roy, roz, rdx, rdy, rdz};
-  march_capped<<<(n + kBlock - 1) / kBlock, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      probe_scene(code, n_ops, table, n_boxed, f_box, n_cap), n, R, t);
+  march_capped<<<(n + kBlock - 1) / kBlock, kBlock, smem_bytes,
+                 static_cast<cudaStream_t>(stream)>>>(
+      probe_scene(code, n_ops, table, n_boxed, f_box, n_cap), f_box, n, R, t, walk_stats);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -46,7 +46,7 @@
 // last map tap's, the normal takes 6 taps under the ray's full guards), and
 // `add` is 0 + emission x throughput as K2 adds it to its running sum, so the
 // renderer's frame equals K2's bit for bit.  A list holds every record a
-// live lane's guards pass, so each lane's map over it is map_ops' over the
+// live lane's guards pass, so each lane's map over it is the map over the
 // whole program (csg_program.cuh, the note above map_walk), whatever rays
 // the warp holds.
 

@@ -11,9 +11,11 @@ Each takes flat (n,) float32 rays and a baked program's table, as
   exact march's, only the work differs.
 * ``march_capped`` (``benchmarks/analytic_probe.py:capped``): the t-culled
   march of the program without the guard-less shapes
-  (``capped_program``), each ray stopped at their closed-form hit; returns
-  ``t``.  Its plain version is ``cast_tcull`` under
-  ``make_analytic_unboxed``'s cap.
+  (``capped_program``), each ray stopped at their closed-form hit, over
+  K3's per-warp lists of the program staged in each block's shared memory;
+  returns ``t``.  Its plain version is ``cast_tcull`` under
+  ``make_analytic_unboxed``'s cap; ``capped_list_lengths`` gives each
+  warp's list length (``warp_records``, the lists' plain model).
 * ``march_ilp`` (``benchmarks/ilp_probe.py:run``): the exact march with
   two rays per thread, one after the other (``interleave=False``) or in one
   loop (``interleave=True``), over per-warp lists of the program staged in
@@ -137,15 +139,44 @@ def march_capped_plain(prog: Program, table, ro: Vec3, rd: Vec3, count=None):
         return cast_tcull(prog, map_fn, ro, rd, checks, t_cap)[0]
 
 
-def march_capped(prog: Program, table, ro: Vec3, rd: Vec3):
-    """The capped probe on flat rays: ``t``, on ``prog`` (a
-    ``capped_program``) and its ``program_table(..., t_cull=True)``."""
+def capped_list_lengths(prog: Program, table, ro: Vec3, rd: Vec3):
+    """The (n_warps,) int64 lengths of the lists the capped probe's warps
+    walk on these rays: K3's warp of 32 consecutive rays, ``warp_records``
+    over the capped program's guards."""
     _check_caps(prog)
+    with torch.no_grad():
+        checks, _ = program_bounds(prog, table, ro, rd, True)
+        return warp_records(prog, checks[0],
+                            ilp_warps(ro.x.shape[0], False, ro.x.device)
+                            ).sum(1)
+
+
+def march_capped(prog: Program, table, ro: Vec3, rd: Vec3, walk_stats=None):
+    """The capped probe on flat rays: ``t``, on ``prog`` (a
+    ``capped_program``) and its ``program_table(..., t_cull=True)``.  Its
+    blocks hold the program in shared memory (``walk_smem_bytes(prog, 4)``,
+    which raises for a program too large).  ``walk_stats``, a zeroed (2,)
+    int64 tensor on the table's device, takes the summed length of the
+    warps' lists and their number (on the CPU, from
+    ``capped_list_lengths``)."""
+    _check_caps(prog)
+    if walk_stats is not None and (
+            walk_stats.device != table.device
+            or walk_stats.dtype != torch.int64
+            or tuple(walk_stats.shape) != (2,)):
+        raise ValueError(f"walk_stats must be int64 (2,) on {table.device}")
     if table.device.type == "cpu":
+        if walk_stats is not None:
+            lengths = capped_list_lengths(prog, table, ro, rd)
+            walk_stats += torch.stack([lengths.sum(),
+                                       torch.tensor(lengths.numel())])
         return march_capped_plain(prog, table, ro, rd)
+    smem = walk_smem_bytes(prog, WARPS)
     t = torch.empty_like(ro.x)
     _launch("march_capped", "cpt_march_capped", prog, table, ro, rd, (t,),
-            prog.caps.shape[0])
+            prog.caps.shape[0],
+            tail=(None if walk_stats is None else walk_stats.data_ptr(),
+                  smem))
     return t
 
 

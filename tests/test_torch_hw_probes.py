@@ -460,6 +460,14 @@ def test_probe_operation_counts():
     assert pf.bf16_ops("map", 2, 1, 2) == 2 * (2 * (20 + 121 / 2) + 2)
     assert pf.mxu_ops(1, 1, 1) == 71 and pf.mxu_ops(2, 32, 3) == 2 * 2243
     assert pf.mxu_ops(1, 32, 64) - pf.mxu_ops(1, 32, 1) == 63
+    # MUFU: the arithmetic tap's 12 roots an iteration, bf16's root a
+    # sphere and ray-step (24 a pair-step), mxu's reciprocal a row.
+    assert pf.gather_mufu("arith", 1, 2) == 24.0
+    assert pf.gather_mufu("chain", 7, 9) == pf.gather_mufu("once", 7, 9) == 0
+    with pytest.raises(ValueError):
+        pf.gather_mufu("grid", 1, 1)
+    assert pf.bf16_mufu(1, 2, 1) == 24.0 and pf.bf16_mufu(3, 1, 2) == 72.0
+    assert pf.mxu_mufu(1, 32) == 96.0 and pf.mxu_mufu(2, 1) == 6.0
 
 
 def test_bound_takes_the_largest_term(monkeypatch):
@@ -467,8 +475,19 @@ def test_bound_takes_the_largest_term(monkeypatch):
     over their rate: a tap chain is bound by its words, not its adds, and
     the bound says so."""
     monkeypatch.setattr(pf, "smem_rate", lambda device=0: 2e12)
+    monkeypatch.setattr(pf, "mufu_rate", lambda device=0: 0.5e12)
     assert pf.bound_ms(3.35e9, 1e9, 1e12) == (1.0, "bytes")
     ms, by = pf.bound_ms(0, 1e9, 1e12, smem_words=4e9)
     assert (ms, by) == (2.0, "shared memory")
     assert pf.bound_ms(0, 3e9, 1e12, smem_words=4e9) == (3.0, "operations")
     assert pf.bound_ms(3.35e9, 1e9, 1e12, 1e9)[1] == "bytes"
+    # The MUFU term: 12 roots at 16 a clock an SM outweigh 86 FP32
+    # operations at 256, as gather_arith's do.
+    assert pf.bound_ms(0, 1e9, 1e12, mufu=2e9) == (4.0, "MUFU")
+    assert pf.bound_ms(0, 5e9, 1e12, mufu=2e9) == (5.0, "operations")
+    assert pf.bound_ms(0, 1e9, 1e12, 1e10, 2e9) == (5.0, "shared memory")
+    assert pf.bound_ms(0, 1e9, 1e12, mufu=0) == (1.0, "operations")
+    monkeypatch.undo()
+    monkeypatch.setattr(pf, "_sms_and_clock", lambda device: (132, 1.98e9))
+    assert pf.mufu_rate() == pytest.approx(4.18176e12)
+    assert pf.smem_rate() == pytest.approx(8.36352e12)
