@@ -124,12 +124,15 @@ and the modes of the same two kernels that the last bench.py rows run:
   at the JAX probe's tile and over the 1080p frame, both gradients all
   zero and finite, its per-warp list figures at the tile equal to the
   plain model's; the segment sum within SEGSUM_TOL of a float64 sum at
-  the JAX probe's shape and at K4's; their main paths, the measurement
-  scripts of ``compute_path_tracer_tpu_torch/benchmarks/``
+  the JAX probe's shape, at K4's (ids uniform and clustered; two launches
+  bit for bit) and at S = 130, C = 28 and two ragged n, its non-finite
+  entries the plain version's with NaN and inf on kept and dropped lanes,
+  its SASS holding HMMA TF32 and no global atomic; their main paths, the
+  measurement scripts of ``compute_path_tracer_tpu_torch/benchmarks/``
   (``frozen_wavefront``: 1080p frames, sorted and not, beside K2's, with
   the mean list length per bounce of each;
   ``probe_fused_bwd``: the tile and the frame beside K4's time a bounce;
-  ``probe_inkernel_segsum``: both shapes beside ``index_add_``);
+  ``probe_inkernel_segsum``: the three rows beside ``index_add_``);
 
 and the fused train step through K4 (train_fused): the whole step (loss,
 gradient, image) with K4 against the same with its plain version at
@@ -147,10 +150,15 @@ slope taps, the exclusion march); the flat ball's position recovered
 by ``optimize_to_target(fused=True, edge_grad=True)`` and the CLI's
 ``optimize --fused --edge-grad``.
 
-The K4 checks at 320x180 run in a second process of this script
-(``--k4-checks``), started after the build beside the K1-K6 checks (both
-host-bound plain passes) and joined before the first timed phase, so no
-timing overlaps it; its output is printed when it is joined.
+The checks against the plain versions that are host-bound plain passes
+(K2, K2b, K5, K6, K3's scattered rays, the gradients through K3, K4 and
+debug 4 at 320x180; the 1080p plain passes of K2, K2b, K6, K4's
+analytic_unboxed step and the wavefront, which also count their work for
+the bounds; the CLI runs) run in CHECK_WORKERS processes of this script
+(``--check-worker``), started after the build and joined before the first
+timed phase, so no timing overlaps them; each worker's output, with each
+job's seconds and peak memory, is printed when it is joined.  The plain
+times of those 1080p passes are therefore taken beside the other workers.
 
 It prints each phase's start and the time the phase before it took,
 timings beside the card's name and power limit, a kernels JSON line with
@@ -171,6 +179,13 @@ from functools import partial
 
 CHECK_W, CHECK_H = 320, 180      # kernel-vs-plain phase
 MAIN_W, MAIN_H, BOUNCES = 1920, 1080, 8
+# The depth of the kernel-vs-plain checks at CHECK_W x CHECK_H in the check
+# workers (K2, K2b, K5, K6, debug 4, K4, the wavefront): their host-bound
+# plain passes cost about in proportion to the bounces traced, and at 8
+# they took the script near its time limit.  Every check at the main path's
+# shape (K1, K2, debug 4, K2b, K5, K6, K3, K4 and its analytic_unboxed
+# step, the wavefront) and K1's cases keep BOUNCES.
+CHECK_BOUNCES = 4
 N_PRIMS = 64
 TIMED_FRAMES = 8
 DIFF_TOL = 1e-2                  # a pixel differs when max-channel |diff| > this
@@ -581,8 +596,9 @@ def _hw_probe_rows(hp, pf, mods, checks, runs, peak, gather_extra,
 # of the exact sum (a thread's serial run, then the tree), and both shade
 # every pixel alike (K3's exact march is its plain version's ray for ray).
 FB_LOSS_TOL = 1e-5
-# segsum adds with atomics in no fixed order: within 1e-5 of max |ref| of a
-# float64 sum, the JAX probe's own bound.
+# segsum adds TF32 products (each cotangent split in two terms) in float32 in
+# a fixed order: within 1e-5 of max |ref| of a float64 sum, the JAX probe's
+# own bound, and the same bit for bit from launch to launch.
 SEGSUM_TOL = 1e-5
 
 
@@ -620,53 +636,17 @@ def _walked_frames(fw, wf, sspec, sparams, sort_rays, **kw):
                        for k in ("kernel", "plain")))
 
 
-def _wavefront_phase(fw, wf, mk, pf, spec, sp, scenes, all_counts, peak,
-                     gpu, ptxas):
-    """The wavefront bounce kernel: bit for bit its plain frame at
-    CHECK_W x CHECK_H on ``scenes``, compacted and sorted, with its
-    per-warp list figures (``walk_stats``) equal to the plain model's, and
-    at 1080p bit for bit K2's faithful exact frame and the plain frame that
-    counts the work; then its main path, the port's
-    benchmarks/frozen_wavefront.py.  Returns its kernels-line row."""
+def _wavefront_phase(fw, wf, pf, spec, sp, checked, all_counts, peak, gpu,
+                     ptxas):
+    """The wavefront bounce kernel's main path, the port's
+    benchmarks/frozen_wavefront.py, after its checks (``checked``,
+    ``_job_wavefront``'s result: at CHECK_W x CHECK_H and at 1080p, with the
+    plain frame's count of the work).  Returns its kernels-line row."""
     import torch
 
     from compute_path_tracer_tpu_torch.render.program import build_program
 
-    err = 0.0
-    kw = dict(bounces=BOUNCES, frame=1, last_clear=1)
-    for name, (sspec, sparams) in scenes:
-        for sort_rays in (False, True):
-            order = "sorted" if sort_rays else "compacted"
-            before = wf.LAUNCHES["wavefront_bounce"]
-            k, p, walk_k, walk_p = _walked_frames(
-                fw, wf, sspec, sparams, sort_rays, width=CHECK_W,
-                height=CHECK_H, **kw)
-            torch.cuda.synchronize()
-            if wf.LAUNCHES["wavefront_bounce"] - before != BOUNCES + 1:
-                raise AssertionError(f"wavefront {name}: not one launch a "
-                                     f"bounce")
-            err = max(err, _compare(f"wavefront {name} {order} {CHECK_W}x"
-                                    f"{CHECK_H}", k, p, exact=True)[1])
-            print(f"wavefront {name} {order} {CHECK_W}x{CHECK_H} per-warp "
-                  f"lists per bounce (summed length, lists): kernel {walk_k}, "
-                  f"plain model {walk_p}; mean "
-                  + ", ".join(f"{m:.2f}" for m in _walk_means(walk_k)))
-            if walk_k != walk_p:
-                raise AssertionError(f"wavefront {name} {order}: the "
-                                     f"per-warp lists differ from the plain "
-                                     f"model")
-    main = dict(width=MAIN_W, height=MAIN_H, **kw)
-    k = fw.render_frame_wavefront(spec, sp, **main)
-    k2 = mk.render_frame_megakernel(spec, sp, torch.zeros_like(k), **main)
-    count = {}
-    p, plain_ms = _plain_timed(lambda: fw.render_frame_wavefront(
-        spec, sp, count=count, **main))
-    _compare(f"wavefront {MAIN_W}x{MAIN_H} against K2's faithful exact frame",
-             k, k2, exact=True)
-    share, e = _compare(f"wavefront {MAIN_W}x{MAIN_H} against its plain frame",
-                        k, p, exact=True)
-    err = max(err, e)
-    del k, k2, p
+    count, plain_ms = checked["count"], checked["plain_ms"]
     prog = build_program(spec, "faithful")
     ops, n_bytes = pf.wavefront_work(count, prog)
     bound = pf.bound_ms(n_bytes, ops, peak)
@@ -689,8 +669,9 @@ def _wavefront_phase(fw, wf, mk, pf, spec, sp, scenes, all_counts, peak,
     return {"name": "wavefront_bounce", "route": "cuda",
             "source": "compute_path_tracer_tpu_torch/kernels/csrc/wavefront.cu",
             "replaces": "benchmarks/frozen_wavefront.py:182",
-            "launches": launches, "max_abs_err": err,
-            "main_shape_share_off": share, "ms": wave["bounce_kernels_ms"],
+            "launches": launches, "max_abs_err": checked["err"],
+            "main_shape_share_off": checked["share"],
+            "ms": wave["bounce_kernels_ms"],
             "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": None,
             "state": "redesigned, PR 16 (K2's per-warp walk of the staged "
@@ -708,11 +689,13 @@ def _wavefront_phase(fw, wf, mk, pf, spec, sp, scenes, all_counts, peak,
 
 
 def _grad_probe_phase(gp, pf, fbm, sgm, spec, sp, all_counts, peak, gpu,
-                      ptxas):
+                      ptxas, seg_sass):
     """fused_bwd at the probe's tile and over the 1080p frame, and segsum at
-    the probe's shape and K4's, against their plain versions; then each
-    measurement script's measure() as its main path.  Returns their
-    kernels-line rows."""
+    the probe's shape, K4's (ids uniform and clustered; two launches bit for
+    bit), S = 130 and C = 28 at two ragged n, and with non-finite
+    cotangents, against their plain versions; then each measurement
+    script's measure() as its main path.  Returns their kernels-line
+    rows."""
     import torch
 
     from compute_path_tracer_tpu_torch.render.baked import bake
@@ -754,8 +737,15 @@ def _grad_probe_phase(gp, pf, fbm, sgm, spec, sp, all_counts, peak, gpu,
                            pf.fused_bwd_ops(prog, table, ro, rd), peak)
     del ro, rd
     seg = {}
-    for label, shape in (("probe", sgm.PROBE), ("K4", sgm.k4_shape())):
-        idx, cot = sgm.inputs(shape, sp.device)
+    k4 = sgm.k4_shape()
+    ragged = dict(n_b=3, n_seg=130, n_ch=28, h=1)
+    for label, shape, clustered in (
+            ("probe", sgm.PROBE, False), ("K4", k4, False),
+            ("K4 clustered", k4, True), ("S 130 C 28 n 12347",
+                                         dict(ragged, w=12347), False),
+            ("S 130 C 28 n 12344", dict(ragged, w=12344), False)):
+        idx, cot = (sgm.inputs_clustered if clustered else sgm.inputs)(
+            shape, sp.device)
         before = gp.LAUNCHES["segsum"]
         got = gp.segsum(idx, cot, shape["n_seg"])
         ref = gp.segsum_plain(idx, cot.double(), shape["n_seg"])
@@ -763,16 +753,26 @@ def _grad_probe_phase(gp, pf, fbm, sgm, spec, sp, all_counts, peak, gpu,
                                                      shape["n_seg"]))
         if gp.LAUNCHES["segsum"] - before != 1:
             raise AssertionError(f"segsum {label} did not launch once")
+        again = (bool(torch.equal(got, gp.segsum(idx, cot, shape["n_seg"])))
+                 if label == "K4" else None)
         err = float((got.double() - ref).abs().max())
         rel = err / float(ref.abs().max())
         seg[label] = dict(err=err, rel=rel, plain_ms=ms, bound=pf.bound_ms(
             pf.segsum_bytes(shape["n_b"], shape["h"] * shape["w"],
-                            shape["n_ch"], shape["n_seg"]), 0.0, peak))
+                            shape["n_ch"], shape["n_seg"]), 0.0, peak),
+            plan=gp.segsum_plan(shape["n_b"], shape["h"] * shape["w"],
+                                shape["n_seg"], shape["n_ch"],
+                                gp.sm_count(sp.device))._asdict())
         print(f"check segsum {label} {shape}: max |diff| {err:.3e}, of max "
-              f"|ref| {rel:.3e} (limit {SEGSUM_TOL}); plain {ms:.2f} ms")
-        if rel > SEGSUM_TOL or not bool(torch.isfinite(got).all()):
+              f"|ref| {rel:.3e} (limit {SEGSUM_TOL}); plain {ms:.2f} ms; "
+              f"plan {seg[label]['plan']}"
+              + (f"; a second launch bit for bit the first: {again}"
+                 if again is not None else ""))
+        if rel > SEGSUM_TOL or not bool(torch.isfinite(got).all()) \
+                or again is False:
             raise AssertionError(f"segsum {label}")
         del idx, cot, got, ref
+    seg_nonfinite = _segsum_nonfinite(gp, sp.device)
     runs = {}
     for name, mod, key, allowed in (
             ("probe_fused_bwd", fbm, "fused_bwd", ("train_fused",)),
@@ -817,10 +817,19 @@ def _grad_probe_phase(gp, pf, fbm, sgm, spec, sp, all_counts, peak, gpu,
          "ms": sgo["K4"]["ms"], "plain_ms": seg["K4"]["plain_ms"],
          "bound_ms": seg["K4"]["bound"][0], "bound_by": seg["K4"]["bound"][1],
          "library_ms": sgo["K4"]["index_add_ms"],
+         "state": "redesigned, PR 19 (one-hot TF32 products on the tensor "
+                  "cores, mma.sync, a fixed-order reduce, no global atomics)",
          "probe_shape": {"ms": sgo["probe"]["ms"],
                          "plain_ms": seg["probe"]["plain_ms"],
                          "bound_ms": seg["probe"]["bound"][0],
-                         "library_ms": sgo["probe"]["index_add_ms"]}}]
+                         "library_ms": sgo["probe"]["index_add_ms"]},
+         "k4_clustered": {"ms": sgo["K4 clustered"]["ms"],
+                          "plain_ms": seg["K4 clustered"]["plain_ms"],
+                          "library_ms": sgo["K4 clustered"]["index_add_ms"]},
+         "plans": {k: r["plan"] for k, r in seg.items()},
+         "nonfinite": seg_nonfinite,
+         "ptxas": {k: v for k, v in ptxas.items() if "segsum" in k},
+         "sass": seg_sass}]
 
 
 def _short(name):
@@ -875,8 +884,9 @@ def _ptxas_k1(build):
 def _ptxas_probes(build):
     """ptxas's figures of the bf16 march (bf16_march<V>), the dense and ILP
     probes (march_dense, march_ilp_seq, march_ilp_fused), the wavefront's
-    bounce (wavefront_bounce), the box transforms (mxu_scalar, mxu_tensor)
-    and fused-bwd (fused_bwd), printed; returns them by short name."""
+    bounce (wavefront_bounce), the box transforms (mxu_scalar, mxu_tensor),
+    fused-bwd (fused_bwd) and the segment sum (segsum<MT, TS>,
+    segsum_reduce), printed; returns them by short name."""
     import re
 
     figs = {}
@@ -884,6 +894,9 @@ def _ptxas_probes(build):
         m = re.search(r"bf16_marchILi(\d)E", k)
         if m:
             figs[f"bf16_march<{m.group(1)}>"] = v
+        m = re.search(r"segsumILi(\d)ELi(\d)E|(segsum_reduce)", k)
+        if m:
+            figs[m.group(3) or f"segsum<{m.group(1)},{m.group(2)}>"] = v
         for name in ("march_dense", "march_capped", "march_ilp_seq",
                      "march_ilp_fused", "wavefront_bounce", "mxu_scalar",
                      "mxu_tensor", "fused_bwd"):
@@ -893,9 +906,9 @@ def _ptxas_probes(build):
         print(f"ptxas {k}: {v['registers']} registers, {v.get('stack', 0)} "
               f"bytes stack frame, {v.get('spill_stores', 0)} bytes spill "
               f"stores, {v.get('spill_loads', 0)} bytes spill loads")
-    if len(figs) != 11:
+    if len(figs) != 16:
         raise AssertionError(f"ptxas figures of {len(figs)} probe kernels, "
-                             f"expected 11")
+                             f"expected 16")
     return figs
 
 
@@ -1000,6 +1013,81 @@ def _gather_sass(build):
             or arith.get("CALL", 1) or arith.get("MUFU", 0) < 12):
         raise AssertionError(f"SASS of the gather kernels: {out}")
     return out
+
+
+def _segsum_sass(build):
+    """The segment sum's SASS (segsum<MT, TS>, segsum_reduce): counts of its
+    tensor-core products (HMMA), atomics (ATOM*, RED*), copies (LDGSTS) and
+    barriers (BAR), by whole opcode, printed; raises unless each segsum<MT,
+    TS> issues HMMA.1688.F32.TF32 (mma.sync TF32) and no kernel of the sum
+    issues an atomic other than a shared-memory one (ATOMS), the scalar
+    path's."""
+    import re
+
+    out = {}
+    for name, code in build.sass().items():
+        m = re.search(r"segsumILi(\d)ELi(\d)E|(segsum_reduce)", name)
+        if not m:
+            continue
+        key = m.group(3) or f"segsum<{m.group(1)},{m.group(2)}>"
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", i).split()[0] for i in code]
+        out[key] = {o: ops.count(o) for o in sorted(set(ops))
+                    if re.match(r"HMMA|ATOM|RED|LDGSTS|BAR", o)}
+        print(f"SASS {key}: {out[key]}")
+    sums = [k for k in out if k.startswith("segsum<")]
+    far = [o for v in out.values() for o in v
+           if o.startswith("RED") or (o.startswith("ATOM")
+                                      and not o.startswith("ATOMS"))]
+    if (len(sums) != 4 or "segsum_reduce" not in out or far
+            or any(out[k].get("HMMA.1688.F32.TF32", 0) < 64 for k in sums)
+            or any(o.startswith("ATOM") for o in out["segsum_reduce"])):
+        raise AssertionError(f"SASS of the segment sum: {out}")
+    return out
+
+
+def _segsum_nonfinite(gp, dev):
+    """The segment sum with NaN and +-inf on dropped and kept lanes, and
+    with two cotangents past TF32's overflow on kept lanes: its non-finite
+    entries must be the plain version's (NaN for NaN, each infinity with its
+    sign), its finite ones within SEGSUM_TOL of a float64 sum (of max |ref|;
+    past the overflow, of each entry)."""
+    import numpy as np
+    import torch
+
+    r = np.random.default_rng(11)
+    idx = r.integers(-1, 64, size=(2, 3000)).astype(np.int32)
+    cot = r.normal(size=(2, 13, 3000)).astype(np.float32)
+    bad = (np.nan, np.inf, -np.inf)
+    drop, keep = np.argwhere(idx < 0), np.argwhere(idx >= 0)
+    for k, (b, i) in enumerate(drop[:6]):
+        cot[b, k % 13, i] = bad[k % 3]
+    for k, (b, i) in enumerate(keep[:6]):
+        cot[b, (3 * k) % 13, i] = bad[k % 3]
+    rows = {}
+    for label, big in (("NaN and inf", ()),
+                       ("past the TF32 overflow", (np.finfo(np.float32).max,
+                                                   -3.39e38))):
+        c = cot.copy()
+        for (b, i), v in zip(keep[6:], big):
+            c[b, 2, i] = v
+        it, ct = torch.from_numpy(idx).to(dev), torch.from_numpy(c).to(dev)
+        got = gp.segsum(it, ct, 64)
+        plain = gp.segsum_plain(it, ct, 64)
+        ref = gp.segsum_plain(it, ct.double(), 64)
+        same = all(bool(torch.equal(f(got), f(plain))) for f in
+                   (torch.isnan, torch.isposinf, torch.isneginf))
+        fin = torch.isfinite(plain)
+        diff = (got.double() - ref)[fin].abs()
+        rel = float((diff / torch.clamp(ref[fin].abs(), min=1.0)).max()
+                    if big else diff.max() / ref[fin].abs().max())
+        rows[label] = dict(nonfinite_equal=same, rel=rel,
+                           nonfinite=int((~fin).sum()))
+        print(f"check segsum {label} on kept and dropped lanes: non-finite "
+              f"entries ({int((~fin).sum())}) the plain version's: {same}; "
+              f"finite entries within {rel:.3e} (limit {SEGSUM_TOL})")
+        if not same or rel > SEGSUM_TOL:
+            raise AssertionError(f"segsum {label}")
+    return rows
 
 
 def _bf16_root_check(hp, dev):
@@ -1607,7 +1695,7 @@ def _k4_band_check(tm, spec, params, dev):
     from compute_path_tracer_tpu_torch.constants import DEFAULT_FOV
 
     row0, crop = 92, 84
-    mode = tm.FusedMode(BOUNCES, True, True, True)
+    mode = tm.FusedMode(CHECK_BOUNCES, True, True, True)
     tables = tm.fused_tables(spec, params)
     target = torch.from_numpy(np.random.default_rng(4).random(
         (3, crop, CHECK_W)).astype(np.float32) * 0.3).to(dev)
@@ -1624,101 +1712,629 @@ def _k4_band_check(tm, spec, params, dev):
     _k4_lists(name, *ws, mode.b1)
 
 
-def _k4_check_cases(dev):
-    """K4 against its plain version at CHECK_W x CHECK_H (``_k4_checks``'
-    cases and the band check); returns (max |gradient diff| of the march and
-    analytic_all cases, of the analytic_unboxed cases)."""
+def _k4_check_cases(dev, unboxed):
+    """K4 against its plain version at CHECK_W x CHECK_H (``_k4_checks``):
+    the march and analytic_all cases, or with ``unboxed`` the
+    analytic_unboxed cases and the band check.  Returns the max |gradient
+    diff| over the cases."""
     from compute_path_tracer_tpu_torch.kernels import train as tm
-    from compute_path_tracer_tpu_torch.scene import (
-        benchmark_scene, compile_scene, csg_demo, edge_demo,
-        params_from_numpy, sphere_and_plane)
 
-    def compiled(scene):
-        cs = compile_scene(scene)
-        return cs.spec, params_from_numpy(cs.params, cs.spec, dev)
-
-    bench, csg = compiled(benchmark_scene(N_PRIMS)), compiled(csg_demo())
-    sap, cube = compiled(sphere_and_plane()), compiled(_cube_scene())
-    edge_sc = compiled(edge_demo())
-    k4_err = _k4_checks(tm, (
-        ("K4 winner, march, sphere_and_plane", sap, {}, 2),
-        ("K4 winner, march + edge + secondary, sphere_and_plane", sap,
-         dict(edge_grad=True, edge_secondary=True), 2),
-        ("K4 winner, march", bench, {}, BOUNCES),
-        ("K4 winner, march + edge", bench, dict(edge_grad=True), BOUNCES),
-        ("K4 winner, march + edge + secondary", bench,
-         dict(edge_grad=True, edge_secondary=True), BOUNCES),
-        ("K4 winner, analytic_all + edge", bench, FUSED_MAIN, BOUNCES),
-        ("K4 winner, analytic_all + edge, spp 2", bench,
-         dict(FUSED_MAIN, spp=2), BOUNCES),
-        ("K4 map-vjp csg_demo, march", csg, {}, BOUNCES),
-        ("K4 map-vjp csg_demo, march + edge + secondary", csg,
-         dict(edge_grad=True, edge_secondary=True), BOUNCES),
-        ("K4 edge_demo, bounces 0 + edge", edge_sc, dict(edge_grad=True), 0),
-    ), dev)
+    bench, csg = _scene("bench", dev), _scene("csg", dev)
+    if not unboxed:
+        sap = _scene("sap", dev)
+        return _k4_checks(tm, (
+            ("K4 winner, march, sphere_and_plane", sap, {}, 2),
+            ("K4 winner, march + edge + secondary, sphere_and_plane", sap,
+             dict(edge_grad=True, edge_secondary=True), 2),
+            ("K4 winner, march", bench, {}, CHECK_BOUNCES),
+            ("K4 winner, march + edge", bench, dict(edge_grad=True), CHECK_BOUNCES),
+            ("K4 winner, march + edge + secondary", bench,
+             dict(edge_grad=True, edge_secondary=True), CHECK_BOUNCES),
+            ("K4 winner, analytic_all + edge", bench, FUSED_MAIN, CHECK_BOUNCES),
+            ("K4 winner, analytic_all + edge, spp 2", bench,
+             dict(FUSED_MAIN, spp=2), CHECK_BOUNCES),
+            ("K4 map-vjp csg_demo, march", csg, {}, CHECK_BOUNCES),
+            ("K4 map-vjp csg_demo, march + edge + secondary", csg,
+             dict(edge_grad=True, edge_secondary=True), CHECK_BOUNCES),
+            ("K4 edge_demo, bounces 0 + edge", _scene("edge", dev),
+             dict(edge_grad=True), 0),
+        ), dev)
     k4b_err = _k4_checks(tm, (
-        ("K4 winner, analytic_unboxed", bench, FUSED_UNBOXED, BOUNCES),
+        ("K4 winner, analytic_unboxed", bench, FUSED_UNBOXED, CHECK_BOUNCES),
         ("K4 winner, analytic_unboxed + edge", bench,
-         dict(FUSED_UNBOXED, edge_grad=True), BOUNCES),
+         dict(FUSED_UNBOXED, edge_grad=True), CHECK_BOUNCES),
         ("K4 winner, analytic_unboxed + edge + secondary", bench,
-         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), BOUNCES),
-        ("K4 map-vjp csg_demo, analytic_unboxed", csg, FUSED_UNBOXED, BOUNCES),
+         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), CHECK_BOUNCES),
+        ("K4 map-vjp csg_demo, analytic_unboxed", csg, FUSED_UNBOXED, CHECK_BOUNCES),
         # Images bit-equal to the plain version's, so the tight gates hold
         # the secondary exclusion march over the skipped shapes: every shape
         # of the cube scene is skipped, csg_demo's plane and lamp are.
         ("K4 winner guard-less cube, analytic_unboxed + edge + secondary",
-         cube, dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True),
-         BOUNCES),
+         _scene("cube", dev),
+         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), CHECK_BOUNCES),
         ("K4 map-vjp csg_demo, analytic_unboxed + edge + secondary", csg,
-         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), BOUNCES),
+         dict(FUSED_UNBOXED, edge_grad=True, edge_secondary=True), CHECK_BOUNCES),
     ), dev)
     _k4_band_check(tm, *bench, dev)
-    return k4_err, k4b_err
+    return k4b_err
 
 
-# The K4 checks at CHECK_W x CHECK_H run in a process of their own (this
-# script with K4_CHILD), started after the build beside the kernel checks of
-# K1-K6 and joined before the first timed phase: both are host-bound plain
-# passes, and together they took a third of the script's time.
-K4_CHILD = "--k4-checks"
-
-
-def _k4_child() -> int:
-    """K4_CHILD's process: ``_k4_check_cases`` on the card, its result as
-    a JSON last line."""
+def _d4_check_cases(dev):
+    """debug 4 (K2's STATS kernel) against the plain reducer at CHECK_W x
+    CHECK_H: every channel bit for bit, over geometry, t_cull and
+    analytic_unboxed on four scenes, and partial warps at D4_PARTIAL.
+    Returns the max |diff|."""
     import torch
 
-    t0 = time.perf_counter()
-    k4_err, k4b_err = _k4_check_cases(torch.device("cuda"))
-    print(json.dumps({"k4_err": k4_err, "k4b_err": k4b_err,
-                      "seconds": time.perf_counter() - t0}))
+    from compute_path_tracer_tpu_torch.kernels import megakernel as mk
+
+    bench, csg = _scene("bench", dev), _scene("csg", dev)
+    sap, cube = _scene("sap", dev), _scene("cube", dev)
+    d4_cases = []
+    for name, scene, modes in (
+            (f"benchmark_scene({N_PRIMS})", bench,
+             (MARCH, UNBOXED, dict(geometry="faithful", t_cull=True),
+              dict(geometry="baked"))),
+            ("csg_demo, subtraction", csg,
+             (MARCH, UNBOXED, dict(geometry="faithful", t_cull=True),
+              dict(geometry="faithful"))),
+            ("guard-less cube", cube, (MARCH, UNBOXED)),
+            ("sphere_and_plane", sap, (MARCH, UNBOXED))):
+        for mode in modes:
+            d4_cases.append((f"K2 debug 4 {name} {mode}", scene,
+                             dict(mode, bounces=CHECK_BOUNCES, debug=4), None,
+                             SHARE_LIMIT))
+    d4_err = _check_cases(mk, "megakernel_march", d4_cases)
+    pw, ph = D4_PARTIAL
+    kw = dict(width=pw, height=ph, bounces=CHECK_BOUNCES, debug=4, **MARCH)
+    before = mk.LAUNCHES["megakernel_march"]
+    k = mk.render_frame_megakernel(*bench, **kw)
+    p = mk.render_frame_megakernel_plain(*bench, **kw)
+    torch.cuda.synchronize()
+    if mk.LAUNCHES["megakernel_march"] - before != 1:
+        raise AssertionError("debug 4 at the partial-warp size did not launch")
+    return max(d4_err, _compare(f"K2 debug 4 benchmark_scene({N_PRIMS}) "
+                                f"{pw}x{ph}, partial warps", k, p,
+                                exact=True)[1])
+
+
+_SCENES = {}
+
+
+def _scene(name, dev):
+    """The checks' scenes by name, compiled once per process: (spec, params
+    on ``dev``); the params are those a RenderSession of the scene holds."""
+    if name not in _SCENES:
+        from compute_path_tracer_tpu_torch.scene import (
+            benchmark_scene, blend_demo, compile_scene, csg_demo, edge_demo,
+            glass_demo, params_from_numpy, sphere_and_plane)
+
+        make = {"bench": lambda: benchmark_scene(N_PRIMS),
+                "walk": lambda: benchmark_scene(WALK_PRIMS),
+                "soa256": lambda: benchmark_scene(256),
+                "soa512": lambda: benchmark_scene(512),
+                "csg": csg_demo, "blend": blend_demo, "glass": glass_demo,
+                "clobber": _clobber_scene, "cube": _cube_scene,
+                "sap": sphere_and_plane, "edge": edge_demo}[name]
+        cs = compile_scene(make())
+        _SCENES[name] = (cs.spec, params_from_numpy(cs.params, cs.spec, dev))
+    return _SCENES[name]
+
+
+def _prior(dev):
+    """The seeded running mean that the frame-3 checks accumulate onto."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    return torch.rand((CHECK_H, CHECK_W, 3), generator=gen).to(dev)
+
+
+def _job_k2(dev, part):
+    """K2 against its plain version at CHECK_W x CHECK_H: faithful and baked
+    geometry, subtraction, smooth union, refraction, the first-shape
+    clobber, debug 0-3, a running mean and benchmark_scene(WALK_PRIMS); every
+    other case from ``part`` (0 or 1)."""
+    from compute_path_tracer_tpu_torch.kernels import megakernel as mk
+
+    csg, blend = _scene("csg", dev), _scene("blend", dev)
+    cases = []
+    for name, scene, mode in (
+            ("csg_demo faithful", csg, dict(geometry="faithful")),
+            ("csg_demo baked", csg, dict(geometry="baked")),
+            ("blend_demo baked", blend, dict(geometry="baked")),
+            ("glass_demo baked, refraction", _scene("glass", dev),
+             dict(geometry="baked")),
+            ("clobber scene baked", _scene("clobber", dev),
+             dict(geometry="baked")),
+            (f"benchmark_scene({N_PRIMS}) baked t_cull", _scene("bench", dev),
+             MARCH)):
+        for debug in (0, 1, 2, 3):
+            cases.append((f"K2 {name} debug {debug}", scene,
+                          dict(mode, bounces=CHECK_BOUNCES, debug=debug), None,
+                          SHARE_LIMIT))
+    cases.append(("K2 csg_demo faithful t_cull frame 3, running mean", csg,
+                  dict(geometry="faithful", t_cull=True, bounces=CHECK_BOUNCES,
+                       frame=3, last_clear=3), _prior(dev), SHARE_LIMIT))
+    cases.append((f"K2 benchmark_scene({WALK_PRIMS}) baked t_cull",
+                   _scene("walk", dev), dict(MARCH, bounces=CHECK_BOUNCES), None,
+                   SHARE_LIMIT))
+    return {"k2_err": _check_cases(mk, "megakernel_march", cases[part::2])}
+
+
+def _job_k2b_k5(dev):
+    """K2b (analytic_unboxed, omega) and K5 (analytic_soa) against their
+    plain versions at CHECK_W x CHECK_H; omega=1.0 the march without it;
+    K5 at 64 primitives bit for bit K1's analytic_all frame."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.kernels import megakernel as mk
+
+    bench, csg = _scene("bench", dev), _scene("csg", dev)
+    cases = []
+    for name, scene in ((f"benchmark_scene({N_PRIMS})", bench),
+                        ("csg_demo, subtraction tree", csg),
+                        ("guard-less cube", _scene("cube", dev)),
+                        ("clobber scene", _scene("clobber", dev))):
+        for debug in (0, 3):
+            cases.append((f"K2b analytic_unboxed {name} debug {debug}",
+                          scene, dict(UNBOXED, bounces=CHECK_BOUNCES, debug=debug),
+                          None, SHARE_LIMIT))
+    k2b_err = _check_cases(mk, "megakernel_march", cases)
+    k2b_err = max(k2b_err, _check_cases(mk, "megakernel_march", (
+        (f"K2b omega {OMEGA} benchmark_scene({N_PRIMS}) baked t_cull", bench,
+         dict(MARCH, omega=OMEGA, bounces=CHECK_BOUNCES), None, SHARE_LIMIT),
+        (f"K2b omega {OMEGA} csg_demo faithful t_cull", csg,
+         dict(geometry="faithful", t_cull=True, omega=OMEGA,
+              bounces=CHECK_BOUNCES), None, SHARE_LIMIT),
+        (f"K2b omega {OMEGA} + analytic_unboxed csg_demo", csg,
+         dict(UNBOXED, omega=OMEGA, bounces=CHECK_BOUNCES), None, SHARE_LIMIT))))
+    # omega=1.0 is the march without over-relaxation: K2's frame, and on
+    # csg_demo, where K2 is its plain version bit for bit, the plain frame.
+    for name, (sspec, sparams), mode in (
+            (f"benchmark_scene({N_PRIMS}) baked", bench, MARCH),
+            ("csg_demo baked", csg, MARCH),
+            ("csg_demo faithful", csg, dict(geometry="faithful", t_cull=True))):
+        kw = dict(width=CHECK_W, height=CHECK_H, bounces=CHECK_BOUNCES, **mode)
+        one = mk.render_frame_megakernel(sspec, sparams, omega=1.0, **kw)
+        ref = (mk.render_frame_megakernel_plain if name.startswith("csg")
+               else mk.render_frame_megakernel)(sspec, sparams, **kw)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(one, ref))
+        print(f"check K2 omega=1.0 {name} t_cull against the "
+              f"{'plain' if name.startswith('csg') else 'K2'} frame without "
+              f"omega: {'bit-equal' if equal else 'DIFFERENT'}")
+        if not equal:
+            raise AssertionError(f"omega=1.0 changed the {name} frame")
+
+    k5_err = {n: _check_cases(mk, "megakernel_analytic", (
+        (f"K5 analytic_soa benchmark_scene({n})", _scene(f"soa{n}", dev),
+         dict(SOA, bounces=CHECK_BOUNCES), None, SHARE_LIMIT),)) for n in SOA_PRIMS}
+    soa64 = mk.render_frame_megakernel(*bench, width=CHECK_W, height=CHECK_H,
+                                       bounces=CHECK_BOUNCES, **SOA)
+    all64 = mk.render_frame_megakernel(*bench, width=CHECK_W, height=CHECK_H,
+                                       bounces=CHECK_BOUNCES, **ANALYTIC)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(soa64, all64))
+    print(f"check K5 analytic_soa against K1 analytic_all, benchmark_scene("
+          f"{N_PRIMS}) {CHECK_W}x{CHECK_H}: {'bit-equal' if equal else 'DIFFERENT'}")
+    if not equal:
+        raise AssertionError("analytic_soa is not analytic_all's frame")
+    return {"k2b_err": k2b_err, "k5_err": k5_err}
+
+
+def _job_k6(dev):
+    """K6 (dist_grid) against its plain version at CHECK_W x CHECK_H on four
+    scenes, with analytic_unboxed and with a zero grid_tau; omega ignored
+    under it; its frame against K2's; multi-frame accumulation through K1
+    and K2, bit for bit the frames one at a time."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.kernels import megakernel as mk
+
+    bench = _scene("bench", dev)
+    cases = []
+    for name, scene in ((f"benchmark_scene({N_PRIMS})", bench),
+                        ("csg_demo, subtraction", _scene("csg", dev)),
+                        ("blend_demo, smooth union", _scene("blend", dev)),
+                        ("sphere_and_plane, plane", _scene("sap", dev))):
+        for debug in (0, 3):
+            cases.append((f"K6 dist_grid {name} debug {debug}", scene,
+                          dict(GRID, bounces=CHECK_BOUNCES, debug=debug), None,
+                          SHARE_LIMIT))
+    cases.append((f"K6 dist_grid + analytic_unboxed benchmark_scene("
+                  f"{N_PRIMS})", bench, dict(GRID, analytic_unboxed=True,
+                                             bounces=CHECK_BOUNCES), None,
+                  SHARE_LIMIT))
+    # With a zero shell no ray takes an exact tap: those that reach a cell
+    # whose bound is 0 run out of iterations and take the full map's id.
+    cases.append(("K6 dist_grid grid_tau 0, edge_demo, out of iterations",
+                  _scene("edge", dev), dict(GRID, grid_tau=0.0,
+                                            bounces=CHECK_BOUNCES), None,
+                  SHARE_LIMIT))
+    k6_err = _check_cases(mk, "megakernel_march", cases)
+    kw = dict(width=CHECK_W, height=CHECK_H, bounces=CHECK_BOUNCES, **GRID)
+    g1 = mk.render_frame_megakernel(*bench, omega=1.0, **kw)
+    g16 = mk.render_frame_megakernel(*bench, omega=OMEGA, **kw)
+    k2_frame = mk.render_frame_megakernel(*bench, width=CHECK_W,
+                                          height=CHECK_H, bounces=CHECK_BOUNCES,
+                                          **MARCH)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(g1, g16))
+    print(f"check K6 omega {OMEGA} against omega 1.0 under dist_grid: "
+          f"{'bit-equal' if equal else 'DIFFERENT'}")
+    if not equal:
+        raise AssertionError("dist_grid did not ignore omega")
+    _compare(f"K6 dist_grid against K2 (t_cull alone), benchmark_scene("
+             f"{N_PRIMS}) {CHECK_W}x{CHECK_H}", g1, k2_frame)
+
+    # Multi-frame accumulation: ACC_FRAMES launches on one accumulator, bit
+    # for bit the frames one at a time, through K1 and through K2.
+    for key, mode in (("megakernel_analytic", ANALYTIC),
+                      ("megakernel_march", MARCH)):
+        kw = dict(width=CHECK_W, height=CHECK_H, bounces=CHECK_BOUNCES, **mode)
+        before = mk.LAUNCHES[key]
+        acc = mk.render_accumulated_megakernel(*bench, ACC_FRAMES, **kw)
+        torch.cuda.synchronize()
+        launched = mk.LAUNCHES[key] - before
+        one = None
+        for f in range(ACC_FRAMES):
+            one = mk.render_frame_megakernel(*bench, one, f, f, **kw)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(acc, one))
+        print(f"check render_accumulated_megakernel ({key}), {ACC_FRAMES} "
+              f"frames: {launched} launches, "
+              f"{'bit-equal' if equal else 'DIFFERENT'} to {ACC_FRAMES} "
+              f"render_frame_megakernel calls")
+        if not equal or launched != ACC_FRAMES:
+            raise AssertionError(f"render_accumulated_megakernel ({key})")
+    return {"k6_err": k6_err}
+
+
+def _job_k3(dev):
+    """K3 against its plain version on K3_RAYS scattered rays over three
+    scenes, both geometries, with and without t_cull and the normal, and on
+    K3_RAGGED rays (a partial warp)."""
+    from compute_path_tracer_tpu_torch.kernels import march as km
+    from compute_path_tracer_tpu_torch.render.program import (
+        build_program, program_table)
+
+    ro, rd = _scattered_rays(K3_RAYS, 1, dev)
+    err = 0.0
+    for sname, key in ((f"benchmark_scene({N_PRIMS})", "bench"),
+                       ("csg_demo", "csg"), ("blend_demo", "blend")):
+        sspec, sparams = _scene(key, dev)
+        for geometry in ("baked", "faithful"):
+            sprog = build_program(sspec, geometry)
+            for t_cull in (False, True):
+                stable = program_table(sprog, sparams, t_cull)
+                for with_normal in (False, True):
+                    err = max(err, _k3_check(
+                        km, f"K3 {sname} {geometry} t_cull={t_cull} "
+                        f"normal={with_normal}, {K3_RAYS} scattered rays",
+                        sprog, stable, ro, rd, t_cull, with_normal)[1])
+    ro, rd = _scattered_rays(K3_RAGGED, 2, dev)
+    spec, params = _scene("bench", dev)
+    sprog = build_program(spec, "baked")
+    err = max(err, _k3_check(
+        km, f"K3 benchmark_scene({N_PRIMS}) baked t_cull=True normal=True, "
+        f"{K3_RAGGED} scattered rays (a partial warp)", sprog,
+        program_table(sprog, params, True), ro, rd, True, True)[1])
+    return {"k3_err": err}
+
+
+def _job_grad(dev):
+    """The gradient of make_loss through K3 against the same with K3's
+    plain version (normals detached and through the kernel) and against
+    the plain march, render_image_diff through both marches, and the
+    implicit gradient of a loss on the hit distance, at CHECK_W x
+    CHECK_H."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.diff import render_image_diff
+    from compute_path_tracer_tpu_torch.kernels import march as km
+    from compute_path_tracer_tpu_torch.render.reference import camera_rays
+
+    spec, sp = _scene("bench", dev)
+    gkw = dict(geometry="baked")
+    with torch.no_grad():
+        target = render_image_diff(spec, sp, width=CHECK_W, height=CHECK_H,
+                                   bounces=GRAD_BOUNCES, march="kernel",
+                                   normals="detached", **gkw) * 0.9
+
+    def plain_k3(orig, *a, **kw):
+        return km.march_rays_plain(*a, **kw)
+
+    for normals in ("detached", "kernel"):
+        kernel = _grad(spec, sp, target, march="kernel",
+                       normals=normals, **gkw)
+        with _k3_swapped(km, plain_k3):
+            plain = _grad(spec, sp, target, march="kernel",
+                          normals=normals, **gkw)
+        _grad_compare(f"gradient through K3 vs its plain version, normals="
+                      f"{normals}, {CHECK_W}x{CHECK_H}, bounces "
+                      f"{GRAD_BOUNCES}", kernel, plain, GRAD_LOSS_REL,
+                      GRAD_TOP_REL, GRAD_COS)
+    exact = _grad(spec, sp, target, march="plain",
+                  normals="detached", **gkw)
+    kernel = _grad(spec, sp, target, march="kernel",
+                   normals="detached", **gkw)
+    _grad_compare(f"gradient march=kernel vs march=plain (exact), normals="
+                  f"detached, {CHECK_W}x{CHECK_H}", kernel, exact,
+                  float("inf"), float("inf"), EXACT_COS)
+    with torch.no_grad():
+        img_k = render_image_diff(spec, sp, width=CHECK_W, height=CHECK_H,
+                                  bounces=GRAD_BOUNCES, march="kernel", **gkw)
+        img_p = render_image_diff(spec, sp, width=CHECK_W, height=CHECK_H,
+                                  bounces=GRAD_BOUNCES, march="plain", **gkw)
+    _compare("render_image_diff march=kernel vs march=plain (exact)", img_k,
+             img_p)
+    # The renderer's loss never reads the hit distance (its radiance is a
+    # product of material constants), so autograd prunes the implicit
+    # backward from the training step; a loss on t exercises it.
+    with torch.no_grad():
+        ys, xs = torch.meshgrid(
+            torch.arange(CHECK_H, dtype=torch.int32, device=dev),
+            torch.arange(CHECK_W, dtype=torch.int32, device=dev), indexing="ij")
+        _, cro, crd = camera_rays(xs, ys, 0, 1.0, CHECK_W / CHECK_H,
+                                  width=CHECK_W, height=CHECK_H)
+    kernel, _ = _hit_t_grad(km, spec, sp, cro, crd)
+    with _k3_swapped(km, plain_k3):
+        plain, _ = _hit_t_grad(km, spec, sp, cro, crd)
+    _grad_compare(f"implicit gradient of sum(w t) through K3 vs its plain "
+                  f"version, {CHECK_W}x{CHECK_H} primary rays", kernel, plain,
+                  GRAD_LOSS_REL, GRAD_TOP_REL, GRAD_COS)
+    return {}
+
+
+def _job_k2_main(dev):
+    """K2 at the main path's shape against the plain pass that counts its
+    work and takes debug 4's statistics; debug 4 at that shape against
+    those statistics.  Returns the checks' figures, the count, the plain
+    model's per-warp lists and debug 4's per-warp and per-lane sums."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.app import profiling as pf
+    from compute_path_tracer_tpu_torch.kernels import megakernel as mk
+
+    spec, sp = _scene("bench", dev)
+    count, stats = {}, mk.MarchStats()
+    share, err, plain_ms = _main_shape_check(
+        mk, "megakernel_march", spec, sp, MARCH, count=count, stats=stats)
+    before = mk.LAUNCHES["megakernel_march"]
+    d4 = mk.render_frame_megakernel(spec, sp, None, 0, 0, width=MAIN_W,
+                                    height=MAIN_H, bounces=BOUNCES, debug=4,
+                                    **MARCH)
+    torch.cuda.synchronize()
+    if mk.LAUNCHES["megakernel_march"] - before != 1:
+        raise AssertionError("debug 4 at 1080p did not launch K2")
+    d4_share, d4_err = _compare(f"K2 debug 4 {MAIN_W}x{MAIN_H}, bounces "
+                                f"{BOUNCES} frame 0, against the plain pass",
+                                d4, stats.image(), exact=True)
+    return {"share": share, "err": err, "plain_ms": plain_ms, "count": count,
+            "walk": stats.walk_lists().tolist(), "d4_share": d4_share,
+            "d4_err": d4_err, "warps": pf.group_stats(d4),
+            "lanes": stats.lanes_xyz.tolist()}
+
+
+def _job_k2b_main(dev):
+    """K2b (analytic_unboxed) at the main path's shape against the plain
+    pass that counts its work."""
+    from compute_path_tracer_tpu_torch.kernels import megakernel as mk
+
+    count = {}
+    share, err, plain_ms = _main_shape_check(
+        mk, "megakernel_march", *_scene("bench", dev), UNBOXED,
+        "K2b analytic_unboxed", count)
+    return {"share": share, "err": err, "plain_ms": plain_ms, "count": count}
+
+
+def _job_k6_main(dev):
+    """K6 (dist_grid) at the main path's shape against the plain pass that
+    counts its work; returns the plain model's per-warp lists too."""
+    from compute_path_tracer_tpu_torch.kernels import megakernel as mk
+
+    count, stats = {}, mk.MarchStats()
+    share, err, plain_ms = _main_shape_check(
+        mk, "megakernel_march", *_scene("bench", dev), GRID, "K6 dist_grid",
+        count, stats)
+    return {"share": share, "err": err, "plain_ms": plain_ms, "count": count,
+            "walk": stats.walk_lists().tolist()}
+
+
+def _job_k4b_main(dev):
+    """K4's analytic_unboxed step at the main path's shape against its plain
+    step, which counts the work (``_k4_main_check``)."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.kernels import train as tm
+
+    target0 = torch.zeros((MAIN_H, MAIN_W, 3), device=dev)
+    share, err, plain_ms, count = _k4_main_check(
+        tm, *_scene("bench", dev), target0, "analytic_unboxed", FUSED_UNBOXED)
+    return {"share": share, "err": err, "plain_ms": plain_ms, "count": count}
+
+
+def _job_wavefront(dev):
+    """The wavefront bounce kernel: bit for bit its plain frame at CHECK_W x
+    CHECK_H on the benchmark scene and csg_demo, compacted and sorted, with
+    its per-warp list figures (``walk_stats``) equal to the plain model's,
+    and at 1080p bit for bit K2's faithful exact frame and the plain frame
+    that counts the work."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.benchmarks import frozen_wavefront as fw
+    from compute_path_tracer_tpu_torch.kernels import megakernel as mk
+    from compute_path_tracer_tpu_torch.kernels import wavefront as wf
+
+    err = 0.0
+    kw = dict(bounces=CHECK_BOUNCES, frame=1, last_clear=1)
+    for name, key in ((f"benchmark_scene({N_PRIMS})", "bench"),
+                      ("csg_demo", "csg")):
+        sspec, sparams = _scene(key, dev)
+        for sort_rays in (False, True):
+            order = "sorted" if sort_rays else "compacted"
+            before = wf.LAUNCHES["wavefront_bounce"]
+            k, p, walk_k, walk_p = _walked_frames(
+                fw, wf, sspec, sparams, sort_rays, width=CHECK_W,
+                height=CHECK_H, **kw)
+            torch.cuda.synchronize()
+            if wf.LAUNCHES["wavefront_bounce"] - before != CHECK_BOUNCES + 1:
+                raise AssertionError(f"wavefront {name}: not one launch a "
+                                     f"bounce")
+            err = max(err, _compare(f"wavefront {name} {order} {CHECK_W}x"
+                                    f"{CHECK_H}", k, p, exact=True)[1])
+            print(f"wavefront {name} {order} {CHECK_W}x{CHECK_H} per-warp "
+                  f"lists per bounce (summed length, lists): kernel {walk_k}, "
+                  f"plain model {walk_p}; mean "
+                  + ", ".join(f"{m:.2f}" for m in _walk_means(walk_k)))
+            if walk_k != walk_p:
+                raise AssertionError(f"wavefront {name} {order}: the "
+                                     f"per-warp lists differ from the plain "
+                                     f"model")
+    spec, sp = _scene("bench", dev)
+    main = dict(width=MAIN_W, height=MAIN_H, bounces=BOUNCES, frame=1,
+                last_clear=1)
+    k = fw.render_frame_wavefront(spec, sp, **main)
+    k2 = mk.render_frame_megakernel(spec, sp, torch.zeros_like(k), **main)
+    count = {}
+    p, plain_ms = _plain_timed(lambda: fw.render_frame_wavefront(
+        spec, sp, count=count, **main))
+    _compare(f"wavefront {MAIN_W}x{MAIN_H} against K2's faithful exact frame",
+             k, k2, exact=True)
+    share, e = _compare(f"wavefront {MAIN_W}x{MAIN_H} against its plain frame",
+                        k, p, exact=True)
+    return {"err": max(err, e), "share": share, "plain_ms": plain_ms,
+            "count": count}
+
+
+def _job_cli(dev):
+    """The CLI's ``optimize``, plain and with ``--fused --edge-grad``, each
+    in a process of its own; returns (label, exit code, output, errors) of
+    each."""
+    runs = []
+    for label, args in (
+            ("cli optimize --steps 10", ["--steps", "10"]),
+            ("cli optimize --fused --edge-grad --perturb-what position",
+             ["--fused", "--edge-grad", "--perturb-what", "position",
+              "--scene", "edge_demo", "--bounces", "0", "--perturb", "0.3",
+              "--steps", "40", "--width", "48", "--height", "48"])):
+        cli = subprocess.run(
+            [sys.executable, "-m", "compute_path_tracer_tpu_torch", "optimize",
+             *args], cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        runs.append((label, cli.returncode, cli.stdout, cli.stderr))
+    return {"runs": runs}
+
+
+def _job_k4(dev):
+    """``_k4_check_cases``' march and analytic_all cases."""
+    return {"k4_err": _k4_check_cases(dev, unboxed=False)}
+
+
+def _job_k4b(dev):
+    """``_k4_check_cases``' analytic_unboxed cases and the band check."""
+    return {"k4b_err": _k4_check_cases(dev, unboxed=True)}
+
+
+def _job_d4(dev):
+    """``_d4_check_cases``."""
+    return {"d4_err": _d4_check_cases(dev)}
+
+
+JOBS = {"k2 even": partial(_job_k2, part=0),
+        "k2 odd": partial(_job_k2, part=1),
+        "k2b and k5": _job_k2b_k5, "k6": _job_k6, "k3": _job_k3,
+        "gradients through k3": _job_grad, "k4": _job_k4, "k4b": _job_k4b,
+        "debug 4": _job_d4, "k2 1080p": _job_k2_main,
+        "k2b 1080p": _job_k2b_main, "k6 1080p": _job_k6_main,
+        "k4b 1080p": _job_k4b_main, "wavefront": _job_wavefront,
+        "cli": _job_cli}
+# The kernel-vs-plain checks run in CHECK_WORKERS processes of this script
+# (CHECK_WORKER), one a group, all started after the build and joined before
+# the first timed phase, so no timing overlaps them: they are host-bound
+# plain passes (the card is mostly idle under each), and one after another
+# they took most of the script's time.  The groups balance the jobs' times
+# on the card (each job prints its own).
+CHECK_WORKER = "--check-worker"
+CHECK_WORKERS = (("k4", "cli"), ("k4b", "k3"), ("debug 4", "k4b 1080p"),
+                 ("k2 even", "k2 1080p"), ("k2 odd", "gradients through k3"),
+                 ("k2b and k5", "k6 1080p"), ("k6", "k2b 1080p"),
+                 ("wavefront",))
+
+
+def _to_host(obj):
+    """``obj`` with every tensor in it moved to the host, for the pickle."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu()
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def _check_worker(out, names) -> int:
+    """CHECK_WORKER's process: the jobs ``names`` on the card one after
+    another, each one's time printed, their results pickled to ``out``."""
+    import pickle
+
+    import torch
+
+    dev = torch.device("cuda")
+    results = {}
+    for name in names:
+        t0 = time.perf_counter()
+        results[name] = _to_host(JOBS[name](dev))
+        torch.cuda.synchronize()
+        print(f"[job {name}: {time.perf_counter() - t0:.1f} s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB]",
+              flush=True)
+        torch.cuda.empty_cache()
+    with open(out, "wb") as f:
+        pickle.dump(results, f)
     return 0
 
 
-def _start_k4_child():
-    """Starts K4_CHILD's process, its output to a temporary file; it is
-    killed at exit if it still runs."""
+def _start_workers():
+    """Starts one CHECK_WORKER process a group of CHECK_WORKERS, its output
+    to a temporary file; each is killed at exit if it still runs."""
     import atexit
 
-    log = tempfile.TemporaryFile(mode="w+")
-    child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                              K4_CHILD], stdout=log,
-                             stderr=subprocess.STDOUT, text=True)
-    atexit.register(lambda: child.poll() is None and child.kill())
-    return child, log
+    tmp = tempfile.TemporaryDirectory()
+    atexit.register(tmp.cleanup)
+    workers = []
+    for i, names in enumerate(CHECK_WORKERS):
+        log = tempfile.TemporaryFile(mode="w+")
+        out = os.path.join(tmp.name, f"worker{i}.pickle")
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), CHECK_WORKER, out,
+             *names], stdout=log, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, OMP_NUM_THREADS="1"))
+        atexit.register(lambda c=child: c.poll() is None and c.kill())
+        workers.append((names, child, log, out))
+    return workers
 
 
-def _join_k4_child(child, log):
-    """Waits for K4_CHILD's process, prints its output and returns its
-    result; raises if it failed."""
-    rc = child.wait()
-    log.seek(0)
-    out = log.read()
-    log.close()
-    print(out, end="", flush=True)
-    if rc != 0:
-        raise AssertionError(f"the K4 checks' process failed ({rc})")
-    return json.loads(out.strip().splitlines()[-1])
+def _join_workers(workers):
+    """Waits for every worker, prints its output and returns the jobs'
+    results by name; raises if one failed (the others are killed at
+    exit)."""
+    import pickle
+
+    results = {}
+    for names, child, log, out in workers:
+        rc = child.wait()
+        log.seek(0)
+        print(f"-- check worker {', '.join(names)} (exit {rc}):", flush=True)
+        print(log.read(), end="", flush=True)
+        log.close()
+        if rc != 0:
+            raise AssertionError(f"the check worker {names} failed ({rc})")
+        with open(out, "rb") as f:
+            results.update(pickle.load(f))
+    return results
 
 
 def _edge_cull_count(spec, params, dev):
@@ -1835,8 +2451,8 @@ def main() -> int:
     start = time.perf_counter()
     import torch
 
-    if sys.argv[1:] == [K4_CHILD]:
-        return _k4_child()
+    if sys.argv[1:2] == [CHECK_WORKER]:
+        return _check_worker(sys.argv[2], sys.argv[3:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; run this on an NVIDIA GPU",
               file=sys.stderr)
@@ -1874,8 +2490,7 @@ def main() -> int:
     from compute_path_tracer_tpu_torch.render.soa import (
         build_soa_smem_layout, pack_soa_smem)
     from compute_path_tracer_tpu_torch.scene import (
-        benchmark_scene, blend_demo, compile_scene, csg_demo, edge_demo,
-        glass_demo, params_from_numpy, sphere_and_plane)
+        benchmark_scene, compile_scene, params_from_numpy)
 
     gpu = pf.gpu_line()
     dev = torch.device("cuda")
@@ -1894,17 +2509,13 @@ def main() -> int:
     bf16_sass = _bf16_sass(build)
     mxu_sass = _mxu_sass(build)
     gather_sass = _gather_sass(build)
-    k4_child = _start_k4_child()
+    seg_sass = _segsum_sass(build)
+    workers = _start_workers()
 
-    def compiled(scene):
-        cs = compile_scene(scene)
-        return cs.spec, params_from_numpy(cs.params, cs.spec, dev)
-
-    bench = compiled(benchmark_scene(N_PRIMS))
+    bench = _scene("bench", dev)
     spec = bench[0]
-    glass, clobber = compiled(glass_demo()), compiled(_clobber_scene())
-    gen = torch.Generator(device="cpu").manual_seed(0)
-    prior = torch.rand((CHECK_H, CHECK_W, 3), generator=gen).to(dev)
+    glass, clobber = _scene("glass", dev), _scene("clobber", dev)
+    prior = _prior(dev)
 
     _stamp(start, "K1 quotient")
     quotient = _quotient_phase(mk, ts, dev)
@@ -1936,179 +2547,14 @@ def main() -> int:
                                   exact=True)[1])
     del k, p
 
-    _stamp(start, "K2 checks")
-    # -- K2 against its plain version, on the card --------------------------
-    csg, blend = compiled(csg_demo()), compiled(blend_demo())
-    soa_scenes = {n: compiled(benchmark_scene(n)) for n in SOA_PRIMS}
-    k2_cases = []
-    for name, scene, mode in (
-            ("csg_demo faithful", csg, dict(geometry="faithful")),
-            ("csg_demo baked", csg, dict(geometry="baked")),
-            ("blend_demo baked", blend, dict(geometry="baked")),
-            ("glass_demo baked, refraction", glass, dict(geometry="baked")),
-            ("clobber scene baked", clobber, dict(geometry="baked")),
-            (f"benchmark_scene({N_PRIMS}) baked t_cull", bench, MARCH)):
-        for debug in (0, 1, 2, 3):
-            k2_cases.append((f"K2 {name} debug {debug}", scene,
-                             dict(mode, bounces=BOUNCES, debug=debug), None,
-                             SHARE_LIMIT))
-    k2_cases.append(("K2 csg_demo faithful t_cull frame 3, running mean", csg,
-                     dict(geometry="faithful", t_cull=True, bounces=BOUNCES,
-                          frame=3, last_clear=3), prior, SHARE_LIMIT))
-    k2_cases.append((f"K2 benchmark_scene({WALK_PRIMS}) baked t_cull",
-                     soa_scenes[WALK_PRIMS], dict(MARCH, bounces=BOUNCES),
-                     None, SHARE_LIMIT))
-    k2_err = _check_cases(mk, "megakernel_march", k2_cases)
-
-    _stamp(start, "K2b and K5 checks")
-    # -- K2b (analytic_unboxed, omega) and K5 (analytic_soa) against their
-    # plain versions, on the card --------------------------------------------
-    cube = compiled(_cube_scene())
-    sap = compiled(sphere_and_plane())
-    k2b_cases = []
-    for name, scene in ((f"benchmark_scene({N_PRIMS})", bench),
-                        ("csg_demo, subtraction tree", csg),
-                        ("guard-less cube", cube), ("clobber scene", clobber)):
-        for debug in (0, 3):
-            k2b_cases.append((f"K2b analytic_unboxed {name} debug {debug}",
-                              scene, dict(UNBOXED, bounces=BOUNCES,
-                                          debug=debug), None, SHARE_LIMIT))
-    k2b_err = _check_cases(mk, "megakernel_march", k2b_cases)
-    k2b_err = max(k2b_err, _check_cases(mk, "megakernel_march", (
-        (f"K2b omega {OMEGA} benchmark_scene({N_PRIMS}) baked t_cull", bench,
-         dict(MARCH, omega=OMEGA, bounces=BOUNCES), None, SHARE_LIMIT),
-        (f"K2b omega {OMEGA} csg_demo faithful t_cull", csg,
-         dict(geometry="faithful", t_cull=True, omega=OMEGA,
-              bounces=BOUNCES), None, SHARE_LIMIT),
-        (f"K2b omega {OMEGA} + analytic_unboxed csg_demo", csg,
-         dict(UNBOXED, omega=OMEGA, bounces=BOUNCES), None, SHARE_LIMIT))))
-    # omega=1.0 is the march without over-relaxation: K2's frame, and on
-    # csg_demo, where K2 is its plain version bit for bit, the plain frame.
-    for name, (sspec, sparams), mode in (
-            (f"benchmark_scene({N_PRIMS}) baked", bench, MARCH),
-            ("csg_demo baked", csg, MARCH),
-            ("csg_demo faithful", csg, dict(geometry="faithful", t_cull=True))):
-        kw = dict(width=CHECK_W, height=CHECK_H, bounces=BOUNCES, **mode)
-        one = mk.render_frame_megakernel(sspec, sparams, omega=1.0, **kw)
-        ref = (mk.render_frame_megakernel_plain if name.startswith("csg")
-               else mk.render_frame_megakernel)(sspec, sparams, **kw)
-        torch.cuda.synchronize()
-        equal = bool(torch.equal(one, ref))
-        print(f"check K2 omega=1.0 {name} t_cull against the "
-              f"{'plain' if name.startswith('csg') else 'K2'} frame without "
-              f"omega: {'bit-equal' if equal else 'DIFFERENT'}")
-        if not equal:
-            raise AssertionError(f"omega=1.0 changed the {name} frame")
-
-    k5_err = {n: _check_cases(mk, "megakernel_analytic", (
-        (f"K5 analytic_soa benchmark_scene({n})", soa_scenes[n],
-         dict(SOA, bounces=BOUNCES), None, SHARE_LIMIT),)) for n in SOA_PRIMS}
-    soa64 = mk.render_frame_megakernel(*bench, width=CHECK_W, height=CHECK_H,
-                                       bounces=BOUNCES, **SOA)
-    all64 = mk.render_frame_megakernel(*bench, width=CHECK_W, height=CHECK_H,
-                                       bounces=BOUNCES, **ANALYTIC)
-    torch.cuda.synchronize()
-    equal = bool(torch.equal(soa64, all64))
-    print(f"check K5 analytic_soa against K1 analytic_all, benchmark_scene("
-          f"{N_PRIMS}) {CHECK_W}x{CHECK_H}: {'bit-equal' if equal else 'DIFFERENT'}")
-    if not equal:
-        raise AssertionError("analytic_soa is not analytic_all's frame")
-    del soa64, all64
-
-    _stamp(start, "K6 checks and accumulation")
-    # -- K6 (dist_grid) against its plain version, on the card --------------
-    k6_cases = []
-    for name, scene in ((f"benchmark_scene({N_PRIMS})", bench),
-                        ("csg_demo, subtraction", csg),
-                        ("blend_demo, smooth union", blend),
-                        ("sphere_and_plane, plane", sap)):
-        for debug in (0, 3):
-            k6_cases.append((f"K6 dist_grid {name} debug {debug}", scene,
-                             dict(GRID, bounces=BOUNCES, debug=debug), None,
-                             SHARE_LIMIT))
-    k6_cases.append((f"K6 dist_grid + analytic_unboxed benchmark_scene("
-                     f"{N_PRIMS})", bench, dict(GRID, analytic_unboxed=True,
-                                                bounces=BOUNCES), None,
-                     SHARE_LIMIT))
-    # With a zero shell no ray takes an exact tap: those that reach a cell
-    # whose bound is 0 run out of iterations and take the full map's id.
-    k6_cases.append(("K6 dist_grid grid_tau 0, edge_demo, out of iterations",
-                     compiled(edge_demo()), dict(GRID, grid_tau=0.0,
-                                                 bounces=BOUNCES), None,
-                     SHARE_LIMIT))
-    k6_err = _check_cases(mk, "megakernel_march", k6_cases)
-    kw = dict(width=CHECK_W, height=CHECK_H, bounces=BOUNCES, **GRID)
-    g1 = mk.render_frame_megakernel(*bench, omega=1.0, **kw)
-    g16 = mk.render_frame_megakernel(*bench, omega=OMEGA, **kw)
-    k2_frame = mk.render_frame_megakernel(*bench, width=CHECK_W,
-                                          height=CHECK_H, bounces=BOUNCES,
-                                          **MARCH)
-    torch.cuda.synchronize()
-    equal = bool(torch.equal(g1, g16))
-    print(f"check K6 omega {OMEGA} against omega 1.0 under dist_grid: "
-          f"{'bit-equal' if equal else 'DIFFERENT'}")
-    if not equal:
-        raise AssertionError("dist_grid did not ignore omega")
-    _compare(f"K6 dist_grid against K2 (t_cull alone), benchmark_scene("
-             f"{N_PRIMS}) {CHECK_W}x{CHECK_H}", g1, k2_frame)
-    del g1, g16, k2_frame
-
-    # Multi-frame accumulation: ACC_FRAMES launches on one accumulator, bit
-    # for bit the frames one at a time, through K1 and through K2.
-    for key, mode in (("megakernel_analytic", ANALYTIC),
-                      ("megakernel_march", MARCH)):
-        kw = dict(width=CHECK_W, height=CHECK_H, bounces=BOUNCES, **mode)
-        before = mk.LAUNCHES[key]
-        acc = mk.render_accumulated_megakernel(*bench, ACC_FRAMES, **kw)
-        torch.cuda.synchronize()
-        launched = mk.LAUNCHES[key] - before
-        one = None
-        for f in range(ACC_FRAMES):
-            one = mk.render_frame_megakernel(*bench, one, f, f, **kw)
-        torch.cuda.synchronize()
-        equal = bool(torch.equal(acc, one))
-        print(f"check render_accumulated_megakernel ({key}), {ACC_FRAMES} "
-              f"frames: {launched} launches, "
-              f"{'bit-equal' if equal else 'DIFFERENT'} to {ACC_FRAMES} "
-              f"render_frame_megakernel calls")
-        if not equal or launched != ACC_FRAMES:
-            raise AssertionError(f"render_accumulated_megakernel ({key})")
-    del acc, one
-
-    _stamp(start, "debug 4 checks")
-    # -- debug 4 (K2's STATS kernel) against the plain reducer, on the card:
-    # every channel bit for bit, over geometry, t_cull and analytic_unboxed
-    # on four scenes, and partial warps at D4_PARTIAL.
-    d4_cases = []
-    for name, scene, modes in (
-            (f"benchmark_scene({N_PRIMS})", bench,
-             (MARCH, UNBOXED, dict(geometry="faithful", t_cull=True),
-              dict(geometry="baked"))),
-            ("csg_demo, subtraction", csg,
-             (MARCH, UNBOXED, dict(geometry="faithful", t_cull=True),
-              dict(geometry="faithful"))),
-            ("guard-less cube", cube, (MARCH, UNBOXED)),
-            ("sphere_and_plane", sap, (MARCH, UNBOXED))):
-        for mode in modes:
-            d4_cases.append((f"K2 debug 4 {name} {mode}", scene,
-                             dict(mode, bounces=BOUNCES, debug=4), None,
-                             SHARE_LIMIT))
-    d4_err = _check_cases(mk, "megakernel_march", d4_cases)
-    pw, ph = D4_PARTIAL
-    kw = dict(width=pw, height=ph, bounces=BOUNCES, debug=4, **MARCH)
-    before = mk.LAUNCHES["megakernel_march"]
-    k = mk.render_frame_megakernel(*bench, **kw)
-    p = mk.render_frame_megakernel_plain(*bench, **kw)
-    torch.cuda.synchronize()
-    if mk.LAUNCHES["megakernel_march"] - before != 1:
-        raise AssertionError("debug 4 at the partial-warp size did not launch")
-    d4_err = max(d4_err, _compare(f"K2 debug 4 benchmark_scene({N_PRIMS}) "
-                                  f"{pw}x{ph}, partial warps", k, p,
-                                  exact=True)[1])
-    del k, p
-
-    _stamp(start, "joining the K4 checks")
-    k4_checks = _join_k4_child(*k4_child)
+    _stamp(start, "joining the check workers")
+    checks = _join_workers(workers)
+    k2_err = max(checks[k]["k2_err"] for k in ("k2 even", "k2 odd"))
+    k2b_err = checks["k2b and k5"]["k2b_err"]
+    k5_err = checks["k2b and k5"]["k5_err"]
+    k6_err, d4_err = checks["k6"]["k6_err"], checks["debug 4"]["d4_err"]
+    csg, cube = _scene("csg", dev), _scene("cube", dev)
+    sap = _scene("sap", dev)
 
     _stamp(start, "K1 main path")
     # -- K1 main path: RenderSession at 1080p, full-analytic ---------------
@@ -2193,13 +2639,10 @@ def main() -> int:
     d4_ms = cuda_ms(lambda: mk.launch_march(prog, table, scratch, debug=4,
                                              **run), 5)
     # One plain pass gives K2's frame, its work count and debug 4's
-    # statistics: debug 4 traces debug 0's paths.
-    k2_count = {}
-    d4_stats = mk.MarchStats()
-    k2_share, k2_main_err, k2_plain_ms = _main_shape_check(
-        mk, "megakernel_march", spec, sp, MARCH, count=k2_count,
-        stats=d4_stats)
-    k2_err = max(k2_err, k2_main_err)
+    # statistics: debug 4 traces debug 0's paths (a check worker's job).
+    k2m = checks["k2 1080p"]
+    k2_count, k2_share, k2_plain_ms = k2m["count"], k2m["share"], k2m["plain_ms"]
+    k2_err = max(k2_err, k2m["err"])
     # The same frame's per-warp lists: the kernel's summed lengths and list
     # counts per bounce against the plain pass's model of them.
     walk = torch.zeros(2 * (BOUNCES + 1), dtype=torch.int64, device=dev)
@@ -2208,7 +2651,7 @@ def main() -> int:
                     aspect=MAIN_W / MAIN_H, debug=0, t_cull=True,
                     walk_stats=walk)
     walk_k = walk.view(BOUNCES + 1, 2).tolist()
-    walk_p = d4_stats.walk_lists().tolist()
+    walk_p = k2m["walk"]
     walk_p += [[0, 0]] * (BOUNCES + 1 - len(walk_p))
     walk_mean = _walk_means(walk_k)
     print(f"K2 per-warp lists at {MAIN_W}x{MAIN_H}, frame 0, per bounce "
@@ -2221,19 +2664,10 @@ def main() -> int:
     print(f"K2 layers at {MAIN_W}x{MAIN_H}: program table {table_ms:.3f} ms, "
           f"kernel {k2_ms:.3f} ms, plain torch frame {k2_plain_ms:.3f} ms "
           f"while counting and taking debug 4's statistics [{gpu}]")
-    before = mk.LAUNCHES["megakernel_march"]
-    d4 = mk.render_frame_megakernel(spec, sp, None, 0, 0, width=MAIN_W,
-                                    height=MAIN_H, bounces=BOUNCES, debug=4,
-                                    **MARCH)
-    torch.cuda.synchronize()
-    if mk.LAUNCHES["megakernel_march"] - before != 1:
-        raise AssertionError("debug 4 at 1080p did not launch K2")
-    d4_share, err = _compare(f"K2 debug 4 {MAIN_W}x{MAIN_H}, bounces "
-                             f"{BOUNCES} frame 0, against the plain pass",
-                             d4, d4_stats.image(), exact=True)
-    d4_err = max(d4_err, err)
-    warps = pf.group_stats(d4)
-    lane_steps, lane_shapes, lane_aux = d4_stats.lanes_xyz.tolist()
+    # Debug 4 at 1080p against the plain pass's statistics (the same job).
+    d4_share, d4_err = k2m["d4_share"], max(d4_err, k2m["d4_err"])
+    warps = k2m["warps"]
+    lane_steps, lane_shapes, lane_aux = k2m["lanes"]
     simt = lane_shapes / (32 * warps[:, 1].sum())
     print(f"K2 debug 4 at {MAIN_W}x{MAIN_H}: kernel {d4_ms:.3f} ms against "
           f"debug 0's {k2_ms:.3f} ms in this call (x{d4_ms / k2_ms:.3f}); "
@@ -2244,7 +2678,6 @@ def main() -> int:
           f"iterations {lane_steps / (32 * warps[:, 0].sum()):.4f}, of the "
           f"normal taps' slots {lane_aux / (32 * warps[:, 2].sum()):.4f} "
           f"[{gpu}]")
-    del d4, d4_stats
     # Debug 4's main path: the measured work of a frame (app/profiling.py).
     for k in mk.LAUNCHES:
         mk.LAUNCHES[k] = 0
@@ -2301,11 +2734,12 @@ def main() -> int:
     k2b_ms = cuda_ms(lambda: mk.launch_march(uprog, utable, scratch, **run), 5)
     k2_same_call_ms = cuda_ms(lambda: mk.launch_march(prog, table, scratch,
                                                        **run), 5)
-    k2b_count = {}
-    k2b_share, k2b_main_err, k2b_plain_ms = _main_shape_check(
-        mk, "megakernel_march", spec, sp, UNBOXED, "K2b analytic_unboxed",
-        k2b_count)
-    k2b_err = max(k2b_err, k2b_main_err)
+    # Its 1080p plain pass, held to the kernel, counts its work (a check
+    # worker's job).
+    k2bm = checks["k2b 1080p"]
+    k2b_count, k2b_share, k2b_plain_ms = (k2bm["count"], k2bm["share"],
+                                          k2bm["plain_ms"])
+    k2b_err = max(k2b_err, k2bm["err"])
     k2b_bound, k2b_by = pf.bound_ms(frame_bytes + 4 * uprog.f_len,
                                     pf.march_ops(k2b_count, uprog)
                                     + pf.cap_ops(k2b_count, uprog), peak)
@@ -2395,12 +2829,11 @@ def main() -> int:
           f"{w_ex} with an exact tap ({w_mix} of them mixed with cheap "
           f"steps); lane steps {l_ex} exact, {l_ch} cheap; exact taps fill "
           f"{l_ex / max(32 * w_ex, 1):.4f} of their warps' lanes [{gpu}]")
-    k6_count = {}
-    k6_stats = mk.MarchStats()
-    k6_share, k6_main_err, k6_plain_ms = _main_shape_check(
-        mk, "megakernel_march", spec, sp, GRID, "K6 dist_grid", k6_count,
-        k6_stats)
-    k6_err = max(k6_err, k6_main_err)
+    # Its 1080p plain pass, held to the kernel, counts its work and models
+    # the per-warp lists (a check worker's job).
+    k6m = checks["k6 1080p"]
+    k6_count, k6_share, k6_plain_ms = k6m["count"], k6m["share"], k6m["plain_ms"]
+    k6_err = max(k6_err, k6m["err"])
     # The same frame's per-warp lists, against the plain pass's model.
     walk = torch.zeros(2 * (BOUNCES + 1), dtype=torch.int64, device=dev)
     mk.launch_march(prog, table, torch.zeros_like(scratch), frame=0,
@@ -2408,7 +2841,7 @@ def main() -> int:
                     aspect=MAIN_W / MAIN_H, debug=0, t_cull=True, grid=grid,
                     walk_stats=walk)
     walk_k = walk.view(BOUNCES + 1, 2).tolist()
-    walk_p = k6_stats.walk_lists().tolist()
+    walk_p = k6m["walk"]
     walk_p += [[0, 0]] * (BOUNCES + 1 - len(walk_p))
     k6_walk_mean = _walk_means(walk_k)
     print(f"K6 per-warp lists at {MAIN_W}x{MAIN_H}, frame 0, per bounce "
@@ -2418,7 +2851,6 @@ def main() -> int:
           + f" of {prog.ops.shape[0]} records [{gpu}]")
     if walk_k != walk_p:
         raise AssertionError("K6's per-warp lists differ from the plain model")
-    del k6_stats
     gcells = 16 ** 3
     k6_bound, k6_by = pf.bound_ms(
         frame_bytes + 4 * (prog.f_len + 9 + gcells),
@@ -2434,26 +2866,9 @@ def main() -> int:
     del sess, scratch
 
     _stamp(start, "K3 checks")
-    # -- K3 against its plain version, on the card --------------------------
-    ro, rd = _scattered_rays(K3_RAYS, 1, dev)
-    k3_err = 0.0
-    for sname, (sspec, sparams) in ((f"benchmark_scene({N_PRIMS})", bench),
-                                    ("csg_demo", csg), ("blend_demo", blend)):
-        for geometry in ("baked", "faithful"):
-            sprog = build_program(sspec, geometry)
-            for t_cull in (False, True):
-                stable = program_table(sprog, sparams, t_cull)
-                for with_normal in (False, True):
-                    k3_err = max(k3_err, _k3_check(
-                        km, f"K3 {sname} {geometry} t_cull={t_cull} "
-                        f"normal={with_normal}, {K3_RAYS} scattered rays",
-                        sprog, stable, ro, rd, t_cull, with_normal)[1])
-    ro, rd = _scattered_rays(K3_RAGGED, 2, dev)
-    sprog = build_program(spec, "baked")
-    k3_err = max(k3_err, _k3_check(
-        km, f"K3 benchmark_scene({N_PRIMS}) baked t_cull=True normal=True, "
-        f"{K3_RAGGED} scattered rays (a partial warp)", sprog,
-        program_table(sprog, bench[1], True), ro, rd, True, True)[1])
+    # -- K3 against its plain version, on the card (the scattered rays' cases
+    # ran in a check worker) ----------------------------------------------
+    k3_err = checks["k3"]["k3_err"]
     with torch.no_grad():
         ys, xs = torch.meshgrid(
             torch.arange(MAIN_H, dtype=torch.int32, device=dev),
@@ -2468,7 +2883,7 @@ def main() -> int:
     print(f"K3 on the {MAIN_W * MAIN_H} primary rays: kernel "
           f"{k3_primary_ms:.3f} ms, plain {k3_primary_plain_ms:.3f} ms "
           f"(host clock, one call each) [{gpu}]")
-    del pro, prd, ro, rd
+    del pro, prd
 
     _stamp(start, "march probes")
     # -- the march probes (dense, capped, ILP seq and fused) against their
@@ -2676,66 +3091,18 @@ def main() -> int:
     # versions, and their measurement scripts as main paths ----------------
     all_counts = (pr.LAUNCHES, km.LAUNCHES, mk.LAUNCHES, tm.LAUNCHES,
                   hp.LAUNCHES, wf.LAUNCHES, gp.LAUNCHES)
-    wave_row = _wavefront_phase(
-        frozen_wavefront, wf, mk, pf, spec, sp,
-        ((f"benchmark_scene({N_PRIMS})", bench), ("csg_demo", csg)),
-        all_counts, peak, gpu, probe_ptxas)
+    wave_row = _wavefront_phase(frozen_wavefront, wf, pf, spec, sp,
+                                checks["wavefront"], all_counts, peak, gpu,
+                                probe_ptxas)
     grad_rows = _grad_probe_phase(gp, pf, probe_fused_bwd,
                                   probe_inkernel_segsum, spec, sp, all_counts,
-                                  peak, gpu, probe_ptxas)
+                                  peak, gpu, probe_ptxas, seg_sass)
     print("wavefront and gradient probe rows: "
           + json.dumps([wave_row] + grad_rows))
 
     _stamp(start, "gradients through K3")
-    # -- gradients through K3 ------------------------------------------------
-    gkw = dict(geometry="baked")
-    with torch.no_grad():
-        target = render_image_diff(spec, sp, width=CHECK_W, height=CHECK_H,
-                                   bounces=GRAD_BOUNCES, march="kernel",
-                                   normals="detached", **gkw) * 0.9
-
-    def plain_k3(orig, *a, **kw):
-        return km.march_rays_plain(*a, **kw)
-
-    for normals in ("detached", "kernel"):
-        kernel = _grad(spec, sp, target, march="kernel",
-                       normals=normals, **gkw)
-        with _k3_swapped(km, plain_k3):
-            plain = _grad(spec, sp, target, march="kernel",
-                          normals=normals, **gkw)
-        _grad_compare(f"gradient through K3 vs its plain version, normals="
-                      f"{normals}, {CHECK_W}x{CHECK_H}, bounces "
-                      f"{GRAD_BOUNCES}", kernel, plain, GRAD_LOSS_REL,
-                      GRAD_TOP_REL, GRAD_COS)
-    exact = _grad(spec, sp, target, march="plain",
-                  normals="detached", **gkw)
-    kernel = _grad(spec, sp, target, march="kernel",
-                   normals="detached", **gkw)
-    _grad_compare(f"gradient march=kernel vs march=plain (exact), normals="
-                  f"detached, {CHECK_W}x{CHECK_H}", kernel, exact,
-                  float("inf"), float("inf"), EXACT_COS)
-    with torch.no_grad():
-        img_k = render_image_diff(spec, sp, width=CHECK_W, height=CHECK_H,
-                                  bounces=GRAD_BOUNCES, march="kernel", **gkw)
-        img_p = render_image_diff(spec, sp, width=CHECK_W, height=CHECK_H,
-                                  bounces=GRAD_BOUNCES, march="plain", **gkw)
-    _compare("render_image_diff march=kernel vs march=plain (exact)", img_k,
-             img_p)
-    # The renderer's loss never reads the hit distance (its radiance is a
-    # product of material constants), so autograd prunes the implicit
-    # backward from the training step; a loss on t exercises it.
-    with torch.no_grad():
-        ys, xs = torch.meshgrid(
-            torch.arange(CHECK_H, dtype=torch.int32, device=dev),
-            torch.arange(CHECK_W, dtype=torch.int32, device=dev), indexing="ij")
-        _, cro, crd = camera_rays(xs, ys, 0, 1.0, CHECK_W / CHECK_H,
-                                  width=CHECK_W, height=CHECK_H)
-    kernel, _ = _hit_t_grad(km, spec, sp, cro, crd)
-    with _k3_swapped(km, plain_k3):
-        plain, _ = _hit_t_grad(km, spec, sp, cro, crd)
-    _grad_compare(f"implicit gradient of sum(w t) through K3 vs its plain "
-                  f"version, {CHECK_W}x{CHECK_H} primary rays", kernel, plain,
-                  GRAD_LOSS_REL, GRAD_TOP_REL, GRAD_COS)
+    # -- gradients through K3 (the CHECK_W x CHECK_H checks ran in a check
+    # worker): the implicit backward timed at 1080p ----------------------
     with torch.no_grad():
         ys, xs = torch.meshgrid(
             torch.arange(MAIN_H, dtype=torch.int32, device=dev),
@@ -2773,8 +3140,8 @@ def main() -> int:
 
     _stamp(start, "K4 checks")
     # -- K4 against its plain version, on the card (the CHECK_W x CHECK_H
-    # cases ran in K4_CHILD's process) -----------------------------------
-    k4_err, k4b_err = k4_checks["k4_err"], k4_checks["k4b_err"]
+    # cases ran in check workers) -----------------------------------------
+    k4_err, k4b_err = checks["k4"]["k4_err"], checks["k4b"]["k4b_err"]
 
     n, nd, nid, nnear, ndnear = _edge_cull_count(spec, sp, dev)
     print(f"K4 edge term, {CHECK_W}x{CHECK_H} primary rays: {nd} of {n} would "
@@ -2877,9 +3244,12 @@ def main() -> int:
               + f" (of {tables.prog.ops.shape[0]} records, exclusion of "
               f"{spec.n_shapes} shapes) [{gpu}]")
     del tables
-    k4b_share, main_err, k4b_plain_ms, k4b_count = _k4_main_check(
-        tm, spec, sp, target0, "analytic_unboxed", FUSED_UNBOXED)
-    k4b_err = max(k4b_err, main_err)
+    # Its 1080p plain step, held to K4's, counts the work (a check
+    # worker's job).
+    k4bm = checks["k4b 1080p"]
+    k4b_share, k4b_plain_ms, k4b_count = (k4bm["share"], k4bm["plain_ms"],
+                                          k4bm["count"])
+    k4b_err = max(k4b_err, k4bm["err"])
     k4b_ops = (pf.fused_ops(k4b_count, uprog, False)
                + pf.cap_ops(k4b_count, uprog))
     k4b_bound, k4b_by = pf.bound_ms(
@@ -2914,14 +3284,6 @@ def main() -> int:
           f"{km.LAUNCHES['march_rays'] - before}")
     if not losses[-1] < 0.2 * losses[0] or km.LAUNCHES["march_rays"] == before:
         raise AssertionError("optimize_to_target did not converge through K3")
-    cli = subprocess.run(
-        [sys.executable, "-m", "compute_path_tracer_tpu_torch", "optimize",
-         "--steps", "10"], cwd=os.path.dirname(os.path.abspath(__file__)),
-        capture_output=True, text=True, timeout=300)
-    print("cli optimize --steps 10: " + " | ".join(cli.stdout.strip().splitlines()[-2:]))
-    if cli.returncode != 0 or "final loss" not in cli.stdout:
-        raise AssertionError(f"cli optimize failed ({cli.returncode}): "
-                             f"{cli.stderr[-2000:]}")
 
     # The fused step's entry points: the flat ball's position back through
     # K4's edge term, and the CLI's optimize --fused --edge-grad.
@@ -2946,18 +3308,12 @@ def main() -> int:
           f"{launched}")
     if not err1 < 0.25 * err0 or launched != 60:
         raise AssertionError("the fused edge term did not recover the position")
-    cli = subprocess.run(
-        [sys.executable, "-m", "compute_path_tracer_tpu_torch", "optimize",
-         "--fused", "--edge-grad", "--perturb-what", "position", "--scene",
-         "edge_demo", "--bounces", "0", "--perturb", "0.3", "--steps", "40",
-         "--width", "48", "--height", "48"],
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-        capture_output=True, text=True, timeout=300)
-    print("cli optimize --fused --edge-grad --perturb-what position: "
-          + " | ".join(cli.stdout.strip().splitlines()[-2:]))
-    if cli.returncode != 0 or "recovered" not in cli.stdout:
-        raise AssertionError(f"cli optimize --fused failed ({cli.returncode}): "
-                             f"{cli.stderr[-2000:]}")
+    # The CLI's optimize, plain and fused, ran in a check worker.
+    for (label, rc, out, err), expect in zip(checks["cli"]["runs"],
+                                             ("final loss", "recovered")):
+        print(f"{label}: " + " | ".join(out.strip().splitlines()[-2:]))
+        if rc != 0 or expect not in out:
+            raise AssertionError(f"{label} failed ({rc}): {err[-2000:]}")
 
     csrc = "compute_path_tracer_tpu_torch/kernels/csrc/"
     replaces = "compute_path_tracer_tpu/kernels/megakernel.py:1546"

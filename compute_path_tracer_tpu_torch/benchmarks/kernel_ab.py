@@ -22,9 +22,12 @@ forward-plus-adjoint bounce (``P-fused-bwd frame``, ``P-fused-bwd tile``:
 the 1080p frame and the probe's (64, 128) tile), the capped march
 (``P-capped``, the 1080p primary rays) and the gather probe's kernels
 from shared memory (``P-gather correct128``, ``gather128``,
-``gather512``, ``arith``: 16 tiles of (64, 128) lanes, 512 iterations), by
+``gather512``, ``arith``: 16 tiles of (64, 128) lanes, 512 iterations) and
+the segment sum (``P-segsum probe``: 1 x 28 x 16,384 lanes, S = 64;
+``P-segsum K4``: 9 x 13 x 2,073,600, S = 64, ids uniform in [-1, S);
+``P-segsum K4 clustered``: the same with an id a run of 64 lanes), by
 CUDA events around each launch (a warm-up call first; the launches of the
-last four probes queued behind a sleep, so that the host's time to issue
+last five probes queued behind a sleep, so that the host's time to issue
 them is not counted); ``--only REGEX`` times only the rows whose name
 matches.  Every output of every run is hashed, and A's and B's must be the
 same bit for bit: the frames, K3's t, ids and normals, K4's image and its
@@ -36,7 +39,9 @@ gradient and the gather kernels' outputs.  The tensor-core sums and
 fused-bwd's loss (a float64 sum added by atomics in no fixed order) are
 not hashed: in each run they are held to their own build's plain version
 (``hw_probes.mxu_tensor_diff``; the loss within ``FB_LOSS_TOL``
-relative), and a run that fails its check fails the script.  It also
+relative), and so is the segment sum (within ``SEGSUM_TOL`` of max |ref|
+of a float64 ``index_add_``), which a build with atomics adds in no fixed
+order; a run that fails its check fails the script.  It also
 prints K6's warp statistics (``launch_march(grid_stats=)``) in both, and
 tells, for each kernel function of the two builds, whether its SASS
 (``cuobjdump -sass``) is the same, so a change to shared device code can be
@@ -45,7 +50,9 @@ of the other's with the same SASS: a rename), and prints ptxas's
 registers, stack frame and spills of K1's and the marching kernels
 (K2's, RELAX's, debug 4's, K6's, K3's, K4's, the dense, capped and ILP
 probes', the wavefront's), of the bf16 march, the box transforms,
-fused-bwd and the gather kernels in both.  Run on a
+fused-bwd, the gather kernels and the segment sum in both, with the
+segment sum's tensor-core, atomic and copy instructions counted in its
+SASS.  Run on a
 machine with an NVIDIA GPU and the CUDA toolkit:
 
     python -m compute_path_tracer_tpu_torch.benchmarks.kernel_ab OTHER_DIR [--only REGEX]
@@ -94,8 +101,11 @@ FUSED_BWD = ("P-fused-bwd frame", "P-fused-bwd tile")
 CAPPED = "P-capped"
 GATHER = ("P-gather correct128", "P-gather gather128", "P-gather gather512",
           "P-gather arith")
-# fused-bwd's loss against its plain version (chip_smoke.py's FB_LOSS_TOL).
+SEGSUM = ("P-segsum probe", "P-segsum K4", "P-segsum K4 clustered")
+# fused-bwd's loss against its plain version (chip_smoke.py's FB_LOSS_TOL),
+# the segment sum against a float64 sum (its SEGSUM_TOL, of max |ref|).
 FB_LOSS_TOL = 1e-5
+SEGSUM_TOL = 1e-5
 # The sleep queued before each launch of those rows: about 2 ms.
 QUEUE_CYCLES = 4_000_000
 # The anonymous namespace's name in a mangled kernel name hashes the file;
@@ -106,13 +116,17 @@ WALKERS = re.compile(r"megakernel_analytic|megakernel_walk|megakernel_grid|"
                      r"megakernel_relax|megakernel_stats|march_rays|train_fused|"
                      r"march_dense|march_capped|march_ilp|wavefront_bounce|"
                      r"bf16_march|mxu_scalar|mxu_tensor|fused_bwd|gather_once|"
-                     r"gather_chain|gather_arith")
+                     r"gather_chain|gather_arith|segsum")
+# The segment sum's instructions counted in its SASS, by whole opcode: its
+# tensor-core products, atomics, copies and barriers.
+SEGSUM_OPS = re.compile(r"HMMA|ATOM|RED|LDGSTS|BAR")
 
 
 def _sass(root: str) -> dict:
     """Builds ``root``'s kernels, printing ptxas's report (a library built
-    before prints the report kept beside it, where there is one); {kernel
-    function: (instructions, hash of the SASS)}."""
+    before prints the report kept beside it, where there is one); {"funcs":
+    {kernel function: (instructions, hash of the SASS)}, "segsum": {segment
+    sum kernel: {opcode matching SEGSUM_OPS: count}}}."""
     sys.path.insert(0, root)
     from compute_path_tracer_tpu_torch.kernels import build
 
@@ -133,8 +147,12 @@ def _sass(root: str) -> dict:
         m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
         if m and name:
             funcs[name].append(m.group(1).strip())
-    return {k: (len(v), hashlib.sha1("\n".join(v).encode()).hexdigest())
-            for k, v in funcs.items()}
+    ops = {k: [re.sub(r"^@!?U?P\w+\s+", "", i).split()[0] for i in v]
+           for k, v in funcs.items() if "segsum" in k}
+    return {"funcs": {k: (len(v), hashlib.sha1("\n".join(v).encode()).hexdigest())
+                      for k, v in funcs.items()},
+            "segsum": {k: {o: v.count(o) for o in sorted(set(v))
+                           if SEGSUM_OPS.match(o)} for k, v in ops.items()}}
 
 
 def _digest(*tensors) -> str:
@@ -390,8 +408,46 @@ def _times(root: str, rays: str, only: str) -> dict:
             if pick.search(key):
                 out[key], res, _ = launches(hp, attr, fn, queued=True)
                 last[key] = _digest(res)
+    if any(pick.search(k) for k in SEGSUM):
+        from compute_path_tracer_tpu_torch.kernels import grad_probes as gp
+
+        for key, (idx, cot, n_seg) in _segsum_inputs(pick, dev):
+            out[key], got, _ = launches(
+                gp, "segsum", lambda: gp.segsum(idx, cot, n_seg), queued=True)
+            ref = gp.segsum_plain(idx, cot.double(), n_seg)
+            rel = float((got.double() - ref).abs().max() / ref.abs().max())
+            checks[key] = {"rel": rel, "ok": rel <= SEGSUM_TOL
+                           and bool(torch.isfinite(got).all())}
+            del got, ref
     return {"ms": out, "hash": last, "checks": checks,
             "grid_stats": grid_stats.tolist()}
+
+
+def _segsum_inputs(pick, dev):
+    """The segment sum rows picked: (row, (idx, cot, S)), made here from a
+    seed so that both checkouts time the same inputs: ids uniform in [-1,
+    S) (clustered: one a run of 64 lanes), cotangents standard normal."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    probe = (torch.randint(-1, 64, (1, 64 * 256), generator=g, device=dev,
+                           dtype=torch.int32),
+             torch.randn((1, 28, 64 * 256), generator=g, device=dev), 64)
+    if pick.search(SEGSUM[0]):
+        yield SEGSUM[0], probe
+    if not any(pick.search(k) for k in SEGSUM[1:]):
+        return
+    n = W * H
+    idx = torch.randint(-1, 64, (9, n), generator=g, device=dev,
+                        dtype=torch.int32)
+    cot = torch.randn((9, 13, n), generator=g, device=dev)
+    if pick.search(SEGSUM[1]):
+        yield SEGSUM[1], (idx, cot, 64)
+    runs = torch.randint(-1, 64, (9, n // 64), generator=g, device=dev,
+                         dtype=torch.int32)
+    if pick.search(SEGSUM[2]):
+        yield SEGSUM[2], (runs.repeat_interleave(64, dim=1).contiguous(), cot,
+                          64)
 
 
 def sass_same(sass: dict) -> dict:
@@ -459,7 +515,10 @@ def main() -> int:
     with ThreadPoolExecutor(2) as pool:
         built = dict(zip(roots, pool.map(lambda r: _child("sass", r),
                                          roots.values())))
-    sass = {k: v[0] for k, v in built.items()}
+    sass = {k: v[0]["funcs"] for k, v in built.items()}
+    for label, (res, _) in built.items():
+        for k, v in sorted(res["segsum"].items()):
+            print(f"SASS {label} {ANON.sub('', k)}: {v}")
     ptxas = {}
     for label, (_, log) in built.items():
         ptxas[label] = {ANON.sub("", k): v for k, v in parse_ptxas(log).items()
@@ -502,6 +561,7 @@ def main() -> int:
     same = sass_same(sass)
     print(json.dumps({"gpu": gpu, "ms": summary, "bit_equal": equal,
                       "checks_passed": passed,
+                      "segsum_sass": {k: v[0]["segsum"] for k, v in built.items()},
                       "grid_stats": {k: runs[k][0]["grid_stats"] for k in "AB"},
                       "ptxas": ptxas, "sass": same}))
     return 0 if all(equal.values()) and passed else 1

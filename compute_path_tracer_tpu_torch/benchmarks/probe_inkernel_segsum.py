@@ -9,7 +9,7 @@ this card the blocks run in no order, and the question is what the
 reduction costs as a kernel of its own against the library call the fused
 step makes today (``kernels/train.py:_segment_matmul``, ``index_add_`` per
 bounce): segsum (kernels/grad_probes.py) against one
-``Tensor.index_add_`` over the same elements, at two shapes:
+``Tensor.index_add_`` over the same elements, in three rows:
 
 * the probe's: S = 64 segments, C = 28 channels, one 64x256 plane (B = 1),
   idx uniform in [-1, S) and cot normal from numpy's seed 0, as the probe
@@ -17,11 +17,14 @@ bounce): segsum (kernels/grad_probes.py) against one
 * K4's main configuration: B = 9 bounces, C = 13 material channels
   (``MAT_CHANNELS``), n = 1920x1080 lanes, S = the shapes of
   ``benchmark_scene(64)``; idx uniform in [-1, S) and cot normal, made on
-  the card from a seed.
+  the card from a seed;
+* K4's shape with clustered ids (``K4 clustered``): an id drawn uniform in
+  [-1, S) once a run of 64 consecutive lanes of a plane, as a frame's
+  winners come in runs along a row; the same cotangents.
 
 Times by CUDA events over the repeats (the probe's shape queued behind a
-sleep, ``common.queued_ms``), in one process; each call's zeroed output
-counts in its time.  Run on a machine with an NVIDIA GPU:
+sleep, ``common.queued_ms``), in one process; each call's allocations
+and kernels count in its time (``index_add_``'s zeroed output too).  Run on a machine with an NVIDIA GPU:
 
     python -m compute_path_tracer_tpu_torch.benchmarks.probe_inkernel_segsum
 """
@@ -69,6 +72,17 @@ def inputs(shape, device="cuda", seed: int = 0):
     return idx, cot
 
 
+def inputs_clustered(shape, device="cuda", seed: int = 0):
+    """idx (B, n) int32 drawn uniform in [-1, S) once a run of 64
+    consecutive lanes, and :func:`inputs`' cot."""
+    _, cot = inputs(shape, device, seed)
+    n_b, n_seg, n = shape["n_b"], shape["n_seg"], shape["h"] * shape["w"]
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    runs = torch.randint(-1, n_seg, (n_b, -(-n // 64)), generator=g,
+                         device=device, dtype=torch.int32)
+    return runs.repeat_interleave(64, dim=1)[:, :n].contiguous(), cot
+
+
 def index_add_call(idx, cot, n_seg):
     """The library call: ``index_add_`` of every element's row into an
     (S + 1, C) zero block whose row 0 takes the dropped ids, given its
@@ -81,10 +95,13 @@ def index_add_call(idx, cot, n_seg):
 
 
 def measure(reps: int = REPS, device="cuda") -> dict:
-    """segsum and ``index_add_`` at the probe's shape and K4's."""
+    """segsum and ``index_add_`` at the probe's shape and K4's, its ids
+    uniform and clustered."""
     rows = {}
-    for name, shape in (("probe", PROBE), ("K4", k4_shape())):
-        idx, cot = inputs(shape, device)
+    k4 = k4_shape()
+    for name, shape, make in (("probe", PROBE, inputs), ("K4", k4, inputs),
+                              ("K4 clustered", k4, inputs_clustered)):
+        idx, cot = make(shape, device)
         timer = queued_ms if name == "probe" else cuda_ms
         lib = index_add_call(idx, cot, shape["n_seg"])
         kern = timer(lambda: segsum(idx, cot, shape["n_seg"]), reps)

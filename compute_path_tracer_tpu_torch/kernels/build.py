@@ -219,7 +219,7 @@ def load_library() -> ctypes.CDLL:
                    p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_segsum
-    fn.argtypes = [p, p, i, i, i, i, p, i, p]
+    fn.argtypes = [p, p, i, i, i, i, p, p, i, i, i, p]
     fn.restype = ctypes.c_int
     fn = lib.cpt_train_fused
     fn.argtypes = ([p, i, i, p, i, p, i, i, i, p, i, p, p, p, p, i] + [p] * 10
