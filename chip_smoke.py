@@ -150,11 +150,26 @@ slope taps, the exclusion march); the flat ball's position recovered
 by ``optimize_to_target(fused=True, edge_grad=True)`` and the CLI's
 ``optimize --fused --edge-grad``.
 
+and the autograd path's edge estimators (diff/vjp.py: ``edge_grad``,
+``edge_secondary``, their closest-approach marches in torch, no kernel of
+their own): the image with both terms bit for bit the image without them,
+their gradient through K3 against the same with K3's plain version (normals
+detached and through the kernel) at 320x180, the flat ball's position
+gradient of the sign of the loss's central finite difference, and one
+timed 1080p step with both terms (K3's launches and time, the closest
+marches' and their Danskin vjps' time, peak memory); and the app/io
+surface: the CLI's ``optimize --edge-grad --edge-secondary`` without
+``--fused``, ``render --checkpoint`` then ``--resume`` in a new process
+bit for bit an uninterrupted run under K1 (``--mode analytic``) and K2
+(``--mode tcull``), ``demo --max-events 2`` through a value edit and a
+structure edit, and the TUI's controller over a card session.
+
 The checks against the plain versions that are host-bound plain passes
-(K2, K2b, K5, K6, K3's scattered rays, the gradients through K3, K4 and
-debug 4 at 320x180; the 1080p plain passes of K2, K2b, K6, K4's
-analytic_unboxed step and the wavefront, which also count their work for
-the bounds; the CLI runs) run in CHECK_WORKERS processes of this script
+(K2, K2b, K5, K6, K3's scattered rays, the gradients through K3 with and
+without the edge terms, K4 and debug 4 at 320x180; the 1080p plain passes
+of K2, K2b, K6, K4's analytic_unboxed step and the wavefront, which also
+count their work for the bounds; the CLI, checkpoint, demo and TUI runs)
+run in CHECK_WORKERS processes of this script
 (``--check-worker``), started after the build and joined before the first
 timed phase, so no timing overlaps them; each worker's output, with each
 job's seconds and peak memory, is printed when it is joined.  The plain
@@ -217,6 +232,12 @@ OMEGA = 1.6
 # The training path: bench.py's fast-gradient row (bench.py:406).
 TRAIN = dict(geometry="baked", march="kernel", normals="kernel")
 TIMED_STEPS = 3
+# The autograd path's edge estimators (diff/vjp.py): the primary and the
+# secondary silhouette terms on the training configuration.
+EDGE = dict(edge_grad=True, edge_secondary=True)
+# render --checkpoint / --resume: (--mode, the kernel it launches).
+RESUME_MODES = (("analytic", "megakernel_analytic"),
+                ("tcull", "megakernel_march"))
 K3_RAYS = CHECK_W * CHECK_H      # scattered rays per K3 check
 K3_RAGGED = K3_RAYS - 13         # ... and a count that leaves a partial warp
 WALK_PRIMS = 256                 # K2's check with the largest staging
@@ -1548,6 +1569,99 @@ def _drive_training(km, mk, spec, params, gpu):
     return launches, k3_ms, kept
 
 
+@contextmanager
+def _timed_calls(events, key, module, name):
+    """Records CUDA events around every call of ``module.name`` (resolved
+    at call time by its callers) into ``events[key]``."""
+    import torch
+
+    orig = getattr(module, name)
+
+    def run(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*a, **kw)
+        end.record()
+        events[key].append((start, end))
+        return out
+
+    setattr(module, name, run)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _drive_edge_step(km, mk, spec, params, gpu):
+    """The autograd path with its edge estimators at the main path's shape:
+    one timed 1080p step of make_loss(TRAIN, edge_grad, edge_secondary),
+    backward and an Adam step, after a warm-up step at CHECK_W x CHECK_H
+    (the same scene and options, so every op of the step has run once; the
+    1080p step takes about 31 s, PERF.md), every kernel count set to 0 just
+    before the timed step and read just after; it must launch K3 (at most
+    once a bounce) and no other kernel.  K3, the closest-approach
+    marches (diff/vjp.py:_march_closest, torch: no TPU kernel behind them)
+    and their Danskin map vjps (_map_vjp) are timed with CUDA events.
+    Returns the figures printed."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.diff import make_loss
+    from compute_path_tracer_tpu_torch.diff import vjp
+
+    p = params.clone().requires_grad_()
+    opt = torch.optim.Adam([p], lr=2e-2, betas=(0.9, 0.999), eps=1e-8)
+
+    def step(width, height):
+        opt.zero_grad(set_to_none=True)
+        loss = make_loss(spec, torch.zeros((height, width, 3),
+                                           device=params.device),
+                         width=width, height=height, bounces=BOUNCES,
+                         **TRAIN, **EDGE)(p)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    step(CHECK_W, CHECK_H)
+    torch.cuda.synchronize()
+    events = {"k3": [], "closest": [], "danskin": []}
+    for counts in (mk.LAUNCHES, km.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    with _timed_calls(events, "k3", km, "march_rays"), \
+            _timed_calls(events, "closest", vjp, "_march_closest"), \
+            _timed_calls(events, "danskin", vjp, "_map_vjp"):
+        t0 = time.perf_counter()
+        loss = step(MAIN_W, MAIN_H)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    launches = km.LAUNCHES["march_rays"]
+    if any(mk.LAUNCHES.values()) or not 0 < launches <= BOUNCES + 1:
+        raise AssertionError(f"the edge step launched {dict(km.LAUNCHES)} "
+                             f"and {dict(mk.LAUNCHES)}")
+    if not (bool(torch.isfinite(p.grad).all()) and bool(torch.isfinite(p).all())
+            and bool(p.grad.abs().max() > 0)):
+        raise AssertionError("the edge step's gradient is not finite or zero")
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()}
+    peak = torch.cuda.max_memory_allocated()
+    out = {"step_ms": step_ms, "rays_per_s": MAIN_W * MAIN_H * (BOUNCES + 1)
+           / (step_ms / 1e3), "k3_launches": launches, "k3_ms": ms["k3"],
+           "closest_marches": len(events["closest"]),
+           "closest_ms": ms["closest"], "danskin_ms": ms["danskin"],
+           "peak_gib": peak / 2**30, "loss": float(loss)}
+    print(f"edge step (autograd path): {MAIN_W}x{MAIN_H}, {N_PRIMS} prims, "
+          f"{BOUNCES} bounces, {TRAIN} + {EDGE}: {step_ms:.3f} ms/step, "
+          f"{out['rays_per_s']:.4e} rays/s, K3 {launches} launches "
+          f"{ms['k3']:.3f} ms, {len(events['closest'])} closest-approach "
+          f"marches {ms['closest']:.3f} ms ({ms['closest'] / step_ms:.1%} of "
+          f"the step), their Danskin map vjps {ms['danskin']:.3f} ms "
+          f"({ms['danskin'] / step_ms:.1%}), peak memory "
+          f"{peak / 2**30:.3f} GiB, loss {float(loss):.6e}, gradient finite "
+          f"[{gpu}]")
+    return out
+
+
 def _flat_ball():
     """tests/test_train_fused.py:246's black, uniformly emissive ball: only
     the edge term moves its position."""
@@ -2207,22 +2321,240 @@ def _job_wavefront(dev):
             "count": count}
 
 
-def _job_cli(dev):
-    """The CLI's ``optimize``, plain and with ``--fused --edge-grad``, each
-    in a process of its own; returns (label, exit code, output, errors) of
-    each."""
+def _job_edge(dev):
+    """The autograd path's edge estimators (diff/vjp.py) at CHECK_W x
+    CHECK_H, GRAD_BOUNCES, on the benchmark scene baked through K3: the
+    image with both edge terms bit for bit the image without them; the
+    gradient with them through K3 against the same with K3's plain version
+    (normals detached and through the kernel), under the GRAD_* limits
+    (their closest-approach marches are torch in both); and the flat
+    ball's position gradient with edge_grad, nonzero and of the sign of
+    the loss's central finite difference (48x48, bounces 0, the target the
+    ball shifted by 0.2)."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.diff import make_loss, render_image_diff
+    from compute_path_tracer_tpu_torch.kernels import march as km
+    from compute_path_tracer_tpu_torch.scene import (
+        compile_scene, params_from_numpy)
+
+    spec, sp = _scene("bench", dev)
+    kw = dict(width=CHECK_W, height=CHECK_H, bounces=GRAD_BOUNCES,
+              geometry="baked", march="kernel", normals="kernel")
+    before = km.LAUNCHES["march_rays"]
+    with torch.no_grad():
+        smooth = render_image_diff(spec, sp, **kw)
+        edge = render_image_diff(spec, sp, **EDGE, **kw)
+    if km.LAUNCHES["march_rays"] == before:
+        raise AssertionError("the edge images did not launch K3")
+    equal = bool(torch.equal(smooth, edge))
+    print(f"check edge terms leave the image, {CHECK_W}x{CHECK_H}, bounces "
+          f"{GRAD_BOUNCES}: {'bit-equal' if equal else 'DIFFERENT'}")
+    if not equal:
+        raise AssertionError("the edge terms changed the image")
+    target = smooth * 0.9
+
+    def plain_k3(orig, *a, **k):
+        return km.march_rays_plain(*a, **k)
+
+    for normals in ("detached", "kernel"):
+        gkw = dict(geometry="baked", march="kernel", normals=normals, **EDGE)
+        kernel = _grad(spec, sp, target, **gkw)
+        with _k3_swapped(km, plain_k3):
+            plain = _grad(spec, sp, target, **gkw)
+        _grad_compare(f"edge gradient through K3 vs its plain version, "
+                      f"normals={normals}, {CHECK_W}x{CHECK_H}, bounces "
+                      f"{GRAD_BOUNCES}", kernel, plain, GRAD_LOSS_REL,
+                      GRAD_TOP_REL, GRAD_COS)
+
+    fb = compile_scene(_flat_ball())
+    p0 = params_from_numpy(fb.params, fb.spec, dev)
+    sx = fb.spec.roots[0].children_shapes[0].transform.pos[0]
+    shifted = p0.clone()
+    shifted[sx] += 0.2
+    fkw = dict(width=48, height=48, bounces=0, geometry="baked",
+               march="kernel", normals="kernel")
+    with torch.no_grad():
+        ftarget = render_image_diff(fb.spec, shifted, **fkw)
+    grads = []
+    for edge_grad in (False, True):
+        p = p0.clone().requires_grad_()
+        make_loss(fb.spec, ftarget, edge_grad=edge_grad, **fkw)(p).backward()
+        grads.append(float(p.grad[sx]))
+    loss = make_loss(fb.spec, ftarget, **fkw)
+    dp = torch.zeros_like(p0)
+    dp[sx] = 0.1
+    with torch.no_grad():
+        fd = (float(loss(p0 + dp)) - float(loss(p0 - dp))) / 0.2
+    print(f"check flat ball position gradient, 48x48, through K3: smooth "
+          f"{grads[0]:.6e}, edge {grads[1]:.6e}, central difference "
+          f"{fd:.6e}")
+    if grads[0] != 0.0 or grads[1] == 0.0 or (grads[1] > 0) != (fd > 0):
+        raise AssertionError("the flat ball's edge gradient is wrong")
+    return {"flat_ball": (grads[1], fd)}
+
+
+def _cli(args, timeout=300):
+    """``python -m compute_path_tracer_tpu_torch ARGS`` in a process of its
+    own: (exit code, output, errors)."""
+    run = subprocess.run(
+        [sys.executable, "-m", "compute_path_tracer_tpu_torch", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=timeout)
+    return run.returncode, run.stdout, run.stderr
+
+
+def _cli_resume(dev, tmp):
+    """``render --checkpoint`` after 2 frames, then ``render --resume`` for
+    2 more in a new process, against 4 frames in one run, under each mode
+    of RESUME_MODES at CHECK_W x CHECK_H: the accumulators bit for bit.
+    The uninterrupted and the interrupted run are in this process, so the
+    kernel's launches are counted.  Returns the runs' (label, exit code,
+    output, errors)."""
+    import numpy as np
+
+    from compute_path_tracer_tpu_torch.app.cli import main as cli_main
+    from compute_path_tracer_tpu_torch.io import load_checkpoint
+    from compute_path_tracer_tpu_torch.kernels import megakernel as mk
+
     runs = []
-    for label, args in (
-            ("cli optimize --steps 10", ["--steps", "10"]),
+    for mode, kernel in RESUME_MODES:
+        ck = {k: os.path.join(tmp, f"{mode}_{k}") for k in ("full", "half",
+                                                            "resumed")}
+        base = ["render", "--device", str(dev), "--mode", mode, "--scene",
+                "benchmark_scene", "--width", str(CHECK_W), "--height",
+                str(CHECK_H), "--bounces", str(CHECK_BOUNCES), "--out",
+                os.path.join(tmp, f"{mode}.png")]
+        before = mk.LAUNCHES[kernel]
+        for frames, key in ((4, "full"), (2, "half")):
+            if cli_main(base + ["--frames", str(frames), "--checkpoint",
+                                ck[key]]) != 0:
+                raise AssertionError(f"render --mode {mode} failed")
+        if mk.LAUNCHES[kernel] - before != 6:
+            raise AssertionError(f"render --mode {mode} launched "
+                                 f"{dict(mk.LAUNCHES)}")
+        rc, out, err = _cli(base + ["--frames", "2", "--resume", ck["half"],
+                                    "--checkpoint", ck["resumed"]])
+        full, resumed = load_checkpoint(ck["full"]), load_checkpoint(
+            ck["resumed"])
+        equal = (rc == 0 and np.array_equal(full["accum"], resumed["accum"])
+                 and (resumed["frame"], resumed["last_clear"]) == (4, 4))
+        out += (f"resume: 2 + 2 frames {'bit-equal' if equal else 'DIFFERENT'}"
+                f" to 4 frames ({kernel})\n")
+        runs.append((f"cli render --mode {mode} --checkpoint, then --resume "
+                     f"in a new process", 0 if equal else 1, out, err))
+    return runs
+
+
+def _cli_demo(dev, tmp):
+    """``demo --max-events 2`` in a process of its own over a temporary
+    scene JSON, edited once by value (the ball's size) and once by
+    structure (a cube added) once the demo has reported each step; returns
+    (label, exit code, output, errors)."""
+    from compute_path_tracer_tpu_torch.scene import sphere_and_plane
+    from compute_path_tracer_tpu_torch.scene.io import load_scene, save_scene
+    from compute_path_tracer_tpu_torch.scene.model import KIND_CUBE, Shape
+
+    path = os.path.join(tmp, "live.json")
+    save_scene(sphere_and_plane(), path)
+
+    def edit(change, bump):
+        """One change, seen by the demo's poll as one new mtime: the file
+        is written aside with its mtime set, then moved into place."""
+        scene = load_scene(path)
+        change(scene)
+        aside = path + ".new"
+        save_scene(scene, aside)
+        mtime = os.stat(path).st_mtime + bump
+        os.utime(aside, (mtime, mtime))
+        os.replace(aside, path)
+
+    demo = subprocess.Popen(
+        [sys.executable, "-u", "-m", "compute_path_tracer_tpu_torch", "demo",
+         "--device", str(dev), "--scene", path, "--width", "160", "--height",
+         "90", "--frames", "2", "--bounces", "2",
+         "--max-events", "2", "--out", os.path.join(tmp, "live.png")],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    lines = []
+    steps = (("initial render", lambda s: s.roots[0].children_shapes[0]
+              .size.set(1.2), 1),
+             ("[value edit]", lambda s: s.roots[0].add_shape(
+                 Shape(KIND_CUBE, name="New")), 2),
+             ("[structure edit]", None, 0))
+    try:
+        for marker, change, bump in steps:
+            while not any(marker in line for line in lines):
+                line = demo.stdout.readline()
+                if not line:
+                    break
+                lines.append(line)
+            if change is not None:
+                edit(change, bump)
+        rc = demo.wait(timeout=120)
+    finally:
+        if demo.poll() is None:
+            demo.kill()
+    return ("cli demo --max-events 2 (a value edit, then a structure edit)",
+            rc, "".join(lines), demo.stderr.read())
+
+
+def _tui_check(dev):
+    """A TuiController over a card session (K2, 64x64): one frame, a
+    nudge of a position (a refresh: the same spec object), an AABB toggle
+    (a recompile: a new spec), one frame after each; returns the status
+    lines."""
+    from compute_path_tracer_tpu_torch.app.config import Settings
+    from compute_path_tracer_tpu_torch.app.tui import TuiController
+    from compute_path_tracer_tpu_torch.kernels import megakernel as mk
+    from compute_path_tracer_tpu_torch.render.session import RenderSession
+    from compute_path_tracer_tpu_torch.scene import csg_demo
+
+    before = mk.LAUNCHES["megakernel_march"]
+    ctl = TuiController(RenderSession(csg_demo(), 64, 64, Settings(
+        debug=0, bounces=2), device=dev))
+    ctl.render_ascii(32, 8)
+    spec = ctl.session.compiled.spec
+    ctl.sel = next(i for i, r in enumerate(ctl.rows)
+                   if r.kind == "param" and r.label == "pos.x")
+    kinds = [ctl.nudge(+1)[0]]
+    same = ctl.session.compiled.spec is spec
+    ctl.render_ascii(32, 8)
+    ctl.sel = next(i for i, r in enumerate(ctl.rows) if r.kind == "flag")
+    kinds.append(ctl.toggle()[0])
+    lines = ctl.render_ascii(32, 8)
+    launched = mk.LAUNCHES["megakernel_march"] - before
+    ok = (kinds == ["refresh", "recompile"] and same and launched == 3
+          and ctl.session.compiled.spec is not spec
+          and any(c != " " for line in lines for c in line))
+    return ("tui: nudge then AABB toggle on a card session",
+            0 if ok else 1, f"{kinds}, spec kept on the nudge {same}, K2 "
+            f"launches {launched}, status {ctl.status}\n", "")
+
+
+def _job_cli(dev):
+    """The CLI's ``optimize`` (plain, with ``--fused --edge-grad``, and with
+    ``--edge-grad --edge-secondary`` on the autograd path), ``render
+    --checkpoint`` and ``--resume`` (``_cli_resume``) and ``demo``
+    (``_cli_demo``), each CLI run in a process of its own, and the TUI's
+    controller over a card session (``_tui_check``); returns (label, exit
+    code, output, errors, the text its output must hold) of each."""
+    runs = []
+    for label, args, expect in (
+            ("cli optimize --steps 10", ["--steps", "10"], "final loss"),
             ("cli optimize --fused --edge-grad --perturb-what position",
              ["--fused", "--edge-grad", "--perturb-what", "position",
               "--scene", "edge_demo", "--bounces", "0", "--perturb", "0.3",
-              "--steps", "40", "--width", "48", "--height", "48"])):
-        cli = subprocess.run(
-            [sys.executable, "-m", "compute_path_tracer_tpu_torch", "optimize",
-             *args], cwd=os.path.dirname(os.path.abspath(__file__)),
-            capture_output=True, text=True, timeout=300)
-        runs.append((label, cli.returncode, cli.stdout, cli.stderr))
+              "--steps", "40", "--width", "48", "--height", "48"],
+             "recovered"),
+            ("cli optimize --edge-grad --edge-secondary (autograd path)",
+             ["--edge-grad", "--edge-secondary", "--steps", "3", "--width",
+              "48", "--height", "48"], "final loss")):
+        runs.append((label, *_cli(["optimize", *args]), expect))
+    with tempfile.TemporaryDirectory() as tmp:
+        runs += [(*r, "bit-equal") for r in _cli_resume(dev, tmp)]
+        runs.append((*_cli_demo(dev, tmp), "[structure edit]"))
+    runs.append((*_tui_check(dev), "recompile"))
     return {"runs": runs}
 
 
@@ -2248,7 +2580,7 @@ JOBS = {"k2 even": partial(_job_k2, part=0),
         "debug 4": _job_d4, "k2 1080p": _job_k2_main,
         "k2b 1080p": _job_k2b_main, "k6 1080p": _job_k6_main,
         "k4b 1080p": _job_k4b_main, "wavefront": _job_wavefront,
-        "cli": _job_cli}
+        "cli": _job_cli, "edge": _job_edge}
 # The kernel-vs-plain checks run in CHECK_WORKERS processes of this script
 # (CHECK_WORKER), one a group, all started after the build and joined before
 # the first timed phase, so no timing overlaps them: they are host-bound
@@ -2256,10 +2588,10 @@ JOBS = {"k2 even": partial(_job_k2, part=0),
 # they took most of the script's time.  The groups balance the jobs' times
 # on the card (each job prints its own).
 CHECK_WORKER = "--check-worker"
-CHECK_WORKERS = (("k4", "cli"), ("k4b", "k3"), ("debug 4", "k4b 1080p"),
+CHECK_WORKERS = (("k4",), ("k4b", "k3"), ("debug 4", "k4b 1080p"),
                  ("k2 even", "k2 1080p"), ("k2 odd", "gradients through k3"),
                  ("k2b and k5", "k6 1080p"), ("k6", "k2b 1080p"),
-                 ("wavefront",))
+                 ("wavefront", "cli"), ("edge",))
 
 
 def _to_host(obj):
@@ -3138,6 +3470,10 @@ def main() -> int:
           f"ms ({k3_by}: {k3_ops:.4e} FP32 ops, {k3_bytes} bytes) [{gpu}]")
     del kept
 
+    _stamp(start, "edge step")
+    # -- the autograd path's edge estimators: one timed 1080p step ---------
+    edge_step = _drive_edge_step(km, mk, spec, sp, gpu)
+
     _stamp(start, "K4 checks")
     # -- K4 against its plain version, on the card (the CHECK_W x CHECK_H
     # cases ran in check workers) -----------------------------------------
@@ -3308,10 +3644,11 @@ def main() -> int:
           f"{launched}")
     if not err1 < 0.25 * err0 or launched != 60:
         raise AssertionError("the fused edge term did not recover the position")
-    # The CLI's optimize, plain and fused, ran in a check worker.
-    for (label, rc, out, err), expect in zip(checks["cli"]["runs"],
-                                             ("final loss", "recovered")):
-        print(f"{label}: " + " | ".join(out.strip().splitlines()[-2:]))
+    # The CLI's optimize (plain, fused, and with the autograd path's edge
+    # terms), render --checkpoint / --resume, demo and the TUI ran in a
+    # check worker.
+    for label, rc, out, err, expect in checks["cli"]["runs"]:
+        print(f"{label}: " + " | ".join(out.strip().splitlines()[-4:]))
         if rc != 0 or expect not in out:
             raise AssertionError(f"{label} failed ({rc}): {err[-2000:]}")
 
@@ -3343,6 +3680,7 @@ def main() -> int:
          "main_shape_share_off": k3_share, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
          "library_ms": None, "state": "redesigned, PR 11",
+         "edge_step": edge_step,
          "ptxas": {k: v for k, v in walk_ptxas.items()
                    if k.startswith("march")}},
         {"name": "train_fused", "route": "cuda",

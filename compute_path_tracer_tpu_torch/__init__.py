@@ -10,11 +10,31 @@ Package layout (module names follow the JAX package):
   ops/       RNG, camera, AABB, tonemap device math
   render/    bake, packed shape tables, shading and bounce loop, session
   kernels/   CUDA kernels (csrc/), their build script and torch wrappers
-  io/        PNG export
-  app/       CLI, settings, timing
+  diff/      implicit-gradient march, edge estimators, inverse rendering
+  io/        PNG export and checkpoints
+  app/       CLI, settings, timing, the live-editing demo and TUI
 
 Functions that take tensors run on those tensors' device; functions that
 make tensors from host data take an explicit ``device``.
+
+``__all__`` is the JAX package's.  The JAX package's ``parallel/`` (device
+meshes and collectives) has no counterpart yet: ROADMAP queue 1, item 13.
 """
 
 __version__ = "0.1.0"
+
+from . import constants, vecmath
+from .scene import Scene, Shape, Union, compile_scene
+from .render import render_accumulated, render_frame
+
+__all__ = [
+    "constants",
+    "vecmath",
+    "Scene",
+    "Shape",
+    "Union",
+    "compile_scene",
+    "render_accumulated",
+    "render_frame",
+    "__version__",
+]

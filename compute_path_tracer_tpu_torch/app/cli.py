@@ -1,27 +1,38 @@
-"""Command-line interface: headless progressive render to PNG (JAX package:
-``app/cli.py``).
+"""Command-line interface: headless progressive render to PNG, inverse
+rendering, and the live-editing demo (JAX package: ``app/cli.py``).
 
 ``render`` runs in the three modes of the JAX CLI's Pallas backend:
-``faithful`` (the sphere march over the faithful geometry), ``tcull``
-(baked geometry, t-interval-culled march) and ``analytic`` (the
-full-analytic bounce, union-only scenes):
+``faithful`` (the sphere march over the faithful geometry, K2), ``tcull``
+(baked geometry, t-interval-culled march, K2) and ``analytic`` (the
+full-analytic bounce, union-only scenes, K1).  ``--checkpoint DIR`` writes
+the scene, params, accumulator and frame counters after the frames (the
+JAX package's format, io/checkpoint.py); ``--resume DIR`` starts from such
+a checkpoint (its scene, accumulator and counters), so that ``--frames N``
+more frames end bit for bit where an uninterrupted run would:
 
   python -m compute_path_tracer_tpu_torch render --scene csg_demo \
       --width 1920 --height 1080 --frames 16 --out out.png
+  python -m compute_path_tracer_tpu_torch render --frames 8 --checkpoint ck
+  python -m compute_path_tracer_tpu_torch render --frames 8 --resume ck
 
 ``optimize`` is inverse rendering to a target image (by default the
-self-target demo: perturb the params, recover the scene), with the smooth
-gradient of diff/, or with ``--fused`` the fused train step (``--edge-grad``
-and ``--edge-secondary`` add its silhouette terms; with ``--fused`` the
-refract_chance slots are not perturbed):
+self-target demo: perturb the params, recover the scene), through the
+autograd path of diff/ or, with ``--fused``, the fused train step (with
+``--fused`` the refract_chance slots are not perturbed).  ``--edge-grad``
+adds the silhouette gradient and ``--edge-secondary`` its secondary-bounce
+term, on either path:
 
   python -m compute_path_tracer_tpu_torch optimize --steps 50
-  python -m compute_path_tracer_tpu_torch optimize --fused --edge-grad \
-      --perturb-what position
+  python -m compute_path_tracer_tpu_torch optimize --edge-grad \
+      --perturb-what position --scene edge_demo --bounces 0
 
-``--device cpu`` runs the kernels' plain torch versions.  ``demo`` and
-``info``, and ``--edge-grad`` / ``--edge-secondary`` without ``--fused``,
-raise ``NotImplementedError``.
+``demo`` watches a scene JSON and re-renders on each save, printing the
+refresh or recompile cost of the edit (app/demo.py); ``--tui`` opens the
+terminal editor (app/tui.py) instead.  The JAX CLI's ``--backend
+xla|pallas`` is ``--device`` and ``--mode`` here.
+
+``--device cpu`` runs the kernels' plain torch versions.  ``info`` raises
+``NotImplementedError`` (ROADMAP queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -56,21 +67,50 @@ MODES = {
 }
 
 
-def cmd_render(args) -> int:
+def _frame_fn(mode: str):
     from functools import partial
 
-    from ..app.config import Settings
     from ..kernels.megakernel import render_frame_megakernel
+
+    return partial(render_frame_megakernel, **MODES[mode])
+
+
+def resume_session(sess, state) -> None:
+    """Continue ``sess`` from a loaded checkpoint: its accumulator (which
+    must have the session's render size) and frame counters."""
+    import torch
+
+    accum = torch.as_tensor(state["accum"], dtype=torch.float32)
+    if tuple(accum.shape) != (sess.render_height, sess.render_width, 3):
+        raise ValueError(f"the checkpoint's accumulator is {tuple(accum.shape)}"
+                         f", the session renders {sess.render_height}x"
+                         f"{sess.render_width}")
+    sess.update()
+    sess.accum = accum.to(sess.device)
+    sess.frame = int(state["frame"])
+    sess.last_clear = int(state["last_clear"])
+
+
+def cmd_render(args) -> int:
+    from ..app.config import Settings
     from ..render.session import RenderSession
 
-    scene = _load_scene(args.scene)
+    state = None
+    if args.resume:
+        from ..io.checkpoint import load_checkpoint
+
+        state = load_checkpoint(args.resume)
+        scene = state["scene"]
+    else:
+        scene = _load_scene(args.scene)
     settings = Settings(
         debug=args.debug, bounces=args.bounces, scale=args.scale, fov=args.fov
     ).validate()
     sess = RenderSession(scene, args.width, args.height, settings,
-                         frame_fn=partial(render_frame_megakernel,
-                                          **MODES[args.mode]),
-                         device=args.device)
+                         frame_fn=_frame_fn(args.mode), device=args.device)
+    if state is not None:
+        resume_session(sess, state)
+        print(f"resumed {args.resume} at frame {sess.frame}")
 
     t0 = time.perf_counter()
     sess.render(args.frames)
@@ -83,6 +123,13 @@ def cmd_render(args) -> int:
         f"on {sess.device} in {dt:.2f}s "
         f"({px * args.frames / dt / 1e6:.1f} Mpix/s) -> {args.out}"
     )
+    if args.checkpoint:
+        from ..io.checkpoint import save_checkpoint
+
+        save_checkpoint(args.checkpoint, scene=sess.scene, params=sess.params,
+                        accum=sess.accum, frame=sess.frame,
+                        last_clear=sess.last_clear)
+        print(f"checkpoint -> {args.checkpoint}")
     return 0
 
 
@@ -94,11 +141,6 @@ def cmd_optimize(args) -> int:
     from ..render.scenegen import material_slot_matrix
     from ..scene import compile_scene, params_from_numpy
 
-    if (args.edge_grad or args.edge_secondary) and not args.fused:
-        raise NotImplementedError("--edge-grad / --edge-secondary without "
-                                  "--fused need the XLA silhouette "
-                                  "estimators, which are not ported "
-                                  "(ROADMAP queue 1, item 8.1)")
     scene = _load_scene(args.scene)
     cs = compile_scene(scene)
     device = torch.device(args.device)
@@ -122,8 +164,8 @@ def cmd_optimize(args) -> int:
     pos_slot = None
     if args.perturb_what == "position":
         # Silhouette-recovery demo: offset one shape's x-position and
-        # optimize only that slot back (smooth gradients of a position are
-        # near zero; the JAX package pairs this with --edge-grad).
+        # optimize only that slot back.  Smooth gradients of a position are
+        # (near) zero: this is the case --edge-grad exists for.
         pos_slot = cs.spec.roots[0].children_shapes[0].transform.pos[0]
         init[pos_slot] += args.perturb
         mask = np.zeros_like(init)
@@ -156,6 +198,40 @@ def cmd_optimize(args) -> int:
     return 0
 
 
+def cmd_demo(args) -> int:
+    """Two-speed live-editing demo: watch a scene JSON and re-render on
+    save, printing the refresh or recompile cost (the reference's live
+    editor loop, sdf_editor.rs:35-47, headless)."""
+    from ..app.config import Settings
+    from ..app.demo import watch_scene
+    from ..render.session import RenderSession
+    from ..scene.io import load_scene, save_scene
+
+    if not os.path.exists(args.scene):
+        # Seed the watched file from a builtin, so there is something to edit.
+        save_scene(_load_scene(args.seed), args.scene)
+        print(f"seeded {args.scene} from builtin '{args.seed}': edit it and "
+              "save")
+    scene = load_scene(args.scene)
+    settings = Settings(debug=args.debug, bounces=args.bounces).validate()
+    if args.tui:
+        from ..app.tui import run_tui
+
+        run_tui(scene, args.width, args.height, settings=settings,
+                frame_fn=_frame_fn(args.mode), device=args.device)
+        return 0
+    sess = RenderSession(scene, args.width, args.height, settings,
+                         frame_fn=_frame_fn(args.mode), device=args.device)
+    print(f"watching {args.scene} on {sess.device} (ctrl-c to stop); "
+          f"renders -> {args.out}")
+    try:
+        watch_scene(sess, args.scene, frames=args.frames, out=args.out,
+                    max_events=args.max_events)
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
 def _not_ported(name):
     def run(args):
         raise NotImplementedError(
@@ -184,6 +260,11 @@ def main(argv=None) -> int:
                    help="torch device; 'cpu' runs the kernel's plain version")
     r.add_argument("--out", default="image.png")
     r.add_argument("--tonemap", default="gamma", choices=("gamma", "aces"))
+    r.add_argument("--checkpoint", default=None,
+                   help="write a checkpoint directory after the frames")
+    r.add_argument("--resume", default=None,
+                   help="start from a checkpoint directory (its scene, "
+                        "accumulator and frame counters)")
     r.set_defaults(fn=cmd_render)
 
     o = sub.add_parser("optimize", help="inverse rendering to a target image")
@@ -204,18 +285,40 @@ def main(argv=None) -> int:
     o.add_argument("--perturb-what", default="all", choices=("all", "position"),
                    help="'position': offset one shape's x and recover it")
     o.add_argument("--edge-grad", action="store_true",
-                   help="with --fused: the primary silhouette gradient term")
+                   help="add the silhouette (visibility edge) gradient")
     o.add_argument("--edge-secondary", action="store_true",
-                   help="with --fused --edge-grad: the secondary-bounce "
-                        "silhouette term")
+                   help="with --edge-grad: extend it to secondary-bounce "
+                        "visibility edges")
     o.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
     o.set_defaults(fn=cmd_optimize)
 
-    for name, text in (("demo", "watch a scene JSON; re-render on save"),
-                       ("info", "device / topology info")):
-        sub.add_parser(name, help=f"{text} (not ported yet)").set_defaults(
-            fn=_not_ported(name))
+    d = sub.add_parser(
+        "demo", help="watch a scene JSON; re-render on save (two-speed edits)")
+    d.add_argument("--scene", default="data/maps/live.json",
+                   help="JSON to watch")
+    d.add_argument("--seed", default="csg_demo",
+                   help="builtin to seed the file from when it is missing")
+    d.add_argument("--width", type=int, default=256)
+    d.add_argument("--height", type=int, default=256)
+    d.add_argument("--frames", type=int, default=4)
+    d.add_argument("--bounces", type=int, default=4)
+    d.add_argument("--debug", type=int, default=0, choices=(0, 1, 2, 3))
+    d.add_argument("--mode", default="faithful", choices=tuple(MODES),
+                   help="as render's --mode")
+    d.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the kernel's plain version")
+    d.add_argument("--out", default="live.png")
+    d.add_argument("--max-events", type=int, default=None,
+                   help="stop after N edits (default: run until ctrl-c)")
+    d.add_argument("--tui", action="store_true",
+                   help="interactive terminal editor (arrow-key param "
+                        "nudging on the live scene tree) instead of the "
+                        "file watch")
+    d.set_defaults(fn=cmd_demo)
+
+    sub.add_parser("info", help="device / topology info (not ported yet)"
+                   ).set_defaults(fn=_not_ported("info"))
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -1,5 +1,6 @@
-"""Runtime configuration: the reference's Settings uniform analog (JAX
-package: ``app/config.py``; reference path_tracer.rs:149-163)."""
+"""Runtime configuration: the reference's Settings and Constants uniform
+analogs (JAX package: ``app/config.py``; reference
+path_tracer.rs:149-163)."""
 
 from __future__ import annotations
 
@@ -40,3 +41,13 @@ class Settings:
         if self.aabb not in (0, 1):
             raise ValueError("aabb must be 0 or 1")
         return self
+
+
+@dataclasses.dataclass
+class Constants:
+    """Per-frame driver-set state (path_tracer.rs:149-155)."""
+
+    time: float = 0.0
+    frame: int = 0
+    aspect: float = 1.0
+    last_clear: int = 0

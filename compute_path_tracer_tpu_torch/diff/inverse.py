@@ -12,7 +12,7 @@ import torch
 from ..kernels.train import check_no_refraction, make_fused_value_and_grad
 from ..render.scenegen import material_slot_matrix
 from ..scene.compile import SceneSpec
-from .vjp import check_smooth_only, make_loss
+from .vjp import make_loss
 
 
 class OptimizeResult(NamedTuple):
@@ -60,10 +60,11 @@ def optimize_to_target(
     geometry, the on-chip march and detached normals, so it rejects explicit
     ``implicit``, ``geometry`` or ``march`` knobs, and scenes with a
     non-zero refract_chance (``ValueError``); it pins the refract_chance
-    slots at their zero start.  ``edge_grad=True`` adds its silhouette term
-    (without it no position can move), ``edge_secondary`` the secondary
-    one.  The XLA edge estimators behind ``edge_grad`` with ``fused=False``
-    are not ported and raise ``NotImplementedError``.
+    slots at their zero start.  ``edge_grad=True`` adds the silhouette
+    term (without it no position can move) and ``edge_secondary`` the
+    secondary one, on either path: the fused step's own terms with
+    ``fused=True``, the autograd path's estimators (diff/vjp.py) without;
+    ``edge_beta`` and ``edge_beta2`` scale their bandwidths.
     """
     if device is None:
         device = (init_params.device if isinstance(init_params, torch.Tensor)
@@ -96,10 +97,11 @@ def optimize_to_target(
                            device=device)] = 0.0
         mask = rc if mask is None else mask * rc
     else:
-        check_smooth_only(edge_grad, edge_secondary)
         loss_fn = make_loss(
             spec, target, width=width, height=height, bounces=bounces,
-            spp=spp, implicit=implicit, geometry=geometry, march=march)
+            spp=spp, implicit=implicit, geometry=geometry, march=march,
+            edge_grad=edge_grad, edge_beta=edge_beta,
+            edge_secondary=edge_secondary, edge_beta2=edge_beta2)
     # optax.adam updates by -lr * m_hat / (sqrt(v_hat) + eps) with m_hat =
     # m / (1 - b1^t) and v_hat = v / (1 - b2^t), the corrections in float32
     # (1 - 0.999 rounds to 0.0009999871, 1.3e-5 off); torch takes them in

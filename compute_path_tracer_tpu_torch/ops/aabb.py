@@ -11,6 +11,11 @@ from __future__ import annotations
 from ..vecmath import Vec3, vmax, vmin
 
 
+def aabb_from_pos_size(pos: Vec3, size: Vec3):
+    """Box (min, max) = (pos - size, pos + size) (aabb.glsl:13-19)."""
+    return pos - size, pos + size
+
+
 def intersect_aabb(ro: Vec3, rd: Vec3, bmin: Vec3, bmax: Vec3):
     """Slab test; returns (t_near, t_far) (aabb.glsl:21-29)."""
     t_min = (bmin - ro) / rd

@@ -56,6 +56,11 @@ def sd_octahedron(p: Vec3, s):
 # -- spatial transforms -----------------------------------------------------
 
 
+def move(p: Vec3, by: Vec3) -> Vec3:
+    """Translation: p - by (shapes.glsl:30-32)."""
+    return p - by
+
+
 def rot3d_cs(p: Vec3, cx, sx, cy, sy, cz, sz) -> Vec3:
     """:func:`rot3d` from the angles' cosines and sines, so that a caller
     may compute them once per frame (the marching kernel reads them from its

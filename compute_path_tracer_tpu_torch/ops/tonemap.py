@@ -34,6 +34,25 @@ def linear_to_srgb(rgb: Vec3) -> Vec3:
     return Vec3(chan(rgb.x), chan(rgb.y), chan(rgb.z))
 
 
+def srgb_to_linear(rgb: Vec3) -> Vec3:
+    """Inverse sRGB transfer (render_texture_shader.wgsl:40-47)."""
+    rgb = vclamp(rgb, 0.0, 1.0)
+
+    def chan(v):
+        hi = torch.pow((v + 0.055) / 1.055, 2.4)
+        lo = v / 12.92
+        return torch.where(v < 0.04045, lo, hi)
+
+    return Vec3(chan(rgb.x), chan(rgb.y), chan(rgb.z))
+
+
 def color_correction(color: Vec3, exposure: float = 1.0) -> Vec3:
     """Display transform: exposure * ACES * sRGB (wgsl:62-72)."""
     return linear_to_srgb(aces_film(color * exposure))
+
+
+def gamma_encode(color: Vec3, gamma: float = 2.2) -> Vec3:
+    """Plain power-law encode of the reference's PNG export
+    (state.rs:280-292)."""
+    c = vclamp(color, 0.0, 1.0)
+    return Vec3(*(torch.pow(v, 1.0 / gamma) for v in c))

@@ -254,8 +254,27 @@ def roulette(rng, new_thr: Vec3):
     return rng, ~(r_rr > p_rr), new_thr * inv_p
 
 
+class Segments(NamedTuple):
+    """Per-bounce ray-segment state of :func:`path_trace` over all ``n``
+    rays, stacked on a leading ``bounces + 1`` axis: ``ro``, ``rd``, ``thr``
+    (Vec3 of (bounces + 1, n)), ``ret_before`` (the radiance gathered before
+    the bounce) and ``alive`` (int32, 1 where the path enters the bounce)
+    are the state entering bounce b; ``t`` (detached) and ``idx`` are bounce
+    b's cast.  Lanes with ``alive == 0`` hold zeros (``idx`` -1) and are
+    not read."""
+
+    ro: Vec3
+    rd: Vec3
+    thr: Vec3
+    ret_before: Vec3
+    alive: Any
+    t: Any
+    idx: Any
+
+
 def path_trace(bounds_fn, cast_fn, normal_fn, gather_mat, ro: Vec3, rd: Vec3,
-               rng, bounces: int, remat: bool = False, on_bounce=None):
+               rng, bounces: int, remat: bool = False, on_bounce=None,
+               collect_segments: bool = False):
     """Monte-Carlo bounce loop (test_compute.glsl:91-166) over (n,) rays.
 
     Per bounce ``bounds_fn(ro, rd) -> checks`` is computed once and handed to
@@ -275,20 +294,31 @@ def path_trace(bounds_fn, cast_fn, normal_fn, gather_mat, ro: Vec3, rd: Vec3,
     deterministic.  ``on_bounce(lanes)``, when given, receives at each
     bounce the indices of the rays the bounce casts among the ``n`` it
     started with (debug 4's statistics map the rays back to their pixels
-    with them)."""
+    with them).
+
+    ``collect_segments=True`` also returns the per-bounce state the
+    secondary edge estimator reads (diff/vjp.py), as :class:`Segments`:
+    each bounce's live lanes are scattered out of place into full-``n``
+    planes, so a secondary segment's ``ro`` and ``rd`` stay differentiable
+    back to the previous bounce's hit point and its cast.  JAX ignores
+    ``remat`` when it collects; here ``remat`` still checkpoints each
+    bounce, and values and gradients are the same either way."""
     n = ro.x.shape[0]
     zero = torch.zeros_like(ro.x)
     ret = Vec3(zero, zero, zero)
     i_exit = torch.full_like(ro.x, bounces + 1, dtype=torch.int32)
     lanes = torch.arange(n, device=ro.x.device)
     thr = Vec3.splat(torch.ones_like(ro.x))
+    segs = []
 
     def bounce(lanes, ro, rd, thr, rng):
         """One bounce of the live paths: returns the lanes that missed, the
         lanes that hit with their emission times throughput, the lanes the
-        roulette killed, and the survivors' state."""
+        roulette killed, the survivors' state, and the cast of every lane
+        of the bounce."""
         checks = bounds_fn(ro, rd)
         t, idx, *cast_n = cast_fn(ro, rd, checks)
+        cast = (t.detach(), idx)
         hit = ~(t > FP)
         missed = lanes[~hit]
         lanes, ro, rd, thr, rng = (lanes[hit], _sel(ro, hit), _sel(rd, hit),
@@ -303,21 +333,46 @@ def path_trace(bounds_fn, cast_fn, normal_fn, gather_mat, ro: Vec3, rd: Vec3,
         gain = emit * thr
         rng, surv, new_thr = roulette(rng, thr * thr_factor / ray_prob)
         return (missed, lanes, gain, lanes[~surv], lanes[surv], _sel(ro, surv),
-                _sel(rd, surv), rng[surv], _sel(new_thr, surv))
+                _sel(rd, surv), rng[surv], _sel(new_thr, surv), *cast)
+
+    def full(v, fill=0):
+        """A per-lane tensor of the live lanes as a full-n plane."""
+        return torch.full((n,), fill, dtype=v.dtype,
+                          device=v.device).index_put((lanes,), v)
 
     for i in range(bounces + 1):
         if lanes.numel() == 0:
-            break
+            if not collect_segments:
+                break
+            segs.append((Vec3(zero, zero, zero),) * 3 + (
+                ret, torch.zeros_like(i_exit), zero,
+                torch.full_like(i_exit, -1)))
+            continue
         if on_bounce is not None:
             on_bounce(lanes)
         state = (lanes, ro, rd, thr, rng)
         out = (checkpoint(bounce, *state, use_reentrant=False) if remat
                else bounce(*state))
-        missed, hit_lanes, gain, dead, lanes, ro, rd, rng, thr = out
+        if collect_segments:
+            segs.append((Vec3(*map(full, ro)), Vec3(*map(full, rd)),
+                         Vec3(*map(full, thr)), ret,
+                         full(torch.ones_like(lanes, dtype=torch.int32)),
+                         full(out[9]), full(out[10], -1)))
+        missed, hit_lanes, gain, dead, lanes, ro, rd, rng, thr = out[:9]
         i_exit[missed] = i
         ret = Vec3(*(acc.index_add(0, hit_lanes, g) for acc, g in zip(ret, gain)))
         i_exit[dead] = i
-    return ret, i_exit
+    if not collect_segments:
+        return ret, i_exit
+
+    def stack(k):
+        return torch.stack([s[k] for s in segs])
+
+    def stack3(k):
+        return Vec3(*(torch.stack([s[k][c] for s in segs]) for c in range(3)))
+
+    return ret, i_exit, Segments(stack3(0), stack3(1), stack3(2), stack3(3),
+                                 stack(4), stack(5), stack(6))
 
 
 def normals_debug(bounds_fn, cast_fn, normal_fn, ro, rd) -> Vec3:

@@ -1,7 +1,7 @@
 """Port parity: the training path's entry points (JAX package:
 ``diff/inverse.py:optimize_to_target``, ``app/cli.py optimize``), the
-differentiable renderer on a CSG scene with a subtraction, and the options
-not ported yet (the fused step's entry points are in
+differentiable renderer on a CSG scene with a subtraction, and the edge
+options without the fused step (the fused step's entry points are in
 tests/test_torch_train_edge.py).
 
 Tolerances, with their reasons:
@@ -88,20 +88,31 @@ def test_inverse_rendering_recovers(march):
     np.testing.assert_array_equal(result.params.numpy()[frozen], init[frozen])
 
 
-def test_unported_options_raise():
+def test_edge_options_run_without_fused(capsys):
+    """The autograd path's edge estimators (no fused step): make_loss with
+    edge_grad and render_image_diff with edge_secondary give a finite loss,
+    gradient and image, and the CLI's optimize takes --edge-grad and
+    --edge-secondary without --fused.  The fused step still rejects
+    analytic_unboxed with analytic_all."""
     _, tc = scenes("sphere_plane")
-    p = torch.from_numpy(tc.params)
+    p = torch.from_numpy(tc.params.copy()).requires_grad_()
     target = np.zeros((4, 4, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_loss(tc.spec, target, width=4, height=4, edge_grad=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        render_image_diff(tc.spec, p, width=4, height=4, edge_secondary=True)
+    loss = make_loss(tc.spec, target, width=4, height=4, edge_grad=True)(p)
+    loss.backward()
+    assert np.isfinite(float(loss.detach()))
+    assert torch.isfinite(p.grad).all() and p.grad.abs().max() > 0
+    with torch.no_grad():
+        img = render_image_diff(tc.spec, p, width=4, height=4,
+                                edge_secondary=True)
+    assert img.shape == (4, 4, 3) and torch.isfinite(img).all()
     with pytest.raises(ValueError, match="analytic_all"):
         make_fused_value_and_grad(tc.spec, target, width=4, height=4,
                                   analytic_unboxed=True, analytic_all=True)
-    for flag in ("--edge-grad", "--edge-secondary"):
-        with pytest.raises(NotImplementedError):
-            cli_main(["optimize", "--device", "cpu", "--steps", "1", flag])
+    for flags in (["--edge-grad"], ["--edge-grad", "--edge-secondary"]):
+        assert cli_main(["optimize", "--device", "cpu", "--steps", "2",
+                         "--width", "16", "--height", "12", "--bounces", "1",
+                         *flags]) == 0
+        assert "final loss" in capsys.readouterr().out
 
 
 def test_cli_optimize_on_cpu(capsys):
