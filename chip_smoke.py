@@ -164,11 +164,25 @@ bit for bit an uninterrupted run under K1 (``--mode analytic``) and K2
 (``--mode tcull``), ``demo --max-events 2`` through a value edit and a
 structure edit, and the TUI's controller over a card session.
 
+and parallel/ (row-band and sample sharding over torch.distributed): K1
+and K2 (baked t-culled and faithful) render 1920x1080 and 320x180 frames as
+four bands (``row_offset``, ``crop_h``: 270 and 45 rows, the last row of
+blocks partial), as do K5 on ``benchmark_scene(256)``, K6 and RELAX at
+320x180, each through a RenderSession bit for bit the whole frame over two
+frames, and debug 4 as four even 1080p bands; then, through a one-rank
+NCCL group on the card, ``render_frame_sharded`` under K2 and K1 and
+``render_samples_sharded`` bit for bit the single-device frames and
+``make_sharded_train_step`` (through K3) and
+``make_fused_sharded_train_step`` (K4) against the single-device loss and
+gradient, as a main path whose launches are counted; and K1's and K2's
+1080p time as one launch and as four band launches.
+
 The checks against the plain versions that are host-bound plain passes
 (K2, K2b, K5, K6, K3's scattered rays, the gradients through K3 with and
 without the edge terms, K4 and debug 4 at 320x180; the 1080p plain passes
 of K2, K2b, K6, K4's analytic_unboxed step and the wavefront, which also
-count their work for the bounds; the CLI, checkpoint, demo and TUI runs)
+count their work for the bounds; the CLI, checkpoint, demo and TUI runs;
+parallel/'s band checks and sharded functions)
 run in CHECK_WORKERS processes of this script
 (``--check-worker``), started after the build and joined before the first
 timed phase, so no timing overlaps them; each worker's output, with each
@@ -1229,6 +1243,53 @@ def _drive_session(mk, key, sess, label, gpu, prims=N_PRIMS):
           f"{prims} prims, {BOUNCES} bounces: {frame_ms:.3f} ms/frame, "
           f"{rays:.4e} rays/s, mean {float(accum.mean()):.5f} [{gpu}]")
     return counts[key]
+
+
+def _band_split(mk, cuda_ms, spec, params, gpu):
+    """K1 (``analytic_all``) and K2 (baked, t-culled) at MAIN_W x MAIN_H as
+    one launch and as PARALLEL_BANDS band launches one after another (what
+    the ranks of a PARALLEL_BANDS-rank ``render_frame_sharded`` launch, here
+    on one card), kernel only, timed A B B A; returns {kernel: (one launch
+    ms, band launches ms)}, each the mean of its two runs."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.constants import DEFAULT_FOV
+    from compute_path_tracer_tpu_torch.render.baked import bake
+    from compute_path_tracer_tpu_torch.render.program import (
+        build_program, program_table)
+    from compute_path_tracer_tpu_torch.render.soa import (
+        build_soa_smem_layout, pack_soa_smem)
+
+    layout = build_soa_smem_layout(spec)
+    prog = build_program(spec, "baked")
+    with torch.no_grad():
+        soa = pack_soa_smem(layout, bake(spec, params), params)
+        table = program_table(prog, params, True)
+    accum = torch.zeros((MAIN_H, MAIN_W, 3), dtype=torch.float32,
+                        device=params.device)
+    run = dict(frame=1, last_clear=1, bounces=BOUNCES, fov=DEFAULT_FOV,
+               aspect=MAIN_W / MAIN_H, debug=0, height=MAIN_H)
+    band = MAIN_H // PARALLEL_BANDS
+    launch = {"K1": lambda a, r0: mk.launch_megakernel(
+                  layout, *soa, a, row_offset=r0, **run),
+              "K2": lambda a, r0: mk.launch_march(
+                  prog, table, a, t_cull=True, row_offset=r0, **run)}
+    out = {}
+    for name, fn in launch.items():
+        def whole():
+            fn(accum, 0)
+
+        def bands():
+            for r0 in range(0, MAIN_H, band):
+                fn(accum[r0:r0 + band], r0)
+
+        a1, a4, b4, b1 = (cuda_ms(f, 5) for f in (whole, bands, bands, whole))
+        out[name] = ((a1 + b1) / 2, (a4 + b4) / 2)
+        print(f"band split {name} at {MAIN_W}x{MAIN_H}, {BOUNCES} bounces: one "
+              f"launch {a1:.3f} / {b1:.3f} ms, {PARALLEL_BANDS} band launches "
+              f"of {band} rows {a4:.3f} / {b4:.3f} ms (x"
+              f"{out[name][1] / out[name][0]:.3f}) [{gpu}]")
+    return out
 
 
 def _main_shape_check(mk, key, spec, params, mode, label=None, count=None,
@@ -2394,6 +2455,215 @@ def _job_edge(dev):
     return {"flat_ball": (grads[1], fd)}
 
 
+def _band_fn(mk, mode, n):
+    """A RenderSession ``frame_fn`` that renders each frame as ``n`` row
+    bands of ``render_frame_megakernel`` (``row_offset``, ``crop_h``; the
+    last band takes the remainder), each into its rows of the
+    accumulator."""
+    import torch
+
+    def frame_fn(spec, params, accum=None, frame=0, last_clear=0, *, width,
+                 height, **kw):
+        if accum is None:
+            accum = torch.zeros((height, width, 3), dtype=torch.float32,
+                                device=params.device)
+        band = -(-height // n)
+        for row0 in range(0, height, band):
+            crop = min(band, height - row0)
+            mk.render_frame_megakernel(
+                spec, params, accum[row0:row0 + crop], frame, last_clear,
+                width=width, height=height, row_offset=row0, crop_h=crop,
+                **mode, **kw)
+        return accum
+
+    return frame_fn
+
+
+# The band checks of the parallel job: (label, scene, width, height,
+# bounces, mode); each renders two frames whole and as PARALLEL_BANDS bands.
+PARALLEL_BANDS = 4
+# The sharded steps' learning rate in the parallel job, a power of two
+# large enough that (params - new params) / PARALLEL_LR gives the gradient
+# back to float32's rounding of the gradient itself, not of the params.
+PARALLEL_LR = 2.0 ** 20
+
+
+def _band_cases():
+    from compute_path_tracer_tpu_torch.scene import benchmark_scene
+
+    cases = []
+    for w, h, b in ((MAIN_W, MAIN_H, BOUNCES),
+                    (CHECK_W, CHECK_H, CHECK_BOUNCES)):
+        cases += [(f"K1 analytic_all {w}x{h}", benchmark_scene(N_PRIMS), w, h,
+                   b, ANALYTIC),
+                  (f"K2 baked t_cull {w}x{h}", benchmark_scene(N_PRIMS), w, h,
+                   b, MARCH),
+                  (f"K2 faithful {w}x{h}", benchmark_scene(N_PRIMS), w, h, b,
+                   {})]
+    return cases + [
+        (f"K5 analytic_soa benchmark_scene(256) {CHECK_W}x{CHECK_H}",
+         benchmark_scene(256), CHECK_W, CHECK_H, CHECK_BOUNCES, SOA),
+        (f"K6 dist_grid {CHECK_W}x{CHECK_H}", benchmark_scene(N_PRIMS),
+         CHECK_W, CHECK_H, CHECK_BOUNCES, GRID),
+        (f"RELAX omega {OMEGA} {CHECK_W}x{CHECK_H}", benchmark_scene(N_PRIMS),
+         CHECK_W, CHECK_H, CHECK_BOUNCES, dict(MARCH, omega=OMEGA))]
+
+
+def _band_checks(mk, dev):
+    """Each of ``_band_cases`` through a RenderSession rendering whole
+    frames and one rendering PARALLEL_BANDS bands (``_band_fn``), two frames
+    each (the second a running mean): bit for bit; and debug 4 at
+    MAIN_W x MAIN_H as PARALLEL_BANDS even bands, bit for bit the whole
+    frame's statistics."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.app.config import Settings
+    from compute_path_tracer_tpu_torch.render.session import RenderSession
+
+    for label, scene, w, h, bounces, mode in _band_cases():
+        before = dict(mk.LAUNCHES)
+        imgs = []
+        for frame_fn in (partial(mk.render_frame_megakernel, **mode),
+                         _band_fn(mk, mode, PARALLEL_BANDS)):
+            sess = RenderSession(scene, w, h, Settings(debug=0, bounces=bounces),
+                                 frame_fn=frame_fn, device=dev)
+            sess.step()
+            imgs.append(sess.step())
+        torch.cuda.synchronize()
+        launched = sum(mk.LAUNCHES[k] - before[k] for k in before)
+        if launched != 2 * (1 + PARALLEL_BANDS):
+            raise AssertionError(f"{label}: {launched} kernel launches")
+        equal = bool(torch.equal(*imgs))
+        print(f"check {label} as {PARALLEL_BANDS} bands of "
+              f"{-(-h // PARALLEL_BANDS)} rows, 2 frames through the session: "
+              f"{'bit-equal' if equal else 'DIFFERENT'}", flush=True)
+        if not equal:
+            raise AssertionError(f"{label}: the bands are not the frame")
+    spec, sp = _scene("bench", dev)
+    kw = dict(width=MAIN_W, height=MAIN_H, bounces=BOUNCES, debug=4, **MARCH)
+    whole = mk.render_frame_megakernel(spec, sp, **kw)
+    bands = _band_fn(mk, {}, PARALLEL_BANDS)(spec, sp, **kw)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(whole, bands))
+    print(f"check K2 debug 4 {MAIN_W}x{MAIN_H} as {PARALLEL_BANDS} bands: "
+          f"{'bit-equal' if equal else 'DIFFERENT'}", flush=True)
+    if not equal:
+        raise AssertionError("debug 4's bands are not the frame's statistics")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _job_parallel(dev):
+    """parallel/: the band checks (``_band_checks``), then the four sharded
+    functions through a one-rank NCCL group on the card as a main path
+    (every kernel count set to 0 just before, read just after; K1, K2, K3
+    and K4 must each launch): ``render_frame_sharded`` under K2 and K1 at
+    MAIN_W x MAIN_H bit for bit the single-device frames,
+    ``render_samples_sharded`` (2 frames) bit for bit
+    ``render_accumulated_megakernel``, and at CHECK_W x CHECK_H
+    ``make_sharded_train_step`` (TRAIN: the march through K3) against
+    ``make_loss``'s gradient and ``make_fused_sharded_train_step`` (K4 with
+    edge_grad) against ``make_fused_value_and_grad``'s: the fused loss
+    equal, the autograd one and both gradients under the GRAD_* gates (the
+    bands' sums and torch's scatter sums reorder the gradient's terms),
+    each gradient read back from a step at PARALLEL_LR."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from compute_path_tracer_tpu_torch.diff import make_loss
+    from compute_path_tracer_tpu_torch.kernels import march as km
+    from compute_path_tracer_tpu_torch.kernels import megakernel as mk
+    from compute_path_tracer_tpu_torch.kernels import train as tm
+    from compute_path_tracer_tpu_torch.parallel import (
+        make_fused_sharded_train_step, make_mesh, make_sharded_train_step,
+        render_frame_sharded, render_samples_sharded)
+
+    _band_checks(mk, dev)
+    spec, sp = _scene("bench", dev)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    target = (torch.rand((CHECK_H, CHECK_W, 3), generator=gen) * 0.3).to(dev)
+    main = dict(width=MAIN_W, height=MAIN_H, bounces=BOUNCES)
+    check = dict(width=CHECK_W, height=CHECK_H, bounces=GRAD_BOUNCES)
+    fused = dict(edge_grad=True)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0,
+                            timeout=timedelta(seconds=300))
+    try:
+        mesh = make_mesh(1)
+        counts = (mk.LAUNCHES, km.LAUNCHES, tm.LAUNCHES)
+        for c in counts:
+            for k in c:
+                c[k] = 0
+        t0 = time.perf_counter()
+        frames = [render_frame_sharded(spec, sp, mesh, **main, **mode)
+                  for mode in (MARCH, ANALYTIC)]
+        samples = render_samples_sharded(spec, sp, mesh, 2, backend="kernel",
+                                         **main)
+        new, loss = make_sharded_train_step(
+            spec, mesh, learning_rate=PARALLEL_LR, **TRAIN, **check)(
+                sp, target, 0)
+        fnew, floss = make_fused_sharded_train_step(
+            spec, mesh, learning_rate=PARALLEL_LR, **fused, **check)(
+                sp, target, 0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: v for c in counts for k, v in c.items()}
+    finally:
+        dist.destroy_process_group()
+    print(f"main path parallel/ over a one-rank NCCL group: "
+          f"render_frame_sharded (K2, K1) and render_samples_sharded (2 "
+          f"frames) at {MAIN_W}x{MAIN_H}, the sharded and fused sharded "
+          f"steps at {CHECK_W}x{CHECK_H}: {dt:.2f} s, launches {launches}",
+          flush=True)
+    for k in ("megakernel_march", "megakernel_analytic", "march_rays",
+              "train_fused"):
+        if not launches.get(k):
+            raise AssertionError(f"parallel/'s main path did not launch {k}")
+    for label, got, want in (
+            ("render_frame_sharded K2", frames[0],
+             mk.render_frame_megakernel(spec, sp, **main, **MARCH)),
+            ("render_frame_sharded K1", frames[1],
+             mk.render_frame_megakernel(spec, sp, **main, **ANALYTIC)),
+            ("render_samples_sharded", samples,
+             mk.render_accumulated_megakernel(spec, sp, 2, geometry="baked",
+                                              t_cull=True, **main))):
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        print(f"check {label} over one NCCL rank, {MAIN_W}x{MAIN_H}: "
+              f"{'bit-equal' if equal else 'DIFFERENT'} to the single-device "
+              f"frame", flush=True)
+        if not equal:
+            raise AssertionError(f"{label} differs from the single device")
+    single = _grad(spec, sp, target, **TRAIN)
+    _grad_compare(f"make_sharded_train_step (one NCCL rank) vs make_loss, "
+                  f"{CHECK_W}x{CHECK_H}", (float(loss), (sp - new) / PARALLEL_LR),
+                  single,
+                  GRAD_LOSS_REL, GRAD_TOP_REL, GRAD_COS)
+    floss1, fgrad1 = tm.make_fused_value_and_grad(spec, target, **fused,
+                                                  **check)(sp)
+    fgrad = (sp - fnew) / PARALLEL_LR
+    same = bool(torch.equal(fnew, sp - PARALLEL_LR * fgrad1))
+    print(f"check make_fused_sharded_train_step (one NCCL rank) vs "
+          f"make_fused_value_and_grad: loss {float(floss):.8e} vs "
+          f"{float(floss1):.8e}, update "
+          f"{'bit-equal' if same else 'different'}", flush=True)
+    if float(floss) != float(floss1):
+        raise AssertionError("the fused sharded loss differs")
+    _grad_compare(f"make_fused_sharded_train_step vs "
+                  f"make_fused_value_and_grad, {CHECK_W}x{CHECK_H}",
+                  (float(floss), fgrad), (float(floss1), fgrad1),
+                  GRAD_LOSS_REL, GRAD_TOP_REL, GRAD_COS)
+    return {"launches": launches, "seconds": dt}
+
+
 def _cli(args, timeout=300):
     """``python -m compute_path_tracer_tpu_torch ARGS`` in a process of its
     own: (exit code, output, errors)."""
@@ -2580,7 +2850,7 @@ JOBS = {"k2 even": partial(_job_k2, part=0),
         "debug 4": _job_d4, "k2 1080p": _job_k2_main,
         "k2b 1080p": _job_k2b_main, "k6 1080p": _job_k6_main,
         "k4b 1080p": _job_k4b_main, "wavefront": _job_wavefront,
-        "cli": _job_cli, "edge": _job_edge}
+        "cli": _job_cli, "edge": _job_edge, "parallel": _job_parallel}
 # The kernel-vs-plain checks run in CHECK_WORKERS processes of this script
 # (CHECK_WORKER), one a group, all started after the build and joined before
 # the first timed phase, so no timing overlaps them: they are host-bound
@@ -2591,7 +2861,7 @@ CHECK_WORKER = "--check-worker"
 CHECK_WORKERS = (("k4",), ("k4b", "k3"), ("debug 4", "k4b 1080p"),
                  ("k2 even", "k2 1080p"), ("k2 odd", "gradients through k3"),
                  ("k2b and k5", "k6 1080p"), ("k6", "k2b 1080p"),
-                 ("wavefront", "cli"), ("edge",))
+                 ("wavefront", "cli"), ("edge", "parallel"))
 
 
 def _to_host(obj):
@@ -3047,6 +3317,13 @@ def main() -> int:
     print(f"K2 with omega {OMEGA} at {MAIN_W}x{MAIN_H}: kernel "
           f"{k2_omega_ms:.3f} ms [{gpu}]")
     del sess, scratch
+
+    _stamp(start, "band split")
+    # -- K1 and K2 as PARALLEL_BANDS band launches (parallel/'s bands) -------
+    band_split = _band_split(mk, cuda_ms, spec, sp, gpu)
+    print(f"parallel/ main path (the check worker's one-rank NCCL group): "
+          f"{checks['parallel']['seconds']:.2f} s, launches "
+          f"{checks['parallel']['launches']}")
 
     _stamp(start, "K2b main path")
     # -- K2b main path: RenderSession at 1080p, analytic_unboxed ------------
@@ -3663,7 +3940,7 @@ def main() -> int:
          "library_ms": None,
          "state": "redesigned: staged records, refill, hoisted reciprocal",
          "lanes": k1_lanes, "quotient_triples": quotient,
-         "ptxas": k1_ptxas},
+         "band_split_ms": band_split["K1"], "ptxas": k1_ptxas},
         {"name": "megakernel_march", "route": "cuda",
          "source": csrc + "megakernel_march.cu", "replaces": replaces,
          "launches": k2_launches, "max_abs_err": k2_err,
@@ -3671,6 +3948,7 @@ def main() -> int:
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None, "state": "redesigned, PR 11",
          "mean_list_per_bounce": walk_mean,
+         "band_split_ms": band_split["K2"],
          "ptxas": {k: v for k, v in walk_ptxas.items()
                    if k.startswith("megakernel_walk") and k.endswith(",0>")}},
         {"name": "march_rays", "route": "cuda",

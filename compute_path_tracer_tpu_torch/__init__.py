@@ -12,13 +12,14 @@ Package layout (module names follow the JAX package):
   kernels/   CUDA kernels (csrc/), their build script and torch wrappers
   diff/      implicit-gradient march, edge estimators, inverse rendering
   io/        PNG export and checkpoints
+  parallel/  row-band and sample sharding over torch.distributed, gradient
+             all-reduce, multi-process bring-up, checkpoint recovery
   app/       CLI, settings, timing, the live-editing demo and TUI
 
 Functions that take tensors run on those tensors' device; functions that
 make tensors from host data take an explicit ``device``.
 
-``__all__`` is the JAX package's.  The JAX package's ``parallel/`` (device
-meshes and collectives) has no counterpart yet: ROADMAP queue 1, item 13.
+``__all__`` is the JAX package's.
 """
 
 __version__ = "0.1.0"

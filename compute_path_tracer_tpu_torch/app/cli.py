@@ -31,8 +31,11 @@ refresh or recompile cost of the edit (app/demo.py); ``--tui`` opens the
 terminal editor (app/tui.py) instead.  The JAX CLI's ``--backend
 xla|pallas`` is ``--device`` and ``--mode`` here.
 
-``--device cpu`` runs the kernels' plain torch versions.  ``info`` raises
-``NotImplementedError`` (ROADMAP queue 1, item 13).
+``info`` prints the process's topology (parallel/distributed.py:
+``local_device_info``) and its devices, on the card unless ``--device
+cpu`` is given; without a card it exits 1.
+
+``--device cpu`` runs the kernels' plain torch versions.
 """
 
 from __future__ import annotations
@@ -232,12 +235,26 @@ def cmd_demo(args) -> int:
     return 0
 
 
-def _not_ported(name):
-    def run(args):
-        raise NotImplementedError(
-            f"the {name!r} subcommand is not ported yet (see ROADMAP.md)")
+def cmd_info(args) -> int:
+    import json
 
-    return run
+    import torch
+
+    from ..parallel import local_device_info
+
+    if torch.device(args.device).type == "cuda":
+        if not torch.cuda.is_available():
+            print("info: no CUDA device; run on an NVIDIA GPU or pass "
+                  "--device cpu", file=sys.stderr)
+            return 1
+        devices = [f"cuda:{i} {torch.cuda.get_device_name(i)}"
+                   for i in range(torch.cuda.device_count())]
+    else:
+        devices = [args.device]
+    info = local_device_info(args.device)
+    info["devices"] = devices
+    print(json.dumps(info, indent=2))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -317,8 +334,10 @@ def main(argv=None) -> int:
                         "file watch")
     d.set_defaults(fn=cmd_demo)
 
-    sub.add_parser("info", help="device / topology info (not ported yet)"
-                   ).set_defaults(fn=_not_ported("info"))
+    i = sub.add_parser("info", help="device / topology info")
+    i.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' describes the CPU process")
+    i.set_defaults(fn=cmd_info)
 
     args = ap.parse_args(argv)
     return args.fn(args)

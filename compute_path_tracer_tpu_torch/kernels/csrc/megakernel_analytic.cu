@@ -10,7 +10,10 @@
 // membership (with the first-shape clobber), the closed-form nearest hit
 // over every leaf, the exact normal, the 18-channel material, shade_bounce
 // and Russian roulette, and finally the running mean accum*(1-w) + col*w
-// written in place into the (H, W, 3) float32 accumulator.
+// written in place into the (H, W, 3) float32 accumulator, or into a band
+// of its rows: JAX's row offset (iparams_ref[3], :1332-1336, which
+// parallel/mesh.py gives each shard) is row_offset here, and the band's
+// rows crop_h; each pixel keeps the RNG and camera of its row in the frame.
 //
 // What bounds it on an H100: issued instructions, not bytes (about 25 MB of
 // accumulator traffic per 1080p frame).  Each live bounce tests every
@@ -44,6 +47,9 @@
 //   The grid is as many blocks as fit the SMs at once; the table caps a
 //   scene at 232,448 bytes, about 1,600 shapes (render/soa.py:
 //   analytic_smem_bytes raises above it).
+// The band's row_offset and crop_h come last among the kernel's
+// parameters, so the parameters it had before keep their places in the
+// constant bank and its code changes only where the band is read.
 // With the three, lanes fill 0.91-0.96 of the casts and the kernel takes
 // 0.95-1.03 ms at 64 primitives, 12-13x its operation bound (PERF.md; NVIDIA
 // H100 80GB HBM3, 700.00 W).  What bounds it now is still the instructions
@@ -108,7 +114,8 @@ megakernel_analytic(const float* __restrict__ F, const int* __restrict__ I,
                     const int* __restrict__ stage_src, StagedMeta m,
                     float* __restrict__ accum, int width, int height, int frame,
                     int last_clear, int bounces, float fov, float aspect, int debug,
-                    int* __restrict__ tile_next, unsigned long long* __restrict__ stats) {
+                    int* __restrict__ tile_next, unsigned long long* __restrict__ stats,
+                    int row_offset, int crop_h) {
   extern __shared__ float4 smem4[];
   uint32_t* sw = reinterpret_cast<uint32_t*>(smem4);
   for (int i = threadIdx.x; i < m.n_words; i += kThreads) {
@@ -122,14 +129,15 @@ megakernel_analytic(const float* __restrict__ F, const int* __restrict__ I,
   const int lane = threadIdx.x & 31;
   const unsigned lower = (1u << lane) - 1u;
   const int tiles_x = (width + kTileW - 1) / kTileW;
-  const int n_tiles = tiles_x * ((height + kTileH - 1) / kTileH);
+  const int n_tiles = tiles_x * ((crop_h + kTileH - 1) / kTileH);
   unsigned long long st[ST_FIELDS] = {};
 
   // Warp-uniform: the warp's tile, how many of its pixels it handed out,
   // and whether the frame has tiles left.
   int tile = 0, taken = kTileW * kTileH;
   bool more = true;
-  // The lane's path.
+  // The lane's path; y is the pixel's row in the accumulator, the band's
+  // rows, and row_offset + y its row in the frame.
   bool have = false;
   int x = 0, y = 0, i = 0;
   uint32_t rng = 0;
@@ -155,8 +163,8 @@ megakernel_analytic(const float* __restrict__ F, const int* __restrict__ I,
         const int j = taken + rank;
         x = (tile % tiles_x) * kTileW + j % kTileW;
         y = (tile / tiles_x) * kTileH + j / kTileW;
-        if (x < width && y < height) {
-          primary_ray(x, y, frame, width, height, fov, aspect, rng, ro, rd);
+        if (x < width && y < crop_h) {
+          primary_ray(x, row_offset + y, frame, width, height, fov, aspect, rng, ro, rd);
           ret = v3(0.0f, 0.0f, 0.0f);
           thr = v3(1.0f, 1.0f, 1.0f);
           i = 0;
@@ -222,9 +230,9 @@ constexpr int kCachedDevices = 64;
 
 template <bool STATS, bool REFILL>
 int launch(const float* F, const int* I, const int* stage_src, const StagedMeta& m,
-           float* accum, int width, int height, int frame, int last_clear, int bounces,
-           float fov, float aspect, int debug, int* tile_next, unsigned long long* stats,
-           cudaStream_t stream) {
+           float* accum, int width, int height, int row_offset, int crop_h, int frame,
+           int last_clear, int bounces, float fov, float aspect, int debug, int* tile_next,
+           unsigned long long* stats, cudaStream_t stream) {
   static LaunchCache caches[kCachedDevices];
   auto kernel = megakernel_analytic<STATS, REFILL>;
   const int smem = 4 * m.n_words;
@@ -246,13 +254,13 @@ int launch(const float* F, const int* I, const int* stage_src, const StagedMeta&
   if (err != cudaSuccess) return static_cast<int>(err);
   if (c.per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long tiles =
-      (long long)((width + kTileW - 1) / kTileW) * ((height + kTileH - 1) / kTileH);
+      (long long)((width + kTileW - 1) / kTileW) * ((crop_h + kTileH - 1) / kTileH);
   const long long need = (tiles + kThreads / 32 - 1) / (kThreads / 32);
   const long long fit = (long long)c.per_sm * c.sms;
   const int blocks = (int)(need < fit ? need : fit);
   kernel<<<blocks, kThreads, smem, stream>>>(F, I, stage_src, m, accum, width, height, frame,
                                              last_clear, bounces, fov, aspect, debug, tile_next,
-                                             stats);
+                                             stats, row_offset, crop_h);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -276,28 +284,33 @@ __global__ void quotient_check(const float* __restrict__ b, const float* __restr
 // success).  soa_f and soa_i are the packed tables (render/soa.py:
 // pack_soa_smem), stage_src the staged table's source indices and `meta`
 // (a host pointer) its StagedMeta words (render/soa.py:StagedLayout);
-// accum is (height, width, 3) float32, contiguous, updated in place;
+// accum is (crop_h, width, 3) float32, contiguous, updated in place: the
+// frame's rows [row_offset, row_offset + crop_h), each pixel's RNG and
+// camera those of its row in the (height, width) frame, so a band is bit
+// for bit the whole frame's rows (row_offset 0 and crop_h = height: the
+// frame);
 // tile_next one int32 of device scratch, zeroed here on the stream.  A
 // non-null stats (ST_FIELDS zeroed uint64) runs the STATS instantiation,
 // which adds the frame's lane statistics; with per_tile, under the old
 // schedule (no refill: a warp takes a tile when all its lanes are free).
 extern "C" int cpt_megakernel_analytic(const float* soa_f, const int* soa_i,
                                        const int* stage_src, const int* meta, float* accum,
-                                       int width, int height, int frame, int last_clear,
-                                       int bounces, float fov, float aspect, int debug,
-                                       int* tile_next, unsigned long long* stats, int per_tile,
-                                       void* stream) {
+                                       int width, int height, int row_offset, int crop_h,
+                                       int frame, int last_clear, int bounces, float fov,
+                                       float aspect, int debug, int* tile_next,
+                                       unsigned long long* stats, int per_tile, void* stream) {
   StagedMeta m;
   memcpy(&m, meta, sizeof(m));
-  if (4 * m.n_words > kSmemCap || m.n_words % 4 != 0 || m.mat % 4 != 0 ||
+  if (4 * m.n_words > kSmemCap || m.n_words % 4 != 0 || m.mat % 4 != 0 || row_offset < 0 ||
+      crop_h < 1 || crop_h > height - row_offset ||
       (per_tile && stats == nullptr) || (debug != 0 && debug != 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto fn = stats == nullptr ? &launch<false, true>
                              : (per_tile ? &launch<true, false> : &launch<true, true>);
-  return fn(soa_f, soa_i, stage_src, m, accum, width, height, frame, last_clear, bounces, fov,
-            aspect, debug, tile_next, stats, st);
+  return fn(soa_f, soa_i, stage_src, m, accum, width, height, row_offset, crop_h, frame,
+            last_clear, bounces, fov, aspect, debug, tile_next, stats, st);
 }
 
 // The hoisted quotient against __fdiv_rn on n triples (b, o, d), each

@@ -9,7 +9,10 @@
 // the 6-tap central-difference normal, the 18-channel material, shade_bounce
 // and Russian roulette; or, for debug 1 and 2, one march and the normal tint
 // or the albedo (:1407-1443).  The result overwrites (debug 1-3) or is
-// averaged into (debug 0) the (H, W, 3) float32 accumulator.
+// averaged into (debug 0) the (H, W, 3) float32 accumulator, or a band of
+// its rows: JAX's row offset (iparams_ref[3], :1332-1336, which
+// parallel/mesh.py gives each shard) is row_offset here, and the band's
+// rows crop_h; each pixel keeps the RNG and camera of its row in the frame.
 //
 // What bounds it on an H100: neither the card's memory (about 25 MB of
 // accumulator traffic per 1080p frame) nor its FP32 rate (the counted work
@@ -132,14 +135,17 @@ constexpr int kWarps = kBlockX * kBlockY / 32;
 // a warp runs to the end: a lane out of the frame, or whose path has ended,
 // runs on as not live, so that each bounce's list is built by the whole
 // warp.  A non-null walk_stats (debug 0 and 3: 2 (bounces + 1) zeroed
-// uint64) takes record_list's figures.  omega comes last and RELAX compiles
-// out the debug 1/2 branch, so the instantiations without RELAX compile to
-// the same SASS as before it existed.
+// uint64) takes record_list's figures.  omega follows the older parameters
+// and RELAX compiles out the debug 1/2 branch, so the instantiations without
+// RELAX compile to the same SASS as before it existed; the band's
+// row_offset and crop_h follow omega, for the same reason, in each kernel
+// of this file.
 template <bool BAKED, bool TCULL, bool RELAX>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 megakernel_walk(Scene S, int f_leaf, float* __restrict__ accum, int width, int height, int frame,
                 int last_clear, int bounces, float fov, float aspect, int debug,
-                unsigned long long* __restrict__ walk_stats, float omega) {
+                unsigned long long* __restrict__ walk_stats, float omega, int row_offset,
+                int crop_h) {
   extern __shared__ int4 walk_smem[];
   const int tid = threadIdx.x + kBlockX * threadIdx.y;
   const int warp = tid >> 5, lane = tid & 31;
@@ -147,11 +153,11 @@ megakernel_walk(Scene S, int f_leaf, float* __restrict__ accum, int width, int h
   const int4* __restrict__ list = P.lists + warp * P.n_ops;
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
-  const bool inrange = x < width && y < height;
+  const bool inrange = x < width && y < crop_h;
 
   uint32_t rng = 0u;
   V3 ro = splat(0.0f), rd = splat(0.0f);
-  if (inrange) primary_ray(x, y, frame, width, height, fov, aspect, rng, ro, rd);
+  if (inrange) primary_ray(x, row_offset + y, frame, width, height, fov, aspect, rng, ro, rd);
   Guards<TCULL> g;
   V3 col = splat(0.0f);
 
@@ -234,7 +240,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 megakernel_grid(Scene S, int f_leaf, float* __restrict__ accum, int width, int height, int frame,
                 int last_clear, int bounces, float fov, float aspect, int debug, Grid G,
                 unsigned long long* __restrict__ grid_stats,
-                unsigned long long* __restrict__ walk_stats) {
+                unsigned long long* __restrict__ walk_stats, int row_offset, int crop_h) {
   extern __shared__ int4 walk_smem[];
   const int tid = threadIdx.x + kBlockX * threadIdx.y;
   const int warp = tid >> 5, lane = tid & 31;
@@ -242,11 +248,11 @@ megakernel_grid(Scene S, int f_leaf, float* __restrict__ accum, int width, int h
   const int4* __restrict__ list = P.lists + warp * P.n_ops;
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
-  const bool inrange = x < width && y < height;
+  const bool inrange = x < width && y < crop_h;
 
   uint32_t rng = 0u;
   V3 ro = splat(0.0f), rd = splat(0.0f);
-  if (inrange) primary_ray(x, y, frame, width, height, fov, aspect, rng, ro, rd);
+  if (inrange) primary_ray(x, row_offset + y, frame, width, height, fov, aspect, rng, ro, rd);
   Guards<true> g;
   V3 ret = v3(0.0f, 0.0f, 0.0f);
   V3 thr = v3(1.0f, 1.0f, 1.0f);
@@ -307,7 +313,7 @@ megakernel_grid(Scene S, int f_leaf, float* __restrict__ accum, int width, int h
 template <bool BAKED, bool TCULL>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 megakernel_stats(Scene S, int f_leaf, float* __restrict__ accum, int width, int height,
-                 int frame, int bounces, float fov, float aspect) {
+                 int frame, int bounces, float fov, float aspect, int row_offset, int crop_h) {
   extern __shared__ int4 walk_smem[];
   const int tid = threadIdx.x + kBlockX * threadIdx.y;
   const int warp = tid >> 5, lane = tid & 31;
@@ -315,10 +321,10 @@ megakernel_stats(Scene S, int f_leaf, float* __restrict__ accum, int width, int 
   const int4* __restrict__ list = P.lists + warp * P.n_ops;
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
-  const bool inrange = x < width && y < height;
+  const bool inrange = x < width && y < crop_h;
   uint32_t rng = 0u;
   V3 ro = splat(0.0f), rd = splat(0.0f);
-  if (inrange) primary_ray(x, y, frame, width, height, fov, aspect, rng, ro, rd);
+  if (inrange) primary_ray(x, row_offset + y, frame, width, height, fov, aspect, rng, ro, rd);
   Guards<TCULL> g;
   V3 ret = v3(0.0f, 0.0f, 0.0f);
   V3 thr = v3(1.0f, 1.0f, 1.0f);
@@ -368,43 +374,45 @@ cudaError_t walk_smem_ready(Kernel kernel, const Scene& S, int f_leaf, int smem_
 
 template <bool BAKED, bool TCULL, bool RELAX>
 int launch_walk(const Scene& S, int f_leaf, int smem_bytes, float* accum, int width, int height,
-                int frame, int last_clear, int bounces, float fov, float aspect, int debug,
-                unsigned long long* walk_stats, float omega, cudaStream_t stream) {
+                int row_offset, int crop_h, int frame, int last_clear, int bounces, float fov,
+                float aspect, int debug, unsigned long long* walk_stats, float omega,
+                cudaStream_t stream) {
   const cudaError_t err =
       walk_smem_ready(megakernel_walk<BAKED, TCULL, RELAX>, S, f_leaf, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 block(kBlockX, kBlockY);
-  dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
+  dim3 grid((width + kBlockX - 1) / kBlockX, (crop_h + kBlockY - 1) / kBlockY);
   megakernel_walk<BAKED, TCULL, RELAX><<<grid, block, smem_bytes, stream>>>(
       S, f_leaf, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, walk_stats,
-      omega);
+      omega, row_offset, crop_h);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool BAKED, bool TCULL>
 int launch_stats(const Scene& S, int f_leaf, int smem_bytes, float* accum, int width, int height,
-                 int frame, int bounces, float fov, float aspect, cudaStream_t stream) {
+                 int row_offset, int crop_h, int frame, int bounces, float fov, float aspect,
+                 cudaStream_t stream) {
   const cudaError_t err = walk_smem_ready(megakernel_stats<BAKED, TCULL>, S, f_leaf, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 block(kBlockX, kBlockY);
-  dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
+  dim3 grid((width + kBlockX - 1) / kBlockX, (crop_h + kBlockY - 1) / kBlockY);
   megakernel_stats<BAKED, TCULL><<<grid, block, smem_bytes, stream>>>(
-      S, f_leaf, accum, width, height, frame, bounces, fov, aspect);
+      S, f_leaf, accum, width, height, frame, bounces, fov, aspect, row_offset, crop_h);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool STATS>
 int launch_grid(const Scene& S, int f_leaf, int smem_bytes, float* accum, int width, int height,
-                int frame, int last_clear, int bounces, float fov, float aspect, int debug,
-                const Grid& G, unsigned long long* grid_stats, unsigned long long* walk_stats,
-                cudaStream_t stream) {
+                int row_offset, int crop_h, int frame, int last_clear, int bounces, float fov,
+                float aspect, int debug, const Grid& G, unsigned long long* grid_stats,
+                unsigned long long* walk_stats, cudaStream_t stream) {
   const cudaError_t err = walk_smem_ready(megakernel_grid<STATS>, S, f_leaf, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 block(kBlockX, kBlockY);
-  dim3 grid((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY);
+  dim3 grid((width + kBlockX - 1) / kBlockX, (crop_h + kBlockY - 1) / kBlockY);
   megakernel_grid<STATS><<<grid, block, smem_bytes, stream>>>(
       S, f_leaf, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, G,
-      grid_stats, walk_stats);
+      grid_stats, walk_stats, row_offset, crop_h);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -413,7 +421,12 @@ int launch_grid(const Scene& S, int f_leaf, int smem_bytes, float* accum, int wi
 // Launches one frame on `stream`; returns cudaGetLastError() (0 on success).
 // `code` is program_code_on's int32 vector (n_ops op records, n_boxed cull
 // flags, then n_cap cap records), `table` program_table's float32 vector;
-// accum is (height, width, 3) float32, contiguous, updated in place.  The
+// accum is (crop_h, width, 3) float32, contiguous, updated in place: the
+// frame's rows [row_offset, row_offset + crop_h), each pixel's RNG and
+// camera those of its row in the (height, width) frame, so a band is bit
+// for bit the whole frame's rows (row_offset 0 and crop_h = height: the
+// frame); debug 4's warps tile the band's rows, so its band must start on
+// an even row and end on one or at the frame's end.  The
 // caps and omega != 1 need t_cull and debug 0 or 3 (the caps also debug 4);
 // the caller checks that and the program against kMaxDepth and kMaxBoxed.
 // A non-null grid_cells (dist_grid) marches on the grid: grid_meta f32[9],
@@ -432,7 +445,8 @@ int launch_grid(const Scene& S, int f_leaf, int smem_bytes, float* accum, int wi
 extern "C" int cpt_megakernel_march(const int* code, int n_ops, const float* table,
                                     int n_boxed, int f_box, int f_mat, int n_cap, int baked,
                                     int t_cull, float omega, float* accum, int width, int height,
-                                    int frame, int last_clear, int bounces, float fov,
+                                    int row_offset, int crop_h, int frame, int last_clear,
+                                    int bounces, float fov,
                                     float aspect, int debug, const float* grid_meta,
                                     const float* grid_cells, int gx, int gy, int gz,
                                     const int* grid_offs, int n_planes, int n_k, float tau,
@@ -446,23 +460,30 @@ extern "C" int cpt_megakernel_march(const int* code, int n_ops, const float* tab
   if ((n_cap > 0 || relax) && (!t_cull || debug == 1 || debug == 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (row_offset < 0 || crop_h < 1 || crop_h > height - row_offset) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (debug == 4) {
-    if (relax || grid_cells != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    if (relax || grid_cells != nullptr || row_offset % 2 != 0 ||
+        (crop_h % 2 != 0 && row_offset + crop_h != height)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     auto stats = baked ? (t_cull ? &launch_stats<true, true> : &launch_stats<true, false>)
                        : (t_cull ? &launch_stats<false, true> : &launch_stats<false, false>);
-    return stats(S, f_box, smem_bytes, accum, width, height, frame, bounces, fov, aspect, st);
+    return stats(S, f_box, smem_bytes, accum, width, height, row_offset, crop_h, frame, bounces,
+                 fov, aspect, st);
   }
   if (grid_cells != nullptr) {
     if (!baked || !t_cull || relax || debug == 1 || debug == 2 || gx < 1 || gy < 1 || gz < 1) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     auto fn = grid_stats != nullptr ? &launch_grid<true> : &launch_grid<false>;
-    return fn(S, f_box, smem_bytes, accum, width, height, frame, last_clear, bounces, fov, aspect,
-              debug, G, grid_stats, walk_stats, st);
+    return fn(S, f_box, smem_bytes, accum, width, height, row_offset, crop_h, frame, last_clear,
+              bounces, fov, aspect, debug, G, grid_stats, walk_stats, st);
   }
   auto walk = relax ? (baked ? &launch_walk<true, true, true> : &launch_walk<false, true, true>)
               : baked ? (t_cull ? &launch_walk<true, true, false> : &launch_walk<true, false, false>)
                       : (t_cull ? &launch_walk<false, true, false> : &launch_walk<false, false, false>);
-  return walk(S, f_box, smem_bytes, accum, width, height, frame, last_clear, bounces, fov, aspect,
-              debug, walk_stats, omega, st);
+  return walk(S, f_box, smem_bytes, accum, width, height, row_offset, crop_h, frame, last_clear,
+              bounces, fov, aspect, debug, walk_stats, omega, st);
 }

@@ -30,9 +30,12 @@ package's ``render_frame_pallas`` and dispatches on its mode:
 ``render_accumulated_megakernel`` renders ``n_frames`` progressive frames
 into one accumulator on the device (JAX ``render_accumulated_pallas``).
 
-Either kernel updates the (H, W, 3) float32 accumulator in place.  On a CPU
-tensor the same call runs ``render_frame_megakernel_plain``: the frame in
-vectorized torch, which is also the reference the kernels are held to.  The
+Either kernel updates the (H, W, 3) float32 accumulator in place, or a
+(crop_h, W, 3) band of the frame's rows from ``row_offset`` on (JAX's row
+offset, which parallel/mesh.py gives each shard), bit for bit those rows
+of the whole frame.  On a CPU tensor the same call runs
+``render_frame_megakernel_plain``: the frame in vectorized torch, which is
+also the reference the kernels are held to.  The
 per-frame table work runs on the params' device with cached index tensors,
 so a frame issues no host round trip.
 """
@@ -256,6 +259,26 @@ def capped_winners(t, t_cap, idx, cap_idx, hp: Vec3, normal_fn, bv, scale,
     return idx, Vec3(*(a.index_put((tapped,), b) for a, b in zip(v, v_tap)))
 
 
+def _band(height: int, row_offset: int, crop_h, debug: int) -> int:
+    """The rows of a band ``[row_offset, row_offset + crop_h)`` of a frame
+    ``height`` rows high (``crop_h`` None: the rows from ``row_offset`` to
+    the end); raises ``ValueError`` for a band outside the frame and, in
+    debug 4, for one whose warps would not be the frame's."""
+    row_offset = int(row_offset)
+    crop_h = height - row_offset if crop_h is None else int(crop_h)
+    rows = f"[{row_offset}, {row_offset + crop_h})"
+    if row_offset < 0 or crop_h < 1 or row_offset + crop_h > height:
+        raise ValueError(f"the band's rows {rows} are not rows of a frame "
+                         f"{height} high")
+    ends = row_offset + crop_h == height
+    if debug == 4 and (row_offset % 2 or (crop_h % 2 and not ends)):
+        raise ValueError(
+            f"debug 4 counts per {WARP[0]}x{WARP[1]} warp: a band must start "
+            f"on an even row and hold an even number of rows unless it ends "
+            f"the frame, not rows {rows}")
+    return crop_h
+
+
 def _accum_for(accum, height: int, width: int, device) -> torch.Tensor:
     if accum is None:
         return torch.zeros((height, width, 3), dtype=torch.float32,
@@ -269,9 +292,11 @@ def _accum_for(accum, height: int, width: int, device) -> torch.Tensor:
     return accum
 
 
-def _pixels(height: int, width: int, device):
+def _pixels(height: int, width: int, device, row_offset: int = 0):
+    """The pixels of ``height`` rows from ``row_offset`` on: (xs, ys)."""
     ys, xs = torch.meshgrid(
-        torch.arange(height, dtype=torch.int32, device=device),
+        torch.arange(row_offset, row_offset + height, dtype=torch.int32,
+                     device=device),
         torch.arange(width, dtype=torch.int32, device=device),
         indexing="ij")
     return xs, ys
@@ -528,8 +553,14 @@ def render_frame_megakernel_plain(
     analytic_soa: bool = False,
     count: dict = None,
     stats: MarchStats = None,
+    row_offset: int = 0,
+    crop_h: int = None,
 ) -> torch.Tensor:
     """The kernels' frame in vectorized torch, on ``params``' device.
+    ``row_offset`` and ``crop_h`` render the band of rows ``[row_offset,
+    row_offset + crop_h)`` of the (height, width) frame into a (crop_h,
+    width, 3) accumulator, bit for bit those rows of the frame (``crop_h``
+    None: to the frame's end).
     ``count``, a dict, accumulates the work the kernel does for the frame:
     its ``"segments"`` (ray segments, one per live path per bounce) and, for
     the march, its map work (``render/program.py:make_map_program``), its
@@ -546,8 +577,9 @@ def render_frame_megakernel_plain(
     if aspect is None:
         aspect = width / height
     device = params.device
-    accum = _accum_for(accum, height, width, device)
-    xs, ys = _pixels(height, width, device)
+    crop_h = _band(height, row_offset, crop_h, debug)
+    accum = _accum_for(accum, crop_h, width, device)
+    xs, ys = _pixels(crop_h, width, device, int(row_offset))
     if debug == 4 and stats is None:
         stats = MarchStats()
     if stats is not None and (kernel != "march" or debug in (1, 2)):
@@ -564,7 +596,7 @@ def render_frame_megakernel_plain(
                 spec, params, geometry, t_cull, analytic_unboxed, dist_grid,
                 grid_res, grid_tau)
             if stats is not None:
-                stats.start(prog, height, width, device)
+                stats.start(prog, crop_h, width, device)
             col = _march_plain(prog, table, t_cull, xs, ys, frame, bounces,
                                fov, aspect, count,
                                _march_omega(omega, t_cull, debug, dist_grid),
@@ -578,10 +610,12 @@ def render_frame_megakernel_plain(
 def _frame_launcher(spec: SceneSpec, params: torch.Tensor, *, width, height,
                     debug, bounces, fov, aspect, geometry, normals, t_cull,
                     omega, analytic_unboxed, refresh_every, dist_grid,
-                    grid_res, grid_tau, analytic_all, analytic_soa):
+                    grid_res, grid_tau, analytic_all, analytic_soa,
+                    row_offset=0, crop_h=None):
     """Checks a mode and makes the frame's tables on the card, once;
     returns ``launch(accum, frame, last_clear)``, which launches the mode's
-    kernel on them."""
+    kernel on them, over the band ``row_offset``, ``crop_h`` (the whole
+    frame by default; ``accum`` holds the band's rows)."""
     if params.device.type != "cuda":
         raise ValueError(f"no kernel for device {params.device}")
     kernel = _kernel_for(spec, geometry, debug, normals, t_cull, omega,
@@ -593,7 +627,9 @@ def _frame_launcher(spec: SceneSpec, params: torch.Tensor, *, width, height,
             f"{params.dtype} {tuple(params.shape)}")
     if aspect is None:
         aspect = width / height
-    run = dict(bounces=bounces, fov=fov, aspect=aspect, debug=debug)
+    _band(height, row_offset, crop_h, debug)
+    run = dict(bounces=bounces, fov=fov, aspect=aspect, debug=debug,
+               height=height, row_offset=row_offset)
     with torch.no_grad():
         if kernel == "analytic":
             layout = _layout_for(
@@ -640,10 +676,17 @@ def render_frame_megakernel(
     grid_tau: float = GRID_TAU,
     analytic_all: bool = False,
     analytic_soa: bool = False,
+    row_offset: int = 0,
+    crop_h: int = None,
 ) -> torch.Tensor:
     """One progressive frame through a CUDA megakernel; returns the (H, W,
     3) float32 accumulator, updated in place (a new zero one when ``accum``
-    is None; debug modes overwrite it with their image).
+    is None; debug modes overwrite it with their image).  ``row_offset``
+    and ``crop_h`` (JAX's row offset, the port's band height) render only
+    the rows ``[row_offset, row_offset + crop_h)`` of the frame into a
+    (crop_h, W, 3) accumulator, bit for bit those rows of the whole frame;
+    debug 4's band must start on an even row and hold an even number of
+    rows unless it ends the frame (its statistics are per warp of 2 rows).
 
     Runs on ``params``' device: a CUDA tensor launches K1
     (``analytic_all=True`` or ``analytic_soa=True``) or K2 (the marching
@@ -662,15 +705,17 @@ def render_frame_megakernel(
                 refresh_every=refresh_every, dist_grid=dist_grid,
                 grid_res=grid_res, grid_tau=grid_tau,
                 analytic_all=analytic_all, analytic_soa=analytic_soa)
+    band = dict(row_offset=row_offset, crop_h=crop_h)
     if params.device.type == "cpu":
         return render_frame_megakernel_plain(
             spec, params, accum, frame, last_clear, width=width,
             height=height, debug=debug, bounces=bounces, fov=fov,
-            aspect=aspect, **mode)
+            aspect=aspect, **mode, **band)
     launch = _frame_launcher(spec, params, width=width, height=height,
                              debug=debug, bounces=bounces, fov=fov,
-                             aspect=aspect, **mode)
-    accum = _accum_for(accum, height, width, params.device)
+                             aspect=aspect, **mode, **band)
+    accum = _accum_for(accum, _band(height, row_offset, crop_h, debug), width,
+                       params.device)
     launch(accum, frame, last_clear)
     return accum
 
@@ -689,13 +734,15 @@ def render_accumulated_megakernel(
     normals: str = "central",
     t_cull: bool = False,
     analytic_all: bool = False,
+    frame0: int = 0,
 ) -> torch.Tensor:
     """``n_frames`` progressive frames into one zero (H, W, 3) float32
-    accumulator (JAX ``render_accumulated_pallas``): frame f uses RNG
-    stream f and running-mean weight 1/(f+1), so frame 0 overwrites.  On a
-    CUDA tensor the tables are made once and K1 (``analytic_all``) or K2
-    runs ``n_frames`` times on the accumulator, with no host round trip; on
-    a CPU tensor each frame is :func:`render_frame_megakernel_plain`.
+    accumulator (JAX ``render_accumulated_pallas``): frame k uses RNG
+    stream ``frame0 + k`` and running-mean weight 1/(k+1), so frame 0
+    overwrites.  On a CUDA tensor the tables are made once and K1
+    (``analytic_all``) or K2 runs ``n_frames`` times on the accumulator,
+    with no host round trip; on a CPU tensor each frame is
+    :func:`render_frame_megakernel_plain`.
     Either way the result is that of ``n_frames`` calls of
     :func:`render_frame_megakernel` bit for bit."""
     mode = dict(width=width, height=height, debug=0, bounces=bounces,
@@ -707,12 +754,13 @@ def render_accumulated_megakernel(
     accum = torch.zeros((height, width, 3), dtype=torch.float32,
                         device=params.device)
     if params.device.type == "cpu":
-        for f in range(int(n_frames)):
-            render_frame_megakernel_plain(spec, params, accum, f, f, **mode)
+        for k in range(int(n_frames)):
+            render_frame_megakernel_plain(spec, params, accum, frame0 + k, k,
+                                          **mode)
         return accum
     launch = _frame_launcher(spec, params, **mode)
-    for f in range(int(n_frames)):
-        launch(accum, f, f)
+    for k in range(int(n_frames)):
+        launch(accum, frame0 + k, k)
     return accum
 
 
@@ -784,12 +832,15 @@ def launch_megakernel(layout: SoaSmemLayout, soa_f: torch.Tensor,
                       soa_i: torch.Tensor, accum: torch.Tensor, *, frame: int,
                       last_clear: int, bounces: int, fov: float, aspect: float,
                       debug: int, lane_stats: torch.Tensor = None,
-                      per_tile: bool = False) -> None:
+                      per_tile: bool = False, height: int = None,
+                      row_offset: int = 0) -> None:
     """Launch K1 on packed tables (``pack_soa_smem``) and a CUDA (H, W, 3)
     float32 accumulator, on the current stream; counts the launch in
-    ``LAUNCHES["megakernel_analytic"]``.  Each block stages the scene in
-    shared memory (``analytic_smem_bytes``, which raises for a scene too
-    large).  ``lane_stats``, a zeroed int64 CUDA tensor of
+    ``LAUNCHES["megakernel_analytic"]``.  With the frame's ``height`` and a
+    ``row_offset``, the accumulator holds the band of its rows from
+    ``row_offset`` on (``height`` None: the accumulator is the frame).
+    Each block stages the scene in shared memory (``analytic_smem_bytes``,
+    which raises for a scene too large).  ``lane_stats``, a zeroed int64 CUDA tensor of
     ``len(LANE_STATS)``, runs the kernel's STATS instantiation, which adds
     the frame's lane statistics; ``per_tile`` takes them under the
     schedule without refill (a warp per 16x2 tile of pixels)."""
@@ -800,7 +851,9 @@ def launch_megakernel(layout: SoaSmemLayout, soa_f: torch.Tensor,
     analytic_smem_bytes(layout)
     _check_accum(accum)
     device = accum.device
-    height, width = accum.shape[0], accum.shape[1]
+    crop_h, width = accum.shape[0], accum.shape[1]
+    height = crop_h if height is None else int(height)
+    _band(height, row_offset, crop_h, debug)
     _check_table("soa_f", soa_f, torch.float32, layout.f_len, device)
     _check_table("soa_i", soa_i, torch.int32, layout.i_len, device)
     if lane_stats is not None:
@@ -814,8 +867,9 @@ def launch_megakernel(layout: SoaSmemLayout, soa_f: torch.Tensor,
         err = lib.cpt_megakernel_analytic(
             soa_f.data_ptr(), soa_i.data_ptr(), src.data_ptr(),
             staged.meta.ctypes.data, accum.data_ptr(), width, height,
-            int(frame), int(last_clear), int(bounces), float(fov),
-            float(aspect), int(debug), work_counter(device, stream).data_ptr(),
+            int(row_offset), crop_h, int(frame), int(last_clear),
+            int(bounces), float(fov), float(aspect), int(debug),
+            work_counter(device, stream).data_ptr(),
             None if lane_stats is None else lane_stats.data_ptr(),
             int(bool(per_tile)), stream)
     if err != 0:
@@ -860,12 +914,15 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
                  aspect: float, debug: int, t_cull: bool,
                  omega: float = 1.0, grid: DistGrid = None,
                  grid_stats: torch.Tensor = None,
-                 walk_stats: torch.Tensor = None) -> None:
+                 walk_stats: torch.Tensor = None, height: int = None,
+                 row_offset: int = 0) -> None:
     """Launch K2 on a program's table (``program_table``) and a CUDA (H, W,
     3) float32 accumulator, on the current stream; counts the launch in
-    ``LAUNCHES["megakernel_march"]``.  A program with ``caps`` caps the
-    march in closed form (t_cull, debug 0, 3 or 4), and ``omega`` != 1
-    over-relaxes it (t_cull, debug 0 or 3).  ``grid`` (K6, baked geometry,
+    ``LAUNCHES["megakernel_march"]``.  With the frame's ``height`` and a
+    ``row_offset``, the accumulator holds the band of its rows from
+    ``row_offset`` on (``height`` None: the accumulator is the frame).  A
+    program with ``caps`` caps the march in closed form (t_cull, debug 0, 3
+    or 4), and ``omega`` != 1 over-relaxes it (t_cull, debug 0 or 3).  ``grid`` (K6, baked geometry,
     t_cull, debug 0 or 3, omega 1) marches on the frame's distance grid;
     ``grid_stats``, a zeroed int64 CUDA tensor of 5, then takes the warp
     statistics of the grid march (kernels/csrc/megakernel_march.cu).
@@ -897,7 +954,9 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
     smem = walk_smem_bytes(prog, WARPS)
     _check_accum(accum)
     device = accum.device
-    height, width = accum.shape[0], accum.shape[1]
+    crop_h, width = accum.shape[0], accum.shape[1]
+    height = crop_h if height is None else int(height)
+    _band(height, row_offset, crop_h, debug)
     _check_table("table", table, torch.float32, prog.f_len, device)
     code = program_code_on(prog, device)
     gargs = [None, None, 0, 0, 0, None, 0, 0, 0.0, None]
@@ -921,8 +980,9 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
             code.data_ptr(), prog.ops.shape[0], table.data_ptr(), prog.n_boxed,
             prog.f_box, prog.f_mat, prog.caps.shape[0],
             int(prog.geometry == "baked"), int(bool(t_cull)), float(omega),
-            accum.data_ptr(), width, height, int(frame), int(last_clear),
-            int(bounces), float(fov), float(aspect), int(debug), *gargs, smem,
+            accum.data_ptr(), width, height, int(row_offset), crop_h,
+            int(frame), int(last_clear), int(bounces), float(fov),
+            float(aspect), int(debug), *gargs, smem,
             None if walk_stats is None else walk_stats.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:

@@ -1032,6 +1032,23 @@ def _fused_sse_and_grad_impl(spec: SceneSpec, params: torch.Tensor,
     return sse, g_geom + g_mat, col
 
 
+def fused_mode(spec: SceneSpec, bounces: int, *, analytic_unboxed=False,
+               edge_grad=False, edge_beta=0.5, edge_secondary=False,
+               edge_beta2=2.0, analytic_all=False) -> FusedMode:
+    """The step's :class:`FusedMode`; raises ``ValueError`` for the options
+    that do not go together or that the scene does not take."""
+    if edge_secondary and not edge_grad:
+        raise ValueError("edge_secondary requires edge_grad")
+    if analytic_all and analytic_unboxed:
+        raise ValueError("analytic_all subsumes analytic_unboxed; enable "
+                         "only one")
+    winner = spec_is_union_only(spec)
+    if analytic_all and not winner:
+        raise ValueError("analytic_all requires a union-only tree")
+    return FusedMode(bounces, winner, edge_grad, edge_secondary, analytic_all,
+                     edge_beta, edge_beta2, analytic_unboxed)
+
+
 def make_fused_value_and_grad(
     spec: SceneSpec,
     target,
@@ -1065,18 +1082,12 @@ def make_fused_value_and_grad(
     ``analytic_unboxed`` caps phase 1's march with the closed form of the
     guard-less shapes of ``analytic_eligible_ids`` (a no-op where there are
     none).  The loss and the image do not depend on the edge options."""
-    if edge_secondary and not edge_grad:
-        raise ValueError("edge_secondary requires edge_grad")
     if spp < 1:
         raise ValueError("spp must be >= 1")
-    if analytic_all and analytic_unboxed:
-        raise ValueError("analytic_all subsumes analytic_unboxed; enable "
-                         "only one")
-    winner = spec_is_union_only(spec)
-    if analytic_all and not winner:
-        raise ValueError("analytic_all requires a union-only tree")
-    mode = FusedMode(bounces, winner, edge_grad, edge_secondary, analytic_all,
-                     edge_beta, edge_beta2, analytic_unboxed)
+    mode = fused_mode(spec, bounces, analytic_unboxed=analytic_unboxed,
+                      edge_grad=edge_grad, edge_beta=edge_beta,
+                      edge_secondary=edge_secondary, edge_beta2=edge_beta2,
+                      analytic_all=analytic_all)
     if aspect is None:
         aspect = width / height
     tgt = torch.as_tensor(np.array(target, np.float32) if not isinstance(
