@@ -31,7 +31,21 @@ scene with 8 bounces (the JAX package's bench.py rows):
   each bounce's summed list length and list count at 1080p must be the
   plain model's (render/program.py:warp_records), and their means per
   bounce are printed with ptxas's registers and stack frame of the walk
-  kernels (K2's, RELAX's, debug 4's, K6's, K3's and K4's).
+  kernels (K2's, RELAX's, debug 4's, K6's, K3's and K4's);
+* K2's last two modes: ``normals="autodiff"`` (each marching
+  kernel's EXACT instantiation, the exact gradient of the map in one walk
+  of the warp's list) in debug 0 and 1 on csg_demo, blend_demo and the
+  benchmark scene, in K2b, RELAX, K6 (its STATS form too) and debug 4,
+  and ``refresh_every`` 4 and 8 (the frozen activation window) with and
+  without the cap and the exact normal, both geometries: every new
+  instantiation bit for bit its plain version at 320x180 (MODE_BOUNCES)
+  and, for the exact normal and K = 4, at 1080p against the plain passes
+  that count their work; their main paths through RenderSession at 1080p;
+  their kernel times A B B A (medians of 10) against the 6-tap normal (K2
+  debug 0 and 1, K6) and against K = 1 (K = 2, 4, 8), with the share of
+  pixels each moves;
+* save_png's native export (io/native.py) against its plain codec on a
+  1080p frame: the same bytes, and their host times A B B A.
 
 and the training path through the ray march K3 (march_rays): K3 against its
 plain version on scattered rays over three scenes and every mode, on a ray
@@ -215,6 +229,10 @@ MAIN_W, MAIN_H, BOUNCES = 1920, 1080, 8
 # shape (K1, K2, debug 4, K2b, K5, K6, K3, K4 and its analytic_unboxed
 # step, the wavefront) and K1's cases keep BOUNCES.
 CHECK_BOUNCES = 4
+# The depth of the exact normal's and refresh_every's checks at CHECK_W x
+# CHECK_H: the primary hit and one bounce take every normal and window the
+# modes change, and their 1080p checks keep BOUNCES.
+MODE_BOUNCES = 2
 N_PRIMS = 64
 TIMED_FRAMES = 8
 DIFF_TOL = 1e-2                  # a pixel differs when max-channel |diff| > this
@@ -243,6 +261,9 @@ QUOTIENT_PAIRS = 1 << 24
 QUOTIENT_SEED = 13
 K1_RAGGED = (333, 187)
 OMEGA = 1.6
+EXACT = dict(normals="autodiff")  # K2's and K6's exact-gradient normal
+REFRESH_KS = (2, 4, 8)           # refresh_every windows timed against 1
+MOVED_TOL = 1e-3                 # a pixel moved (JAX's refresh bound's tolerance)
 # The training path: bench.py's fast-gradient row (bench.py:406).
 TRAIN = dict(geometry="baked", march="kernel", normals="kernel")
 TIMED_STEPS = 3
@@ -876,23 +897,25 @@ def _short(name):
                   r"march_rays|train_fused)(?:I(.+?)EEv|E)", name)
     if m is None:
         return None
-    args = re.findall(r"Lb(\d)", m.group(2) or "")
+    args = re.findall(r"L[bi](\d+)", m.group(2) or "")
     return f"{m.group(1)}<{','.join(args)}>" if args else m.group(1)
 
 
 def _ptxas_walk(build):
     """ptxas's figures of the walk kernels (K2's megakernel_walk<BAKED,
-    TCULL, RELAX>, debug 4's megakernel_stats, K6's megakernel_grid, K3's
-    march_rays, K4's train_fused), printed; returns them by short name."""
+    TCULL, MARCH, EXACT>: MARCH 0 the plain march, 1 RELAX, 2 the
+    refresh_every window; debug 4's megakernel_stats<BAKED, TCULL, EXACT>,
+    K6's megakernel_grid<STATS, EXACT>, K3's march_rays, K4's
+    train_fused), printed; returns them by short name."""
     figs = {_short(k): v for k, v in build.ptxas_figures().items()
             if _short(k)}
     for k, v in sorted(figs.items()):
         print(f"ptxas {k}: {v['registers']} registers, {v.get('stack', 0)} "
               f"bytes stack frame, {v.get('spill_stores', 0)} bytes spill "
               f"stores, {v.get('spill_loads', 0)} bytes spill loads")
-    if len(figs) != 21:
+    if len(figs) != 37:
         raise AssertionError(f"ptxas figures of {len(figs)} walk kernels, "
-                             f"expected 21")
+                             f"expected 37")
     return figs
 
 
@@ -971,7 +994,7 @@ def _contracted(ins):
                 or (imm and all(one(t) for t in imm)))
 
 
-def _bf16_sass(build):
+def _bf16_sass(sass):
     """The packed bf16 march kernels' SASS (bf16_march<1|2>): counts of the
     instructions in BF16_OPCODES, printed with each distinct HFMA2 form;
     raises where an HFMA2 contracts a multiply and an add, which would
@@ -979,7 +1002,7 @@ def _bf16_sass(build):
     import re
 
     out = {}
-    for name, code in build.sass().items():
+    for name, code in sass.items():
         m = re.search(r"bf16_marchILi([12])E", name)
         if not m:
             continue
@@ -1001,12 +1024,12 @@ def _bf16_sass(build):
 MXU_OPCODES = ("HGMMA", "WARPGROUP", "LDS", "STS", "MUFU", "SHFL", "BAR")
 
 
-def _mxu_sass(build):
+def _mxu_sass(sass):
     """The box transforms' SASS (mxu_scalar, mxu_tensor): counts of the
     instructions in MXU_OPCODES, printed; raises unless mxu_tensor issues
     the 12 HGMMA (wgmma.mma_async) of a rep, six a half."""
     out = {}
-    for name, code in build.sass().items():
+    for name, code in sass.items():
         for key in ("mxu_scalar", "mxu_tensor"):
             if key in name:
                 ops = [i.split()[0].split(".")[0] for i in code]
@@ -1023,7 +1046,7 @@ GATHER_OPCODES = ("LDS", "FADD", "FADD.RZ", "F2I", "LEA", "LOP3", "MUFU",
                   "CALL")
 
 
-def _gather_sass(build):
+def _gather_sass(sass):
     """The gather kernels' SASS (gather_chain_smem, gather_chain_ldg,
     gather_arith): counts of the instructions in GATHER_OPCODES, printed;
     raises unless gather_arith takes its 12 roots as MUFU with no call to
@@ -1031,7 +1054,7 @@ def _gather_sass(build):
     import re
 
     out = {}
-    for name, code in build.sass().items():
+    for name, code in sass.items():
         m = re.search(r"(gather_chain_smem|gather_chain_ldg)ILi(\d+)E(?:Li(\d+)E)?"
                       r"|(gather_arith)", name)
         if not m:
@@ -1050,7 +1073,7 @@ def _gather_sass(build):
     return out
 
 
-def _segsum_sass(build):
+def _segsum_sass(sass):
     """The segment sum's SASS (segsum<MT, TS>, segsum_reduce): counts of its
     tensor-core products (HMMA), atomics (ATOM*, RED*), copies (LDGSTS) and
     barriers (BAR), by whole opcode, printed; raises unless each segsum<MT,
@@ -1060,7 +1083,7 @@ def _segsum_sass(build):
     import re
 
     out = {}
-    for name, code in build.sass().items():
+    for name, code in sass.items():
         m = re.search(r"segsumILi(\d)ELi(\d)E|(segsum_reduce)", name)
         if not m:
             continue
@@ -1160,6 +1183,183 @@ def _stamp(start, phase):
     took = f" ({last}: {now - _PHASE['at']:.1f} s)" if last else ""
     _PHASE.update(name=phase, at=now)
     print(f"[{now:.1f} s] {phase}{took}", flush=True)
+
+
+def _medians_abba(a, b, reps=10):
+    """A B B A in one process: each of the four runs times ``reps``
+    launches one by one with CUDA events after a warm-up and takes their
+    median; returns (A's two medians, B's two medians) in ms."""
+    import torch
+
+    def run(fn):
+        fn()
+        torch.cuda.synchronize()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        for e0, e1 in ev:
+            e0.record()
+            fn()
+            e1.record()
+        torch.cuda.synchronize()
+        ms = sorted(e0.elapsed_time(e1) for e0, e1 in ev)
+        return (ms[(reps - 1) // 2] + ms[reps // 2]) / 2
+
+    a1, b1, b2, a2 = run(a), run(b), run(b), run(a)
+    return (a1, a2), (b1, b2)
+
+
+def _moved(a, b):
+    """Share of pixels off by more than MOVED_TOL and by more than
+    DIFF_TOL between two frames."""
+    d = (a - b).abs().amax(dim=-1)
+    return float((d > MOVED_TOL).float().mean()), float((d > DIFF_TOL).float().mean())
+
+
+def _exact_refresh_phase(mk, pf, spec, sp, prog, table, grid, peak,
+                         frame_bytes, checks, gpu):
+    """The main paths of K2's exact normal and frozen activation window
+    (RenderSession at MAIN_W x MAIN_H, the counts set to 0 just before and
+    read just after), their kernel times A B B A against the 6-tap normal
+    and K = 1 (K6 and debug 1 as well), the share of pixels each moves and
+    their bounds from the plain passes' counts (a check worker's job).
+    Returns the two rows of the kernels line."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.app.config import Settings
+    from compute_path_tracer_tpu_torch.constants import DEFAULT_FOV
+    from compute_path_tracer_tpu_torch.render.session import RenderSession
+    from compute_path_tracer_tpu_torch.scene import benchmark_scene
+
+    launches = {}
+    for key, mode, label in (("exact", dict(MARCH, **EXACT),
+                              "K2 normals=autodiff (baked, t_cull)"),
+                             ("refresh", dict(MARCH, refresh_every=4),
+                              "K2 refresh_every 4 (baked, t_cull)")):
+        sess = RenderSession(benchmark_scene(N_PRIMS), MAIN_W, MAIN_H,
+                             Settings(debug=0, bounces=BOUNCES),
+                             frame_fn=partial(mk.render_frame_megakernel,
+                                              **mode), device=sp.device)
+        launches[key] = _drive_session(mk, "megakernel_march", sess, label,
+                                       gpu)
+        del sess
+    run = dict(frame=1, last_clear=1, bounces=BOUNCES, fov=DEFAULT_FOV,
+               aspect=MAIN_W / MAIN_H, t_cull=True)
+    scratch = torch.zeros((MAIN_H, MAIN_W, 3), device=sp.device)
+
+    def k2(**kw):
+        return lambda: mk.launch_march(prog, table, scratch, **run, **kw)
+
+    def frame0(**kw):
+        acc = torch.zeros_like(scratch)
+        mk.launch_march(prog, table, acc, **dict(run, frame=0, last_clear=0),
+                        **kw)
+        return acc
+
+    times, moved = {}, {}
+    for name, a_kw, b_kw in (
+            ("K2 debug 0", dict(debug=0), dict(debug=0, **EXACT)),
+            ("K2 debug 1", dict(debug=1), dict(debug=1, **EXACT)),
+            ("K6 debug 0", dict(debug=0, grid=grid),
+             dict(debug=0, grid=grid, **EXACT))):
+        times[name] = _medians_abba(k2(**a_kw), k2(**b_kw))
+        moved[name] = _moved(frame0(**a_kw), frame0(**b_kw))
+    for k in REFRESH_KS:
+        name = f"K2 refresh_every {k}"
+        times[name] = _medians_abba(k2(debug=0), k2(debug=0, refresh_every=k))
+        moved[name] = _moved(frame0(debug=0), frame0(debug=0, refresh_every=k))
+    torch.cuda.synchronize()
+    for name, (a, b) in times.items():
+        print(f"A B B A {name} at {MAIN_W}x{MAIN_H}, {BOUNCES} bounces, "
+              f"medians of 10: A (6-tap normal / K=1) {a[0]:.3f}, {a[1]:.3f} "
+              f"ms, B {b[0]:.3f}, {b[1]:.3f} ms, B/A "
+              f"{(b[0] + b[1]) / (a[0] + a[1]):.4f}; pixels moved in frame 0: "
+              f"{moved[name][0]:.6f} by > {MOVED_TOL}, {moved[name][1]:.6f} by "
+              f"> {DIFF_TOL} [{gpu}]")
+    rows = {}
+    for key, name, ms_name in (("exact", "megakernel_march (normals=autodiff)",
+                                "K2 debug 0"),
+                               ("refresh", "megakernel_march (refresh_every)",
+                                "K2 refresh_every 4")):
+        m = checks["k2 exact and refresh 1080p"][key]
+        bound, by = pf.bound_ms(frame_bytes + 4 * prog.f_len,
+                                pf.march_ops(m["count"], prog), peak)
+        b = times[ms_name][1]
+        rows[key] = {"name": name, "launches": launches[key],
+                     "max_abs_err": m["err"],
+                     "main_shape_share_off": m["share"],
+                     "ms": (b[0] + b[1]) / 2, "plain_ms": m["plain_ms"],
+                     "bound_ms": bound, "bound_by": by, "library_ms": None}
+        print(f"{name} at {MAIN_W}x{MAIN_H}: kernel {rows[key]['ms']:.3f} ms, "
+              f"plain torch frame {m['plain_ms']:.3f} ms while counting, "
+              f"bound {bound:.4f} ms ({by}); work "
+              f"{m['count']['segments']} segments, {m['count']['taps']} map "
+              f"taps, {m['count'].get('grad_taps', 0)} exact-normal walks "
+              f"[{gpu}]")
+    rows["exact"]["ab_ms"] = {k: times[k] for k in
+                              ("K2 debug 0", "K2 debug 1", "K6 debug 0")}
+    rows["exact"]["moved"] = {k: moved[k] for k in
+                              ("K2 debug 0", "K2 debug 1", "K6 debug 0")}
+    rows["refresh"]["ab_ms"] = {k: times[f"K2 refresh_every {k}"]
+                                for k in REFRESH_KS}
+    rows["refresh"]["moved"] = {k: moved[f"K2 refresh_every {k}"]
+                                for k in REFRESH_KS}
+    return rows
+
+
+def _png_export_phase(img, gpu):
+    """save_png's two codecs on one frame (``img``, (H, W, 3) float32 on the
+    host): the native library of io/native.py (its first build timed) and
+    the plain Python one, A B B A, medians of 5 each; their RGBA8 bytes
+    must be equal and their PNGs must inflate to the same scanlines."""
+    import statistics
+    import zlib
+
+    import numpy as np
+
+    from compute_path_tracer_tpu_torch.io import native
+    from compute_path_tracer_tpu_torch.io.png import (
+        encode_png_rgba, hdr_to_rgba8)
+
+    t0 = time.perf_counter()
+    if not native.available():
+        print("png export: the native library cannot be built here; "
+              "save_png takes the plain codec")
+        return
+    build_s = time.perf_counter() - t0
+
+    def run(fn):
+        ms = []
+        for _ in range(5):
+            t = time.perf_counter()
+            out = fn()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ms), out
+
+    def plain():
+        return encode_png_rgba(hdr_to_rgba8(img))
+
+    def fast():
+        return native.encode_png_rgba_native(native.hdr_to_rgba8_native(img))
+
+    (a1, pa), (b1, pb), (b2, _), (a2, _) = (run(plain), run(fast), run(fast),
+                                            run(plain))
+    rgba = hdr_to_rgba8(img)
+    if not np.array_equal(native.hdr_to_rgba8_native(img), rgba):
+        raise AssertionError("the native HDR to RGBA8 differs from the plain")
+    h, w = rgba.shape[:2]
+    lines = np.concatenate([np.zeros((h, 1), np.uint8),
+                            rgba.reshape(h, w * 4)], axis=1).tobytes()
+    for name, data in (("plain", pa), ("native", pb)):
+        # One IDAT chunk after the signature and IHDR (33 bytes), filter 0.
+        n = int.from_bytes(data[33:37], "big")
+        if data[37:41] != b"IDAT" or zlib.decompress(data[41:41 + n]) != lines:
+            raise AssertionError(f"the {name} PNG is not the frame's RGBA8")
+    print(f"png export of a {w}x{h} frame (save_png's two codecs on the "
+          f"host, A B B A, medians of 5): plain {a1:.1f}, {a2:.1f} ms, "
+          f"native {b1:.1f}, {b2:.1f} ms, native/plain "
+          f"{(b1 + b2) / (a1 + a2):.3f}; {len(pa)} and {len(pb)} bytes, "
+          f"{'the same' if pa == pb else 'different'} files; first "
+          f"available() (the g++ build) {build_s:.2f} s [{gpu}]")
 
 
 def _walk_means(stats):
@@ -1959,6 +2159,17 @@ def _d4_check_cases(dev):
             d4_cases.append((f"K2 debug 4 {name} {mode}", scene,
                              dict(mode, bounces=CHECK_BOUNCES, debug=4), None,
                              SHARE_LIMIT))
+    # The exact normal in each of debug 4's four instantiations.
+    for name, scene, mode in (
+            (f"benchmark_scene({N_PRIMS})", bench, MARCH),
+            (f"benchmark_scene({N_PRIMS})", bench, dict(geometry="baked")),
+            ("csg_demo, subtraction", csg, UNBOXED),
+            ("csg_demo, subtraction", csg,
+             dict(geometry="faithful", t_cull=True)),
+            ("csg_demo, subtraction", csg, dict(geometry="faithful"))):
+        d4_cases.append((f"K2 debug 4 normals=autodiff {name} {mode}", scene,
+                         dict(mode, **EXACT, bounces=MODE_BOUNCES, debug=4),
+                         None, SHARE_LIMIT))
     d4_err = _check_cases(mk, "megakernel_march", d4_cases)
     pw, ph = D4_PARTIAL
     kw = dict(width=pw, height=ph, bounces=CHECK_BOUNCES, debug=4, **MARCH)
@@ -2033,13 +2244,27 @@ def _job_k2(dev, part):
     cases.append((f"K2 benchmark_scene({WALK_PRIMS}) baked t_cull",
                    _scene("walk", dev), dict(MARCH, bounces=CHECK_BOUNCES), None,
                    SHARE_LIMIT))
+    # The exact normal (normals="autodiff") in each plain march's
+    # instantiation: subtraction and guard skips, the smooth union's blend,
+    # the benchmark scene's octahedra and cubes.
+    for name, scene, mode, debugs in (
+            ("csg_demo faithful", csg, dict(geometry="faithful"), (0,)),
+            ("csg_demo faithful t_cull", csg,
+             dict(geometry="faithful", t_cull=True), (0, 1)),
+            ("blend_demo baked", blend, dict(geometry="baked"), (1,)),
+            (f"benchmark_scene({N_PRIMS}) baked t_cull", _scene("bench", dev),
+             MARCH, (0, 1))):
+        for debug in debugs:
+            cases.append((f"K2 normals=autodiff {name} debug {debug}", scene,
+                          dict(mode, **EXACT, bounces=MODE_BOUNCES,
+                               debug=debug), None, SHARE_LIMIT))
     return {"k2_err": _check_cases(mk, "megakernel_march", cases[part::2])}
 
 
-def _job_k2b_k5(dev):
-    """K2b (analytic_unboxed, omega) and K5 (analytic_soa) against their
-    plain versions at CHECK_W x CHECK_H; omega=1.0 the march without it;
-    K5 at 64 primitives bit for bit K1's analytic_all frame."""
+def _job_k2b(dev):
+    """K2b (analytic_unboxed, omega) and the window (refresh_every) against
+    their plain versions at CHECK_W x CHECK_H; omega=1.0 the march without
+    it."""
     import torch
 
     from compute_path_tracer_tpu_torch.kernels import megakernel as mk
@@ -2063,6 +2288,35 @@ def _job_k2b_k5(dev):
               bounces=CHECK_BOUNCES), None, SHARE_LIMIT),
         (f"K2b omega {OMEGA} + analytic_unboxed csg_demo", csg,
          dict(UNBOXED, omega=OMEGA, bounces=CHECK_BOUNCES), None, SHARE_LIMIT))))
+    # The exact normal in K2b (the caps folded into the gradient's map) and
+    # RELAX, and the frozen activation window with and without the cap and
+    # the exact normal: every RELAX and window instantiation, both
+    # geometries.
+    faithful = dict(geometry="faithful", t_cull=True)
+    k2b_err = max(k2b_err, _check_cases(mk, "megakernel_march", tuple(
+        (f"{label} {name}", scene, dict(mode, bounces=MODE_BOUNCES), None,
+         SHARE_LIMIT)
+        for name, scene, label, mode in (
+            (f"benchmark_scene({N_PRIMS})", bench,
+             "K2b analytic_unboxed normals=autodiff", dict(UNBOXED, **EXACT)),
+            (f"benchmark_scene({N_PRIMS})", bench,
+             f"K2b omega {OMEGA} normals=autodiff",
+             dict(MARCH, **EXACT, omega=OMEGA)),
+            ("csg_demo faithful t_cull", csg,
+             f"K2b omega {OMEGA} normals=autodiff",
+             dict(faithful, **EXACT, omega=OMEGA)),
+            ("csg_demo faithful t_cull", csg, "K2 refresh_every 4",
+             dict(faithful, refresh_every=4)),
+            ("csg_demo faithful t_cull", csg,
+             "K2 refresh_every 4 normals=autodiff",
+             dict(faithful, **EXACT, refresh_every=4)),
+            (f"benchmark_scene({N_PRIMS}) baked t_cull", bench,
+             "K2 refresh_every 4", dict(MARCH, refresh_every=4)),
+            (f"benchmark_scene({N_PRIMS}) baked t_cull", bench,
+             "K2 refresh_every 4 normals=autodiff",
+             dict(MARCH, **EXACT, refresh_every=4)),
+            (f"benchmark_scene({N_PRIMS}) + analytic_unboxed", bench,
+             "K2 refresh_every 8", dict(UNBOXED, refresh_every=8))))))
     # omega=1.0 is the march without over-relaxation: K2's frame, and on
     # csg_demo, where K2 is its plain version bit for bit, the plain frame.
     for name, (sspec, sparams), mode in (
@@ -2080,7 +2334,17 @@ def _job_k2b_k5(dev):
               f"omega: {'bit-equal' if equal else 'DIFFERENT'}")
         if not equal:
             raise AssertionError(f"omega=1.0 changed the {name} frame")
+    return {"k2b_err": k2b_err}
 
+
+def _job_k5(dev):
+    """K5 (analytic_soa) against its plain version at CHECK_W x CHECK_H, and
+    at 64 primitives bit for bit K1's analytic_all frame."""
+    import torch
+
+    from compute_path_tracer_tpu_torch.kernels import megakernel as mk
+
+    bench = _scene("bench", dev)
     k5_err = {n: _check_cases(mk, "megakernel_analytic", (
         (f"K5 analytic_soa benchmark_scene({n})", _scene(f"soa{n}", dev),
          dict(SOA, bounces=CHECK_BOUNCES), None, SHARE_LIMIT),)) for n in SOA_PRIMS}
@@ -2094,7 +2358,7 @@ def _job_k2b_k5(dev):
           f"{N_PRIMS}) {CHECK_W}x{CHECK_H}: {'bit-equal' if equal else 'DIFFERENT'}")
     if not equal:
         raise AssertionError("analytic_soa is not analytic_all's frame")
-    return {"k2b_err": k2b_err, "k5_err": k5_err}
+    return {"k5_err": k5_err}
 
 
 def _job_k6(dev):
@@ -2104,6 +2368,7 @@ def _job_k6(dev):
     and K2, bit for bit the frames one at a time."""
     import torch
 
+    from compute_path_tracer_tpu_torch.constants import DEFAULT_FOV
     from compute_path_tracer_tpu_torch.kernels import megakernel as mk
 
     bench = _scene("bench", dev)
@@ -2120,6 +2385,13 @@ def _job_k6(dev):
                   f"{N_PRIMS})", bench, dict(GRID, analytic_unboxed=True,
                                              bounces=CHECK_BOUNCES), None,
                   SHARE_LIMIT))
+    for name, scene, mode in (
+            (f"benchmark_scene({N_PRIMS})", bench, GRID),
+            ("blend_demo + analytic_unboxed", _scene("blend", dev),
+             dict(GRID, analytic_unboxed=True))):
+        cases.append((f"K6 dist_grid normals=autodiff {name}", scene,
+                      dict(mode, **EXACT, bounces=MODE_BOUNCES), None,
+                      SHARE_LIMIT))
     # With a zero shell no ray takes an exact tap: those that reach a cell
     # whose bound is 0 run out of iterations and take the full map's id.
     cases.append(("K6 dist_grid grid_tau 0, edge_demo, out of iterations",
@@ -2127,6 +2399,27 @@ def _job_k6(dev):
                                             bounces=CHECK_BOUNCES), None,
                   SHARE_LIMIT))
     k6_err = _check_cases(mk, "megakernel_march", cases)
+    # The grid march's STATS form (grid_stats) with the exact normal: the
+    # plain version's frame, bit for bit, and the warp statistics taken.
+    prog, table, grid = mk._march_tables(*bench, "baked", True, False, True,
+                                         mk.GRID_DEFAULT_RES, mk.GRID_TAU)
+    acc = torch.zeros((CHECK_H, CHECK_W, 3), device=dev)
+    gstats = torch.zeros(5, dtype=torch.int64, device=dev)
+    before = mk.LAUNCHES["megakernel_march"]
+    mk.launch_march(prog, table, acc, frame=0, last_clear=0,
+                    bounces=MODE_BOUNCES, fov=DEFAULT_FOV,
+                    aspect=CHECK_W / CHECK_H, debug=0, t_cull=True, grid=grid,
+                    grid_stats=gstats, **EXACT)
+    p = mk.render_frame_megakernel_plain(*bench, width=CHECK_W,
+                                         height=CHECK_H, bounces=MODE_BOUNCES,
+                                         **GRID, **EXACT)
+    torch.cuda.synchronize()
+    if mk.LAUNCHES["megakernel_march"] - before != 1 or not int(gstats[0]):
+        raise AssertionError("K6's STATS form with the exact normal did not "
+                             "launch or took no statistics")
+    k6_err = max(k6_err, _compare(
+        f"K6 dist_grid grid_stats normals=autodiff benchmark_scene("
+        f"{N_PRIMS})", acc, p, exact=True)[1])
     kw = dict(width=CHECK_W, height=CHECK_H, bounces=CHECK_BOUNCES, **GRID)
     g1 = mk.render_frame_megakernel(*bench, omega=1.0, **kw)
     g16 = mk.render_frame_megakernel(*bench, omega=OMEGA, **kw)
@@ -2289,6 +2582,24 @@ def _job_k2_main(dev):
             "walk": stats.walk_lists().tolist(), "d4_share": d4_share,
             "d4_err": d4_err, "warps": pf.group_stats(d4),
             "lanes": stats.lanes_xyz.tolist()}
+
+
+def _job_k2x_main(dev):
+    """K2 with the exact normal and with refresh_every 4 at the main path's
+    shape, each against its plain pass, which counts its work."""
+    from compute_path_tracer_tpu_torch.kernels import megakernel as mk
+
+    out = {}
+    for key, mode, label in (("exact", dict(MARCH, **EXACT),
+                              "K2 normals=autodiff"),
+                             ("refresh", dict(MARCH, refresh_every=4),
+                              "K2 refresh_every 4")):
+        count = {}
+        share, err, plain_ms = _main_shape_check(
+            mk, "megakernel_march", *_scene("bench", dev), mode, label, count)
+        out[key] = {"share": share, "err": err, "plain_ms": plain_ms,
+                    "count": count}
+    return out
 
 
 def _job_k2b_main(dev):
@@ -2845,9 +3156,10 @@ def _job_d4(dev):
 
 JOBS = {"k2 even": partial(_job_k2, part=0),
         "k2 odd": partial(_job_k2, part=1),
-        "k2b and k5": _job_k2b_k5, "k6": _job_k6, "k3": _job_k3,
+        "k2b": _job_k2b, "k5": _job_k5, "k6": _job_k6, "k3": _job_k3,
         "gradients through k3": _job_grad, "k4": _job_k4, "k4b": _job_k4b,
         "debug 4": _job_d4, "k2 1080p": _job_k2_main,
+        "k2 exact and refresh 1080p": _job_k2x_main,
         "k2b 1080p": _job_k2b_main, "k6 1080p": _job_k6_main,
         "k4b 1080p": _job_k4b_main, "wavefront": _job_wavefront,
         "cli": _job_cli, "edge": _job_edge, "parallel": _job_parallel}
@@ -2858,10 +3170,11 @@ JOBS = {"k2 even": partial(_job_k2, part=0),
 # they took most of the script's time.  The groups balance the jobs' times
 # on the card (each job prints its own).
 CHECK_WORKER = "--check-worker"
-CHECK_WORKERS = (("k4",), ("k4b", "k3"), ("debug 4", "k4b 1080p"),
-                 ("k2 even", "k2 1080p"), ("k2 odd", "gradients through k3"),
-                 ("k2b and k5", "k6 1080p"), ("k6", "k2b 1080p"),
-                 ("wavefront", "cli"), ("edge", "parallel"))
+CHECK_WORKERS = (("k6",), ("k2b", "k5"), ("debug 4", "parallel"),
+                 ("k4b", "k4b 1080p"), ("k4", "k6 1080p"), ("k2 odd", "k3"),
+                 ("wavefront", "gradients through k3"),
+                 ("k2 even", "k2 exact and refresh 1080p", "k2b 1080p"),
+                 ("cli", "edge", "k2 1080p"))
 
 
 def _to_host(obj):
@@ -3105,14 +3418,15 @@ def main() -> int:
     lib_path = build.build(verbose=True)
     mk.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path}")
+    workers = _start_workers()
     walk_ptxas = _ptxas_walk(build)
     k1_ptxas = _ptxas_k1(build)
     probe_ptxas = _ptxas_probes(build)
-    bf16_sass = _bf16_sass(build)
-    mxu_sass = _mxu_sass(build)
-    gather_sass = _gather_sass(build)
-    seg_sass = _segsum_sass(build)
-    workers = _start_workers()
+    sass = build.sass()
+    bf16_sass = _bf16_sass(sass)
+    mxu_sass = _mxu_sass(sass)
+    gather_sass = _gather_sass(sass)
+    seg_sass = _segsum_sass(sass)
 
     bench = _scene("bench", dev)
     spec = bench[0]
@@ -3152,11 +3466,15 @@ def main() -> int:
     _stamp(start, "joining the check workers")
     checks = _join_workers(workers)
     k2_err = max(checks[k]["k2_err"] for k in ("k2 even", "k2 odd"))
-    k2b_err = checks["k2b and k5"]["k2b_err"]
-    k5_err = checks["k2b and k5"]["k5_err"]
+    k2b_err, k5_err = checks["k2b"]["k2b_err"], checks["k5"]["k5_err"]
     k6_err, d4_err = checks["k6"]["k6_err"], checks["debug 4"]["d4_err"]
     csg, cube = _scene("csg", dev), _scene("cube", dev)
     sap = _scene("sap", dev)
+
+    _stamp(start, "png export")
+    _png_export_phase(mk.render_frame_megakernel(
+        *bench, width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
+        **MARCH).cpu().numpy(), gpu)
 
     _stamp(start, "K1 main path")
     # -- K1 main path: RenderSession at 1080p, full-analytic ---------------
@@ -3317,6 +3635,14 @@ def main() -> int:
     print(f"K2 with omega {OMEGA} at {MAIN_W}x{MAIN_H}: kernel "
           f"{k2_omega_ms:.3f} ms [{gpu}]")
     del sess, scratch
+
+    _stamp(start, "K2 exact normals and refresh_every")
+    # -- K2's normals="autodiff" and refresh_every: main paths, A B B A -----
+    with torch.no_grad():
+        grid16 = make_dist_grid(spec, bake(spec, sp))
+    xr_rows = _exact_refresh_phase(mk, pf, spec, sp, prog, table, grid16,
+                                   peak, frame_bytes, checks, gpu)
+    del grid16
 
     _stamp(start, "band split")
     # -- K1 and K2 as PARALLEL_BANDS band launches (parallel/'s bands) -------
@@ -3950,7 +4276,19 @@ def main() -> int:
          "mean_list_per_bounce": walk_mean,
          "band_split_ms": band_split["K2"],
          "ptxas": {k: v for k, v in walk_ptxas.items()
-                   if k.startswith("megakernel_walk") and k.endswith(",0>")}},
+                   if k.startswith("megakernel_walk") and k.endswith(",0,0>")}},
+        {**xr_rows["exact"], "route": "cuda",
+         "source": csrc + "megakernel_march.cu", "replaces": replaces,
+         "state": "ported (the EXACT instantiations: "
+                  "csg_program.cuh:grad_exact_walk)",
+         "ptxas": {k: v for k, v in walk_ptxas.items()
+                   if k.startswith("megakernel_") and k.endswith(",1>")}},
+        {**xr_rows["refresh"], "route": "cuda",
+         "source": csrc + "megakernel_march.cu", "replaces": replaces,
+         "state": "ported (megakernel_walk's kMarchRefresh: "
+                  "csg_program.cuh:march_refresh_walk)",
+         "ptxas": {k: v for k, v in walk_ptxas.items()
+                   if k.startswith("megakernel_walk") and ",2," in k}},
         {"name": "march_rays", "route": "cuda",
          "source": csrc + "march_rays.cu",
          "replaces": "compute_path_tracer_tpu/kernels/march.py:123",
@@ -3982,7 +4320,7 @@ def main() -> int:
                   "analytic_unboxed in PR 11)",
          "omega_ms": k2_omega_ms,
          "ptxas": {k: v for k, v in walk_ptxas.items()
-                   if k.startswith("megakernel_walk") and k.endswith(",1>")}},
+                   if k.startswith("megakernel_walk") and k.endswith(",1,0>")}},
         {"name": "train_fused (K2b: analytic_unboxed)", "route": "cuda",
          "source": csrc + "train_fused.cu",
          "replaces": "compute_path_tracer_tpu/kernels/train.py:1018",
@@ -4007,7 +4345,7 @@ def main() -> int:
          "library_ms": None, "state": "redesigned: per-warp walk",
          "mean_list_per_bounce": k6_walk_mean,
          "ptxas": {k: v for k, v in walk_ptxas.items()
-                   if k.startswith("megakernel_grid")}},
+                   if k.startswith("megakernel_grid") and k.endswith(",0>")}},
         {"name": "debug4", "route": "cuda",
          "source": csrc + "megakernel_march.cu", "replaces": replaces,
          "launches": d4_launches, "max_abs_err": d4_err,
@@ -4015,7 +4353,7 @@ def main() -> int:
          "plain_ms": k2_plain_ms, "bound_ms": d4_bound, "bound_by": d4_by,
          "library_ms": None, "state": "redesigned, PR 14 (per-warp walk)",
          "ptxas": {k: v for k, v in walk_ptxas.items()
-                   if k.startswith("megakernel_stats")}}] + [
+                   if k.startswith("megakernel_stats") and k.endswith(",0>")}}] + [
         {"name": name, "route": "cuda", "source": csrc + "march_probes.cu",
          "replaces": f"benchmarks/{name}.py:{line}",
          "launches": sum(probe_runs[name][0].values()),

@@ -105,6 +105,18 @@ HBM_BYTES_PER_S = 3.35e12
 SLAB_OPS = 26
 TAP_OPS = 11
 LEAF_OPS = {0: 12, 1: 39, 2: 7, 3: 32}
+# The exact normal (normals="autodiff", csg_program.cuh:grad_exact_walk), by
+# the same rules: per walk the normalisation of its gradient (a dot product,
+# the test, the root, the reciprocal and 3 muls), and per baked leaf its
+# LEAF_OPS (the value and its fold) and what only the gradient takes:
+# sphere the 3 divisions of length_grad (its dot product and root are the
+# value's), cube those 3, the tie slopes and abs slopes of its max
+# component and 3 sign products (26) and A^T (15), plane none, octahedron
+# one branch's clip slope, 3 divisions and spread (13), the abs slopes (6)
+# and A^T (15); and per fold the union's tie test (2).
+GRAD_TAP_OPS = 11
+GRAD_LEAF_OPS = {k: LEAF_OPS[k] + v
+                 for k, v in {0: 3 + 2, 1: 41 + 2, 2: 0 + 2, 3: 34 + 2}.items()}
 ANALYTIC_LEAF_OPS = {0: 22, 1: 70, 2: 16, 3: 113}
 # K4's work beyond the map taps and leaves above, per item, read off
 # train_fused.cu (the same counting rules): one bounce's replay with its
@@ -228,9 +240,13 @@ def _leaf_ops(count) -> float:
 
 def march_ops(count, prog) -> float:
     """FP32 operations of the march work in ``count`` (make_map_program's
-    tally, with "segments")."""
+    tally, with "segments", and make_grad_program's for the exact
+    normal)."""
     return (count["segments"] * prog.n_boxed * SLAB_OPS
-            + count["taps"] * TAP_OPS + _leaf_ops(count))
+            + count["taps"] * TAP_OPS + _leaf_ops(count)
+            + int(count.get("grad_taps", 0)) * GRAD_TAP_OPS
+            + sum(int(count.get(("grad", k), 0)) * v
+                  for k, v in GRAD_LEAF_OPS.items()))
 
 
 def dense_ops(count, prog) -> float:

@@ -3,10 +3,11 @@
 
 ``__all__`` is the JAX package's, with the Orbax pair
 (``save_checkpoint_orbax``, ``load_checkpoint_orbax``) replaced by its
-counterpart ``save_checkpoint_torch`` / ``load_checkpoint_torch``.  The
-JAX package's ``io/native.py`` (ctypes bindings of a C++ image-export fast
-path and a wang_hash cross-check; optional) has no
-counterpart (ROADMAP queue 1, item 7's optional tail).
+counterpart ``save_checkpoint_torch`` / ``load_checkpoint_torch``.
+``io/native.py`` (as in the JAX package, outside ``__all__``) binds the
+C++ image-export fast path and the wang_hash cross-check of
+``native/cpt_native.cpp``, built at first use into ``build/native/``;
+``save_png`` takes it when it is available.
 """
 
 from .checkpoint import (

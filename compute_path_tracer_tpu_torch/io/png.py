@@ -4,8 +4,10 @@ The headless analog of the reference's GUI "Save Image" path (reference:
 src/state.rs:237-303): the HDR accumulator is gamma-2.2 encoded, quantized to
 8-bit RGBA, y-flipped, and written as a PNG.  The encoder is a minimal
 from-scratch implementation (signature + IHDR/IDAT/IEND chunks, zlib deflate)
-so the package has zero imaging deps (JAX package: ``io/png.py``, without
-its optional native encoder).
+so the package has zero imaging deps (JAX package: ``io/png.py``).
+``save_png`` takes the native C++ encoder of ``io/native.py`` when its
+library is available; this module's codec is its plain version, with the
+same pixels.
 """
 
 from __future__ import annotations
@@ -58,8 +60,17 @@ def hdr_to_rgba8(img: np.ndarray, gamma: float = 2.2, flip_y: bool = True) -> np
 
 
 def save_png(path: str, img: np.ndarray, gamma: float = 2.2, flip_y: bool = True) -> None:
-    """Save a linear-HDR (H, W, 3) image as an 8-bit PNG file."""
-    data = encode_png_rgba(hdr_to_rgba8(img, gamma=gamma, flip_y=flip_y))
+    """Save a linear-HDR (H, W, 3) image as an 8-bit PNG file, through the
+    native export path (io/native.py) when its library is available, else
+    this module's codec; both give the same pixels."""
+    from . import native
+
+    if native.available():
+        rgba = native.hdr_to_rgba8_native(np.asarray(img), gamma=gamma,
+                                          flip_y=flip_y)
+        data = native.encode_png_rgba_native(rgba)
+    else:
+        data = encode_png_rgba(hdr_to_rgba8(img, gamma=gamma, flip_y=flip_y))
     with open(path, "wb") as f:
         f.write(data)
 

@@ -173,7 +173,7 @@ def load_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.cpt_megakernel_march
     fn.argtypes = ([p, i, p, i, i, i, i, i, i, f, p, i, i, i, i, i, i, i, f, f, i]
-                   + [p, p, i, i, i, p, i, i, f, p, i, p, p])
+                   + [p, p, i, i, i, p, i, i, f, p, i, p, i, i, p])
     fn.restype = ctypes.c_int
     fn = lib.cpt_march_rays
     fn.argtypes = [p, i, p, i, i, i, i, i, i] + [p] * 11 + [i, p]

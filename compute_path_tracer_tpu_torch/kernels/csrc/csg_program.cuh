@@ -50,7 +50,7 @@ constexpr float kMaxDist = 10000.0f;    // constants.MAX_DIST
 constexpr float kNormalEps = 1e-4f;
 
 struct Scene {
-  const int* code;     // n_ops records of OP_WIDTH, then box_cull, then caps
+  const int* code;     // n_ops records of OP_WIDTH, then box_cull, caps, cap_leave
   int n_ops;
   const float* F;      // program_table
   int n_boxed, f_box, f_sph, f_mat;
@@ -647,6 +647,47 @@ __device__ float march_relax_walk(const Scene& S, const int4* __restrict__ list,
   return t;
 }
 
+// The t-culled march with a frozen activation window (refresh_every = K;
+// cast_tcull(..., refresh_every=K), JAX _march_while_tcull :674-700 with the
+// tile reduced to this ray): at steps 0, K, 2K, ... the ray takes its
+// refresh point t_r, and for the K steps of the window a culled shape is in
+// the map while its interval holds t_r (map_walk's CULLED test reads t_r in
+// place of t), and m, the nearest entry still ahead of t_r, clamps every
+// step.  A box reached mid-window stays out of the map, and the clamp still
+// stops the ray at its entry, creeping MHD a step (up to K MHD); a box
+// left mid-window stays in.  m at a window's start is next_entry(t_r),
+// recomputed only when t_r has reached the kept one (march_walk's rule).
+// K comes at run time and must divide kSteps; K = 1 is march_walk, which
+// the kernels run for it, so its code path stays as it was.
+template <bool BAKED>
+__device__ float march_refresh_walk(const Scene& S, const int4* __restrict__ list, int n,
+                                    const float* __restrict__ F, const Guards<true>& g, V3 ro,
+                                    V3 rd, int& idx, float t_cap, int refresh) {
+  float t = 0.0f, tr = 0.0f;
+  float m = next_entry(S, g, 0.0f);
+  int w = 0;  // steps taken in the window
+  idx = -1;
+  for (int step = 0; step < kSteps; ++step) {
+    if (w == refresh) {
+      w = 0;
+      tr = t;
+      if (t >= m) m = next_entry(S, g, t);
+    }
+    ++w;
+    int mi;
+    float d = map_walk<BAKED, true, true>(list, n, F, g, v3(ro.x + rd.x * t, ro.y + rd.y * t,
+                                                            ro.z + rd.z * t), tr, mi);
+    float ad = fabsf(d);
+    float nt = t + nan_min(ad, nan_max(m - t, kMhd));
+    nt = nan_min(nt, t_cap);
+    bool far = nt > kFar;
+    idx = far ? -1 : mi;
+    t = nt;
+    if (ad < kMhd || far || nt >= t_cap) break;
+  }
+  return t;
+}
+
 // Debug 4's counters of one warp (megakernel_march.cu STATS), the same in
 // every lane: march iterations of the warp (x), guarded shapes evaluated by
 // at least one lane per iteration (y), and shapes evaluated by at least one
@@ -729,6 +770,244 @@ template <bool BAKED, bool TCULL>
 __device__ V3 normal_walk(const int4* __restrict__ list, int n, const float* __restrict__ F,
                           const Guards<TCULL>& g, V3 p) {
   return normalize_safe(grad_walk<BAKED, TCULL>(list, n, F, g, p));
+}
+
+// -- the exact gradient (normals="autodiff") -------------------------------------
+//
+// JAX's normals="autodiff" differentiates the map at the hit by reverse-mode
+// AD (megakernel.py:1298-1310).  Here one forward-mode walk of the warp's
+// list carries (d, grad d), where the 6-tap normal walks the list six
+// times; render/program.py:make_grad_program is its plain version,
+// operation for operation.  At a kink the walk takes the rule of JAX's AD
+// (jax/_src/lax/lax.py), where it differs from the select the value takes:
+// * |x| (lax.abs): slope +1 at x >= 0, -1 below, so +1 at 0 (abs_slope);
+// * max(a, b) and min(a, b) (lax.max, lax.min: _balanced_eq): the winner's
+//   gradient, half each on a tie (max_slope, min_slope): the union's
+//   jnp.minimum, the cube's max(a, 0) and its max component, and the
+//   octahedron's and the smooth union's jnp.clip (a max, then a min);
+// * length_safe: zero gradient at the zero vector (length_grad);
+// * a select (jnp.where: a failed guard, the subtraction, the octahedron's
+//   three branches): the selected operand's gradient.
+
+__device__ __forceinline__ float abs_slope(float x) { return x >= 0.0f ? 1.0f : -1.0f; }
+
+__device__ __forceinline__ float max_slope(float a, float b) {
+  return a > b ? 1.0f : (a == b ? 0.5f : 0.0f);
+}
+
+__device__ __forceinline__ float min_slope(float a, float b) {
+  return a < b ? 1.0f : (a == b ? 0.5f : 0.0f);
+}
+
+// The gradient of length_safe(v): v / |v|, zero at the zero vector.
+__device__ __forceinline__ V3 length_grad(V3 v) {
+  const float l2 = dot(v, v);
+  if (!(l2 > 0.0f)) return splat(0.0f);
+  const float l = sqrtf(l2);
+  return v3(v.x / l, v.y / l, v.z / l);
+}
+
+// d octa_branch / d(qx, qy, qz): k = clip(u, 0, s) moves with qz - qy.
+__device__ __forceinline__ V3 octa_branch_grad(float qx, float qy, float qz, float s) {
+  const float u = 0.5f * (qz - qy + s);
+  const float mu = nan_max(u, 0.0f);
+  const float k = nan_min(mu, s);
+  const float c = min_slope(mu, s) * max_slope(u, 0.0f);
+  const V3 gv = length_grad(v3(qx, qy - s + k, qz - k));
+  const float e = (gv.y - gv.z) * c * 0.5f;
+  return v3(gv.x, gv.y - e, gv.z + e);
+}
+
+// The gradient of leaf_sdf at q, in the leaf's frame.
+__device__ V3 leaf_sdf_grad(int kind, V3 q, const float* __restrict__ sz) {
+  if (kind == KIND_SPHERE) return length_grad(q);
+  if (kind == KIND_PLANE) return v3(0.0f, 1.0f, 0.0f);
+  if (kind == KIND_CUBE) {
+    const V3 a = v3(fabsf(q.x) - sz[0], fabsf(q.y) - sz[1], fabsf(q.z) - sz[2]);
+    const V3 go = length_grad(v3(nan_max(a.x, 0.0f), nan_max(a.y, 0.0f), nan_max(a.z, 0.0f)));
+    const float t = nan_max(a.y, a.z);
+    const float w = min_slope(nan_max(a.x, t), 0.0f);
+    const float wt = w * max_slope(t, a.x);
+    return v3(abs_slope(q.x) * (go.x + w * max_slope(a.x, t)),
+              abs_slope(q.y) * (go.y + wt * max_slope(a.y, a.z)),
+              abs_slope(q.z) * (go.z + wt * max_slope(a.z, a.y)));
+  }
+  const float s = sz[0];
+  const V3 p = v3(fabsf(q.x), fabsf(q.y), fabsf(q.z));
+  const float m = p.x + p.y + p.z - s;
+  V3 gp = splat(0.57735027f);
+  if (3.0f * p.z < m) {
+    const V3 b = octa_branch_grad(p.z, p.x, p.y, s);
+    gp = v3(b.y, b.z, b.x);
+  }
+  if (3.0f * p.y < m) {
+    const V3 b = octa_branch_grad(p.y, p.z, p.x, s);
+    gp = v3(b.z, b.x, b.y);
+  }
+  if (3.0f * p.x < m) gp = octa_branch_grad(p.x, p.y, p.z, s);
+  return v3(abs_slope(q.x) * gp.x, abs_slope(q.y) * gp.y, abs_slope(q.z) * gp.z);
+}
+
+// The world-space gradient of leaf_baked: a cube's or an octahedron's
+// leaf-frame gradient through its affine rows, A^T grad.
+__device__ V3 leaf_baked_grad(int kind, const float* __restrict__ g, V3 p) {
+  if (kind == KIND_SPHERE) return length_grad(v3(p.x - g[0], p.y - g[1], p.z - g[2]));
+  if (kind == KIND_PLANE) return v3(g[0], g[1], g[2]);
+  const V3 q = v3(g[0] * p.x + g[1] * p.y + g[2] * p.z + g[9],
+                  g[3] * p.x + g[4] * p.y + g[5] * p.z + g[10],
+                  g[6] * p.x + g[7] * p.y + g[8] * p.z + g[11]);
+  const V3 gl = leaf_sdf_grad(kind, q, g + 12);
+  return v3(g[0] * gl.x + g[3] * gl.y + g[6] * gl.z, g[1] * gl.x + g[4] * gl.y + g[7] * gl.z,
+            g[2] * gl.x + g[5] * gl.y + g[8] * gl.z);
+}
+
+// The transpose of xform's Jacobian applied to a gradient in the transformed
+// frame: the rotation transposed, then the inverse scale r[1].
+__device__ __forceinline__ V3 xform_t(V3 gv, const float* __restrict__ r) {
+  const float cx = r[5], sx = r[6], cy = r[7], sy = r[8], cz = r[9], sz = r[10];
+  const float gx2 = cz * gv.x - sz * gv.y;
+  const float gy1 = sz * gv.x + cz * gv.y;
+  const float gz1 = -sy * gx2 + cy * gv.z;
+  return v3((cy * gx2 + sy * gv.z) * r[1], (cx * gy1 - sx * gz1) * r[1],
+            (sx * gy1 + cx * gz1) * r[1]);
+}
+
+// fold with the gradient: the union takes the nearer operand's (half each
+// on a tie), the subtraction the selected one's (negated for -acc), the
+// smooth union (1 - h) grad d + h grad acc and, while the clip of h is not
+// saturated, the term of dh.
+__device__ __forceinline__ void fold_grad(int op, float k, float& acc_d, V3& acc_g, float d,
+                                          V3 gd) {
+  if (op == FOLD_ASSIGN) {
+    acc_d = d;
+    acc_g = gd;
+  } else if (op == OP_UNION) {
+    if (acc_d == d) {
+      acc_g = v3(0.5f * acc_g.x + 0.5f * gd.x, 0.5f * acc_g.y + 0.5f * gd.y,
+                 0.5f * acc_g.z + 0.5f * gd.z);
+    } else if (!(acc_d < d)) {
+      acc_d = d;
+      acc_g = gd;
+    }
+  } else if (op == OP_SUBTRACTION) {
+    const float nd = -acc_d;
+    if (nd >= d) {
+      acc_d = nd;
+      acc_g = v3(-acc_g.x, -acc_g.y, -acc_g.z);
+    } else {
+      acc_d = d;
+      acc_g = gd;
+    }
+  } else {
+    const float u = 0.5f + 0.5f * (d - acc_d) / k;
+    const float mu = nan_max(u, 0.0f);
+    const float h = nan_min(mu, 1.0f);
+    const float blended = d * (1.0f - h) + acc_d * h - k * h * (1.0f - h);
+    const float c = min_slope(mu, 1.0f) * max_slope(u, 0.0f);
+    const float s = (acc_d - d - k * (1.0f - 2.0f * h)) * c * 0.5f / k;
+    acc_g = v3((1.0f - h) * gd.x + h * acc_g.x + s * (gd.x - acc_g.x),
+               (1.0f - h) * gd.y + h * acc_g.y + s * (gd.y - acc_g.y),
+               (1.0f - h) * gd.z + h * acc_g.z + s * (gd.z - acc_g.z));
+    acc_d = blended;
+  }
+}
+
+// The exact gradient of the map at p over a warp's list, under the bounce's
+// full guards (JAX differentiates the per-lane-guard map, not the culled
+// one), before normalisation.  Faithful geometry keeps each stack entry's
+// gradient in its own union's frame: a leaf adds gr[0] J^T grad leaf (J
+// the leaf's xform), and a LEAVE maps the union's gradient into the
+// parent's frame through the union's xform (its record kept on the stack)
+// and scales it by the union's scale, so no Jacobian is carried per level.
+// The program's caps (analytic_unboxed's guard-less shapes, which reach
+// their plain UNION union through min alone) are folded into their own
+// union by min just before its LEAVE (the cap_leave table after the caps
+// in the code: per LEAVE in walk order, the caps listed before it; a LEAVE
+// is on every list): with the union's MAX_DIST seed that is the map of the
+// whole program, which JAX differentiates (make_map_baked_d without
+// skip_unboxed), an ancestor's clobbering first shape included.  MAP
+// COUNT_ALL adds to *tally
+// six for each listed shape some live lane evaluates, the count of the six
+// map taps of grad_walk<COUNT_ALL> (debug 4's z does not depend on the
+// normal, as in JAX); a collective, like map_walk's COUNT modes.
+template <bool BAKED, bool TCULL, int MAP = GUARDED>
+__device__ V3 grad_exact_walk(const Scene& S, const int4* __restrict__ list, int n,
+                              const float* __restrict__ F, const Guards<TCULL>& g, V3 p,
+                              bool live = true, unsigned* tally = nullptr) {
+  float st_d[kMaxDepth];
+  V3 st_g[kMaxDepth];
+  V3 st_p[BAKED ? 1 : kMaxDepth];
+  int st_r[BAKED ? 1 : kMaxDepth];
+  int sp = 0;
+  float acc_d = kMaxDist;
+  V3 acc_g = splat(0.0f);
+  const int* __restrict__ cap_leave = S.caps + 3 * S.n_cap;
+  int n_leave = 0, c = 0;
+  for (int e = 0; e < n; ++e) {
+    const int4 r = list[e];
+    const int opc = r.x & 3;
+    if (opc == OPC_ENTER) {
+      st_d[sp] = acc_d;
+      st_g[sp] = acc_g;
+      if (!BAKED) {
+        st_p[sp] = p;
+        st_r[sp] = r.y;
+        p = xform(p, F + r.y);
+      }
+      ++sp;
+      acc_d = __int_as_float(r.z);
+      acc_g = splat(0.0f);
+    } else if (opc == OPC_SHAPE) {
+      const int box = walk_box(r);
+      bool pass = MAP == GUARDED || live;
+      if (pass && box >= 0) pass = g.check(box);
+      if constexpr (MAP == COUNT_ALL) {
+        if (__ballot_sync(kFullWarp, pass)) *tally += 6u;
+      }
+      if (!pass) continue;
+      const int kind = (r.x >> 2) & 7;
+      const float* __restrict__ gr = F + r.y;
+      float d;
+      V3 gd;
+      if (BAKED) {
+        d = leaf_baked(kind, gr, p);
+        gd = leaf_baked_grad(kind, gr, p);
+      } else {
+        const V3 q = xform(p, gr);
+        d = leaf_sdf(kind, q, gr + 11) * gr[0];
+        const V3 gl = xform_t(leaf_sdf_grad(kind, q, gr + 11), gr);
+        gd = v3(gl.x * gr[0], gl.y * gr[0], gl.z * gr[0]);
+      }
+      fold_grad(((r.x >> 5) & 15) - 1, __int_as_float(r.w), acc_d, acc_g, d, gd);
+    } else {  // OPC_LEAVE
+      if (S.n_cap > 0) {
+        const int c1 = __ldg(cap_leave + n_leave);
+        for (; c < c1; ++c) {
+          const int kind = __ldg(S.caps + 3 * c);
+          const float* __restrict__ gr = F + __ldg(S.caps + 3 * c + 1);
+          if (live) {
+            fold_grad(OP_UNION, 0.0f, acc_d, acc_g, leaf_baked(kind, gr, p),
+                      leaf_baked_grad(kind, gr, p));
+          }
+        }
+        ++n_leave;
+      }
+      float d = acc_d;
+      V3 gd = acc_g;
+      --sp;
+      if (!BAKED) {
+        const float s = __int_as_float(r.z);
+        d = acc_d * s;
+        const V3 gl = xform_t(acc_g, F + st_r[sp]);
+        gd = v3(gl.x * s, gl.y * s, gl.z * s);
+        p = st_p[sp];
+      }
+      acc_d = st_d[sp];
+      acc_g = st_g[sp];
+      fold_grad(((r.x >> 5) & 15) - 1, __int_as_float(r.w), acc_d, acc_g, d, gd);
+    }
+  }
+  return acc_g;
 }
 
 // Warp statistics of the grid march (K6's GRID_STATS), per iteration of the

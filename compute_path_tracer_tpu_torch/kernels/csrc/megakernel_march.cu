@@ -73,6 +73,21 @@
 //   recomputed only when t reaches it: it cannot change before.
 // * Normals take 6 map taps under the bounce's full guards, also with
 //   t_cull; the debug-1 tint adds 0.1 per AABB hit in walk order.
+// * normals="autodiff" (JAX :1298-1310, the reverse-mode gradient of the
+//   per-lane-guard map, with analytic_unboxed's shapes in it) is each
+//   kernel's EXACT instantiation: one forward-mode walk of the warp's list
+//   carrying (d, grad d) under the same guards, the program's caps folded
+//   in by union, JAX's AD rules at the kinks
+//   (csg_program.cuh:grad_exact_walk), in place of the six walks of the
+//   taps.  A capped hit keeps its closed-form normal; debug 4 counts z as
+//   the six taps would, since JAX's count does not depend on the normal.
+// * refresh_every = K (JAX :674-700; t_cull, debug 0 and 3, omega 1, no
+//   grid: elsewhere JAX ignores it, and so does the host) runs
+//   megakernel_walk's kMarchRefresh march (csg_program.cuh:
+//   march_refresh_walk): the culled shapes in the map and the clamp's entry
+//   are those of the ray's t at the start of each K-step window.  It
+//   changes the image: the clamp still stops a ray at a box it reaches
+//   mid-window, up to K MHD past the entry.  K = 1 runs the march above.
 // * analytic_unboxed (_make_analytic_unboxed :319, the cap at :753-763,
 //   :1060-1063, :1094-1095, :1148-1153): the program leaves the guard-less
 //   shapes of render/baked.py:analytic_eligible_ids out of its ops and lists
@@ -128,24 +143,47 @@ constexpr int kBlockY = 16;
 
 constexpr int kWarps = kBlockX * kBlockY / 32;
 
+// megakernel_walk's march: march_walk, the over-relaxed march_relax_walk
+// (omega != 1) or the frozen-window march_refresh_walk (refresh_every != 1).
+constexpr int kMarchPlain = 0;
+constexpr int kMarchRelax = 1;
+constexpr int kMarchRefresh = 2;
+
+// The normal at a hit p over a warp's list: the 6-tap central difference,
+// or with EXACT (normals="autodiff") the normalised exact gradient of the
+// whole program's map (csg_program.cuh:grad_exact_walk).
+template <bool BAKED, bool TCULL, bool EXACT>
+__device__ __forceinline__ V3 hit_normal(const Scene& S, const int4* __restrict__ list, int n,
+                                         const float* __restrict__ F, const Guards<TCULL>& g,
+                                         V3 p) {
+  if constexpr (EXACT) {
+    return normalize_safe(grad_exact_walk<BAKED, TCULL>(S, list, n, F, g, p));
+  } else {
+    return normal_walk<BAKED, TCULL>(list, n, F, g, p);
+  }
+}
+
 // The march of debug 0-3 (and analytic_unboxed's cap) over per-warp lists
 // of the program staged in shared memory (csg_program.cuh:stage_walk,
-// build_warp_list); with RELAX (t-culled, debug 0 and 3) the over-relaxed
-// march by omega (march_relax_walk) in place of march_walk.  Every lane of
+// build_warp_list); with MARCH kMarchRelax (t-culled, debug 0 and 3) the
+// over-relaxed march by omega (march_relax_walk), with kMarchRefresh
+// (t-culled, debug 0 and 3) the march whose activation window is frozen for
+// `refresh` steps (march_refresh_walk), in place of march_walk; with EXACT
+// each normal is hit_normal's exact one.  Every lane of
 // a warp runs to the end: a lane out of the frame, or whose path has ended,
 // runs on as not live, so that each bounce's list is built by the whole
 // warp.  A non-null walk_stats (debug 0 and 3: 2 (bounces + 1) zeroed
 // uint64) takes record_list's figures.  omega follows the older parameters
 // and RELAX compiles out the debug 1/2 branch, so the instantiations without
 // RELAX compile to the same SASS as before it existed; the band's
-// row_offset and crop_h follow omega, for the same reason, in each kernel
-// of this file.
-template <bool BAKED, bool TCULL, bool RELAX>
+// row_offset and crop_h follow omega, and refresh follows them, for the
+// same reason, in each kernel of this file.
+template <bool BAKED, bool TCULL, int MARCH, bool EXACT>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 megakernel_walk(Scene S, int f_leaf, float* __restrict__ accum, int width, int height, int frame,
                 int last_clear, int bounces, float fov, float aspect, int debug,
                 unsigned long long* __restrict__ walk_stats, float omega, int row_offset,
-                int crop_h) {
+                int crop_h, int refresh) {
   extern __shared__ int4 walk_smem[];
   const int tid = threadIdx.x + kBlockX * threadIdx.y;
   const int warp = tid >> 5, lane = tid & 31;
@@ -161,7 +199,7 @@ megakernel_walk(Scene S, int f_leaf, float* __restrict__ accum, int width, int h
   Guards<TCULL> g;
   V3 col = splat(0.0f);
 
-  if (!RELAX && (debug == 1 || debug == 2)) {
+  if (MARCH == kMarchPlain && (debug == 1 || debug == 2)) {
     float dbg = 0.0f;
     if (inrange) dbg = compute_guards(S, ro, rd, g);
     const int n = build_warp_list(P, S.n_boxed, g, inrange, warp, lane);
@@ -173,7 +211,7 @@ megakernel_walk(Scene S, int f_leaf, float* __restrict__ accum, int width, int h
         if (t > kFar) {
           col = splat(dbg);
         } else {
-          V3 nrm = normal_walk<BAKED, TCULL>(list, n, P.F, g, ro + rd * t);
+          V3 nrm = hit_normal<BAKED, TCULL, EXACT>(S, list, n, P.F, g, ro + rd * t);
           col = (normalize_safe(nrm) * 0.5f + splat(0.5f)) * 0.2f + splat(dbg);
         }
       } else {
@@ -200,8 +238,10 @@ megakernel_walk(Scene S, int f_leaf, float* __restrict__ accum, int width, int h
       if (!alive) continue;
       int idx;
       float t;
-      if constexpr (RELAX) {
+      if constexpr (MARCH == kMarchRelax) {
         t = march_relax_walk<BAKED>(S, list, n, P.F, g, ro, rd, idx, omega, t_cap);
+      } else if constexpr (MARCH == kMarchRefresh) {
+        t = march_refresh_walk<BAKED>(S, list, n, P.F, g, ro, rd, idx, t_cap, refresh);
       } else {
         t = march_walk<BAKED, TCULL>(S, list, n, P.F, g, ro, rd, idx, t_cap);
       }
@@ -216,7 +256,7 @@ megakernel_walk(Scene S, int f_leaf, float* __restrict__ accum, int width, int h
         idx = cap_id(S, j_cap);
         nrm = cap_normal(S, j_cap, hit);
       } else {
-        nrm = normal_walk<BAKED, TCULL>(list, n, P.F, g, hit);
+        nrm = hit_normal<BAKED, TCULL, EXACT>(S, list, n, P.F, g, hit);
       }
       const float* mt = idx >= 0 ? S.F + S.f_mat + kMatSize * idx : nullptr;
       if (!scatter(rng, ro, rd, ret, thr, hit, nrm, mt)) {
@@ -234,8 +274,8 @@ megakernel_walk(Scene S, int f_leaf, float* __restrict__ accum, int width, int h
 // The grid march (K6; baked, t-culled, debug 0 and 3) over megakernel_walk's
 // per-warp lists, the same frame with march_grid_walk in place of
 // march_walk.  With STATS it adds the grid march's warp statistics to
-// grid_stats (5 zeroed uint64); walk_stats as megakernel_walk's.
-template <bool STATS>
+// grid_stats (5 zeroed uint64); walk_stats and EXACT as megakernel_walk's.
+template <bool STATS, bool EXACT>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 megakernel_grid(Scene S, int f_leaf, float* __restrict__ accum, int width, int height, int frame,
                 int last_clear, int bounces, float fov, float aspect, int debug, Grid G,
@@ -286,7 +326,7 @@ megakernel_grid(Scene S, int f_leaf, float* __restrict__ accum, int width, int h
       idx = cap_id(S, j_cap);
       nrm = cap_normal(S, j_cap, hit);
     } else {
-      nrm = normal_walk<true, true>(list, n, P.F, g, hit);
+      nrm = hit_normal<true, true, EXACT>(S, list, n, P.F, g, hit);
     }
     const float* mt = idx >= 0 ? S.F + S.f_mat + kMatSize * idx : nullptr;
     if (!scatter(rng, ro, rd, ret, thr, hit, nrm, mt)) {
@@ -309,8 +349,10 @@ megakernel_grid(Scene S, int f_leaf, float* __restrict__ accum, int width, int h
 // counters (csg_program.cuh:WarpStats) written to each in-range pixel.  The
 // walk is megakernel_walk's: the program staged once, each bounce's list
 // built from the lanes still alive, and the march (march_stats_walk) and
-// the normal taps (grad_walk<COUNT_ALL>) count over that list.
-template <bool BAKED, bool TCULL>
+// the normal taps (grad_walk<COUNT_ALL>) count over that list.  With EXACT
+// the normal is the exact gradient (grad_exact_walk<COUNT_ALL>), which adds
+// to z what the six taps add: JAX's count does not depend on the normal.
+template <bool BAKED, bool TCULL, bool EXACT>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 megakernel_stats(Scene S, int f_leaf, float* __restrict__ accum, int width, int height,
                  int frame, int bounces, float fov, float aspect, int row_offset, int crop_h) {
@@ -345,8 +387,14 @@ megakernel_stats(Scene S, int f_leaf, float* __restrict__ accum, int width, int 
     const bool hit = alive && !(t > kFar);
     const bool capped = hit && t >= t_cap;
     const V3 hp = ro + rd * t;
-    V3 nrm = normalize_safe(
-        grad_walk<BAKED, TCULL, COUNT_ALL>(list, n, P.F, g, hp, hit && !capped, &st.aux));
+    V3 nrm;
+    if constexpr (EXACT) {
+      nrm = normalize_safe(grad_exact_walk<BAKED, TCULL, COUNT_ALL>(S, list, n, P.F, g, hp,
+                                                                    hit && !capped, &st.aux));
+    } else {
+      nrm = normalize_safe(
+          grad_walk<BAKED, TCULL, COUNT_ALL>(list, n, P.F, g, hp, hit && !capped, &st.aux));
+    }
     if (hit) {
       if (capped) {
         idx = cap_id(S, j_cap);
@@ -372,55 +420,91 @@ cudaError_t walk_smem_ready(Kernel kernel, const Scene& S, int f_leaf, int smem_
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
 }
 
-template <bool BAKED, bool TCULL, bool RELAX>
+template <bool BAKED, bool TCULL, int MARCH, bool EXACT>
 int launch_walk(const Scene& S, int f_leaf, int smem_bytes, float* accum, int width, int height,
                 int row_offset, int crop_h, int frame, int last_clear, int bounces, float fov,
                 float aspect, int debug, unsigned long long* walk_stats, float omega,
-                cudaStream_t stream) {
+                int refresh, cudaStream_t stream) {
   const cudaError_t err =
-      walk_smem_ready(megakernel_walk<BAKED, TCULL, RELAX>, S, f_leaf, smem_bytes);
+      walk_smem_ready(megakernel_walk<BAKED, TCULL, MARCH, EXACT>, S, f_leaf, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 block(kBlockX, kBlockY);
   dim3 grid((width + kBlockX - 1) / kBlockX, (crop_h + kBlockY - 1) / kBlockY);
-  megakernel_walk<BAKED, TCULL, RELAX><<<grid, block, smem_bytes, stream>>>(
+  megakernel_walk<BAKED, TCULL, MARCH, EXACT><<<grid, block, smem_bytes, stream>>>(
       S, f_leaf, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, walk_stats,
-      omega, row_offset, crop_h);
+      omega, row_offset, crop_h, refresh);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BAKED, bool TCULL>
+template <bool BAKED, bool TCULL, bool EXACT>
 int launch_stats(const Scene& S, int f_leaf, int smem_bytes, float* accum, int width, int height,
                  int row_offset, int crop_h, int frame, int bounces, float fov, float aspect,
                  cudaStream_t stream) {
-  const cudaError_t err = walk_smem_ready(megakernel_stats<BAKED, TCULL>, S, f_leaf, smem_bytes);
+  const cudaError_t err =
+      walk_smem_ready(megakernel_stats<BAKED, TCULL, EXACT>, S, f_leaf, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 block(kBlockX, kBlockY);
   dim3 grid((width + kBlockX - 1) / kBlockX, (crop_h + kBlockY - 1) / kBlockY);
-  megakernel_stats<BAKED, TCULL><<<grid, block, smem_bytes, stream>>>(
+  megakernel_stats<BAKED, TCULL, EXACT><<<grid, block, smem_bytes, stream>>>(
       S, f_leaf, accum, width, height, frame, bounces, fov, aspect, row_offset, crop_h);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool STATS>
+template <bool STATS, bool EXACT>
 int launch_grid(const Scene& S, int f_leaf, int smem_bytes, float* accum, int width, int height,
                 int row_offset, int crop_h, int frame, int last_clear, int bounces, float fov,
                 float aspect, int debug, const Grid& G, unsigned long long* grid_stats,
                 unsigned long long* walk_stats, cudaStream_t stream) {
-  const cudaError_t err = walk_smem_ready(megakernel_grid<STATS>, S, f_leaf, smem_bytes);
+  const cudaError_t err = walk_smem_ready(megakernel_grid<STATS, EXACT>, S, f_leaf, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 block(kBlockX, kBlockY);
   dim3 grid((width + kBlockX - 1) / kBlockX, (crop_h + kBlockY - 1) / kBlockY);
-  megakernel_grid<STATS><<<grid, block, smem_bytes, stream>>>(
+  megakernel_grid<STATS, EXACT><<<grid, block, smem_bytes, stream>>>(
       S, f_leaf, accum, width, height, frame, last_clear, bounces, fov, aspect, debug, G,
       grid_stats, walk_stats, row_offset, crop_h);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launchers of one normal (EXACT): debug 4's, the grid march's and the
+// walk's, by the frame's mode.
+template <bool EXACT>
+int launch_mode(const Scene& S, int baked, int t_cull, bool relax, int refresh, int debug,
+                int f_leaf, int smem_bytes, float* accum, int width, int height, int row_offset,
+                int crop_h, int frame, int last_clear, int bounces, float fov, float aspect,
+                float omega, const Grid& G, unsigned long long* grid_stats,
+                unsigned long long* walk_stats, cudaStream_t st) {
+  if (debug == 4) {
+    auto stats = baked ? (t_cull ? &launch_stats<true, true, EXACT>
+                                 : &launch_stats<true, false, EXACT>)
+                       : (t_cull ? &launch_stats<false, true, EXACT>
+                                 : &launch_stats<false, false, EXACT>);
+    return stats(S, f_leaf, smem_bytes, accum, width, height, row_offset, crop_h, frame, bounces,
+                 fov, aspect, st);
+  }
+  if (G.cells != nullptr) {
+    auto fn = grid_stats != nullptr ? &launch_grid<true, EXACT> : &launch_grid<false, EXACT>;
+    return fn(S, f_leaf, smem_bytes, accum, width, height, row_offset, crop_h, frame, last_clear,
+              bounces, fov, aspect, debug, G, grid_stats, walk_stats, st);
+  }
+  auto walk =
+      relax ? (baked ? &launch_walk<true, true, kMarchRelax, EXACT>
+                     : &launch_walk<false, true, kMarchRelax, EXACT>)
+      : refresh != 1 ? (baked ? &launch_walk<true, true, kMarchRefresh, EXACT>
+                              : &launch_walk<false, true, kMarchRefresh, EXACT>)
+      : baked ? (t_cull ? &launch_walk<true, true, kMarchPlain, EXACT>
+                        : &launch_walk<true, false, kMarchPlain, EXACT>)
+              : (t_cull ? &launch_walk<false, true, kMarchPlain, EXACT>
+                        : &launch_walk<false, false, kMarchPlain, EXACT>);
+  return walk(S, f_leaf, smem_bytes, accum, width, height, row_offset, crop_h, frame, last_clear,
+              bounces, fov, aspect, debug, walk_stats, omega, refresh, st);
 }
 
 }  // namespace
 
 // Launches one frame on `stream`; returns cudaGetLastError() (0 on success).
 // `code` is program_code_on's int32 vector (n_ops op records, n_boxed cull
-// flags, then n_cap cap records), `table` program_table's float32 vector;
+// flags, n_cap cap records, then a cap count per LEAVE), `table`
+// program_table's float32 vector;
 // accum is (crop_h, width, 3) float32, contiguous, updated in place: the
 // frame's rows [row_offset, row_offset + crop_h), each pixel's RNG and
 // camera those of its row in the (height, width) frame, so a band is bit
@@ -441,7 +525,11 @@ int launch_grid(const Scene& S, int f_leaf, int smem_bytes, float* accum, int wi
 // megakernel_walk (debug 0-3; omega != 1 its RELAX instantiation),
 // megakernel_grid and megakernel_stats (debug 4).  A non-null walk_stats
 // (debug 0 or 3; 2 (bounces + 1) zeroed uint64) takes each bounce's summed
-// list length and list count.
+// list length and list count.  A non-zero exact takes every normal as the
+// exact gradient of the program's map (normals="autodiff": each kernel's
+// EXACT instantiation); refresh_every != 1 (a divisor of kSteps; t_cull,
+// debug 0 or 3, no grid, omega 1) freezes the march's activation window
+// (megakernel_walk's kMarchRefresh).
 extern "C" int cpt_megakernel_march(const int* code, int n_ops, const float* table,
                                     int n_boxed, int f_box, int f_mat, int n_cap, int baked,
                                     int t_cull, float omega, float* accum, int width, int height,
@@ -451,7 +539,8 @@ extern "C" int cpt_megakernel_march(const int* code, int n_ops, const float* tab
                                     const float* grid_cells, int gx, int gy, int gz,
                                     const int* grid_offs, int n_planes, int n_k, float tau,
                                     unsigned long long* grid_stats, int smem_bytes,
-                                    unsigned long long* walk_stats, void* stream) {
+                                    unsigned long long* walk_stats, int exact, int refresh_every,
+                                    void* stream) {
   Scene S{code, n_ops, table, n_boxed, f_box, f_box + 6 * n_boxed, f_mat,
           code + OP_WIDTH * n_ops + n_boxed, n_cap};
   const Grid G{grid_meta, grid_cells, gx, gy, gz, grid_offs, n_planes, n_k, tau};
@@ -463,27 +552,20 @@ extern "C" int cpt_megakernel_march(const int* code, int n_ops, const float* tab
   if (row_offset < 0 || crop_h < 1 || crop_h > height - row_offset) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (debug == 4) {
-    if (relax || grid_cells != nullptr || row_offset % 2 != 0 ||
-        (crop_h % 2 != 0 && row_offset + crop_h != height)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    auto stats = baked ? (t_cull ? &launch_stats<true, true> : &launch_stats<true, false>)
-                       : (t_cull ? &launch_stats<false, true> : &launch_stats<false, false>);
-    return stats(S, f_box, smem_bytes, accum, width, height, row_offset, crop_h, frame, bounces,
-                 fov, aspect, st);
+  if (refresh_every != 1 && (refresh_every < 1 || kSteps % refresh_every != 0 || relax ||
+                             !t_cull || (debug != 0 && debug != 3) || grid_cells != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (grid_cells != nullptr) {
-    if (!baked || !t_cull || relax || debug == 1 || debug == 2 || gx < 1 || gy < 1 || gz < 1) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    auto fn = grid_stats != nullptr ? &launch_grid<true> : &launch_grid<false>;
-    return fn(S, f_box, smem_bytes, accum, width, height, row_offset, crop_h, frame, last_clear,
-              bounces, fov, aspect, debug, G, grid_stats, walk_stats, st);
+  if (debug == 4 && (relax || grid_cells != nullptr || row_offset % 2 != 0 ||
+                     (crop_h % 2 != 0 && row_offset + crop_h != height))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto walk = relax ? (baked ? &launch_walk<true, true, true> : &launch_walk<false, true, true>)
-              : baked ? (t_cull ? &launch_walk<true, true, false> : &launch_walk<true, false, false>)
-                      : (t_cull ? &launch_walk<false, true, false> : &launch_walk<false, false, false>);
-  return walk(S, f_box, smem_bytes, accum, width, height, row_offset, crop_h, frame, last_clear,
-              bounces, fov, aspect, debug, walk_stats, omega, st);
+  if (grid_cells != nullptr && debug != 4 &&
+      (!baked || !t_cull || relax || debug == 1 || debug == 2 || gx < 1 || gy < 1 || gz < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto mode = exact ? &launch_mode<true> : &launch_mode<false>;
+  return mode(S, baked, t_cull, relax, refresh_every, debug, f_box, smem_bytes, accum, width,
+              height, row_offset, crop_h, frame, last_clear, bounces, fov, aspect, omega, G,
+              grid_stats, walk_stats, st);
 }

@@ -26,6 +26,12 @@ package's ``render_frame_pallas`` and dispatches on its mode:
   table, and the march steps by its bound wherever that is at least
   ``grid_tau``, taking exact map taps only nearer to a surface; it composes
   with ``analytic_unboxed`` and, as in JAX, ignores ``omega``.
+  ``normals="autodiff"`` takes every normal of K2 and K6 as the exact
+  gradient of the map at the hit (the EXACT instantiations, one
+  forward-mode walk; plain version ``render/program.py:make_grad_program``)
+  in place of the 6-tap central difference; ``refresh_every`` freezes the
+  t-culled march's activation window for that many steps (debug 0 and 3;
+  ignored where JAX ignores it, as ``omega`` is).
 
 ``render_accumulated_megakernel`` renders ``n_frames`` progressive frames
 into one accumulator on the device (JAX ``render_accumulated_pallas``).
@@ -47,7 +53,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..constants import BIG, DEFAULT_BOUNCES, DEFAULT_FOV, FP, MAT_SIZE
+from ..constants import BIG, DEFAULT_BOUNCES, DEFAULT_FOV, FP, MAT_SIZE, STEPS
 from ..render.baked import (
     GEOM_SLOTS,
     analytic_eligible_ids,
@@ -70,6 +76,7 @@ from ..render.program import (
     build_program,
     cast_grid,
     cast_tcull,
+    make_grad_program,
     make_map_program,
     program_bounds,
     program_code_on,
@@ -116,9 +123,12 @@ def _kernel_for(spec: SceneSpec, geometry: str, debug: int, normals: str,
                 analytic_soa: bool) -> str:
     """"analytic" (K1) or "march" (K2, and K6 with ``dist_grid``) for a
     mode of render_frame_pallas.  Raises the JAX package's ``ValueError``s
-    where it raises them (megakernel.py:1220-1272; its ``tile_w == 128``
-    check of ``dist_grid`` has no counterpart: the port takes no tile), and
-    ``NotImplementedError`` for the modes not ported yet."""
+    where it raises them (megakernel.py:1220-1272 and, for
+    ``refresh_every``, :693-700 in the t-culled march of debug 0 and 3; its
+    ``tile_w == 128`` check of ``dist_grid`` has no counterpart: the port
+    takes no tile), and ``ValueError`` for a ``normals`` other than
+    "central" and "autodiff" (JAX takes any other value as "central") and a
+    ``refresh_every`` below 1."""
     if geometry not in ("faithful", "baked"):
         raise ValueError("geometry must be 'faithful' or 'baked'")
     baked = geometry == "baked"
@@ -157,16 +167,14 @@ def _kernel_for(spec: SceneSpec, geometry: str, debug: int, normals: str,
         if debug in (1, 2):
             raise ValueError("analytic_unboxed supports the path-traced "
                              "modes (debug 0/3/4)")
-    not_yet = (
-        (normals != "central", f"normals={normals!r}", "queue 1, item 14"),
-        (int(refresh_every) != 1, "refresh_every != 1", "queue 1, item 14"),
-    )
-    for hit, what, item in not_yet:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported (ROADMAP {item})")
+    _exact(normals)
     if debug not in (0, 1, 2, 3, 4):
         raise ValueError(f"debug must be in 0..=4, not {debug}")
-    return "analytic" if analytic_all or analytic_soa else "march"
+    kernel = "analytic" if analytic_all or analytic_soa else "march"
+    # K1 and K5 take no window: only K >= 1 is checked for them.
+    _march_refresh(refresh_every, t_cull and kernel == "march", debug,
+                   dist_grid, omega)
+    return kernel
 
 
 def _layout_for(spec: SceneSpec, mode: str = "analytic_all") -> SoaSmemLayout:
@@ -434,18 +442,23 @@ def _analytic_plain(spec, params, xs, ys, frame, bounces, fov, aspect,
 
 def _march_plain(prog: Program, table, t_cull, xs, ys, frame, bounces, fov,
                  aspect, count=None, omega=1.0, grid: DistGrid = None,
-                 stats: MarchStats = None, **kw):
+                 stats: MarchStats = None, exact: bool = False,
+                 refresh_every: int = 1, **kw):
     """K2's frame: the CSG program interpreted per tap, the exact or the
-    per-thread t-culled march, 6-tap normals under the bounce's guards.
+    per-thread t-culled march, 6-tap normals under the bounce's guards or,
+    with ``exact`` (``normals="autodiff"``), the exact gradient of the same
+    map (``make_grad_program``, of the whole program with its caps).
     A program with ``caps`` (``analytic_unboxed``) caps the t-culled march
     with their closed form; a capped hit takes the capped shape's id and
-    exact normal.  ``omega`` over-relaxes the t-culled march; ``grid``
-    (K6) replaces it with the distance-grid march (``cast_grid``).
-    ``count`` accumulates its ray segments, map work (``make_map_program``),
-    grid taps and, as ``"cap_segments"``, the segments the cap is computed
-    for.  ``stats`` (a started :class:`MarchStats`) records the march
-    steps (not with ``grid``), the normal taps and the per-warp lists of
-    the frame's rays."""
+    exact normal.  ``omega`` over-relaxes the t-culled march and
+    ``refresh_every`` freezes its activation window (``cast_tcull``);
+    ``grid`` (K6) replaces it with the distance-grid march (``cast_grid``).
+    ``count`` accumulates its ray segments, map work (``make_map_program``;
+    with ``exact`` the gradient's, ``make_grad_program``), grid taps and,
+    as ``"cap_segments"``, the segments the cap is computed for.  ``stats``
+    (a started :class:`MarchStats`) records the march steps (not with
+    ``grid``), the normal taps (six map taps' worth, whatever the normal)
+    and the per-warp lists of the frame's rays."""
     vals = table.tolist()
     map_fn = make_map_program(prog, vals, count)
     record = (stats.march if stats is not None and t_cull and grid is None
@@ -454,8 +467,14 @@ def _march_plain(prog: Program, table, t_cull, xs, ys, frame, bounces, fov,
     def map_checked(p, checks):
         return map_fn(p, checks[0])
 
-    def normal(p, _idx, c):
-        return calc_normal(map_checked, p, c[:1])
+    if exact:
+        grad_fn = make_grad_program(prog, vals, count)
+
+        def normal(p, _idx, c):
+            return grad_fn(p, c[0])[1].normalize_safe()
+    else:
+        def normal(p, _idx, c):
+            return calc_normal(map_checked, p, c[:1])
 
     def taps(sel, c):
         """The rays ``sel`` of the bounce take the 6 normal taps."""
@@ -470,7 +489,8 @@ def _march_plain(prog: Program, table, t_cull, xs, ys, frame, bounces, fov,
                              count)
     else:
         def march(ro, rd, c, t_cap=None):
-            return cast_tcull(prog, map_fn, ro, rd, c, t_cap, omega, record)
+            return cast_tcull(prog, map_fn, ro, rd, c, t_cap, omega, record,
+                              refresh_every)
 
     if prog.caps.shape[0]:
         cap_fn, cap_normal, _ = make_analytic_unboxed(prog.spec)
@@ -600,7 +620,9 @@ def render_frame_megakernel_plain(
             col = _march_plain(prog, table, t_cull, xs, ys, frame, bounces,
                                fov, aspect, count,
                                _march_omega(omega, t_cull, debug, dist_grid),
-                               grid, stats, **kw)
+                               grid, stats, normals == "autodiff",
+                               _march_refresh(refresh_every, t_cull, debug,
+                                              dist_grid), **kw)
         img = stats.image() if debug == 4 else col.stack()
         if debug != 0:
             return accum.copy_(img)
@@ -644,11 +666,13 @@ def _frame_launcher(spec: SceneSpec, params: torch.Tensor, *, width, height,
                 spec, params, geometry, t_cull, analytic_unboxed, dist_grid,
                 grid_res, grid_tau)
             om = _march_omega(omega, t_cull, debug, dist_grid)
+            k = _march_refresh(refresh_every, t_cull, debug, dist_grid)
 
             def launch(accum, frame, last_clear):
                 launch_march(prog, table, accum, frame=frame,
                              last_clear=last_clear, t_cull=t_cull, omega=om,
-                             grid=grid, **run)
+                             grid=grid, normals=normals, refresh_every=k,
+                             **run)
     return launch
 
 
@@ -693,12 +717,14 @@ def render_frame_megakernel(
     modes, ``analytic_unboxed``, ``omega`` and ``dist_grid`` included) on
     the current stream without synchronising, a CPU tensor runs
     :func:`render_frame_megakernel_plain`.  ``debug=4`` gives debug 4's
-    statistics per warp of K2 (:class:`MarchStats`).  Modes of
-    ``render_frame_pallas`` that are not ported (``normals`` other than
-    "central", ``refresh_every`` != 1) raise ``NotImplementedError``; the
-    combinations
-    JAX rejects, and ``analytic_all`` / ``analytic_soa`` on a tree with a
-    non-union op, raise ``ValueError``.
+    statistics per warp of K2 (:class:`MarchStats`).  Every mode of
+    ``render_frame_pallas`` runs: ``normals="autodiff"`` takes the exact
+    gradient of the map in K2 and K6 (K1 and K5 take their closed-form
+    normals either way, as in JAX) and ``refresh_every`` freezes the
+    t-culled march's activation window in debug 0 and 3 (ignored where JAX
+    ignores it: without ``t_cull``, with ``dist_grid``, in debug 1, 2 and
+    4).  The combinations JAX rejects, and ``analytic_all`` /
+    ``analytic_soa`` on a tree with a non-union op, raise ``ValueError``.
     """
     mode = dict(geometry=geometry, normals=normals, t_cull=t_cull, omega=omega,
                 analytic_unboxed=analytic_unboxed,
@@ -772,6 +798,36 @@ def _march_omega(omega: float, t_cull: bool, debug: int,
     (``_march_while_grid`` takes none)."""
     return (float(omega) if t_cull and debug in (0, 3) and not dist_grid
             else 1.0)
+
+
+def _march_refresh(refresh_every: int, t_cull: bool, debug: int,
+                   dist_grid: bool = False, omega: float = 1.0) -> int:
+    """The activation window the march freezes: JAX takes
+    ``refresh_every`` only in the t-culled march of debug 0 and 3, as
+    ``omega`` (megakernel.py:1076-1080; debug 4's march and the grid march
+    take none).  Raises JAX's ``ValueError``s where the march takes it
+    (``omega`` != 1, a K that does not divide STEPS: :693-700) and, where
+    JAX does not raise, one for a K below 1."""
+    k = int(refresh_every)
+    if k < 1:
+        raise ValueError(f"refresh_every must be at least 1, not {k}")
+    if not (t_cull and debug in (0, 3) and not dist_grid):
+        return 1
+    if k != 1 and _march_omega(omega, t_cull, debug, dist_grid) != 1.0:
+        raise ValueError("refresh_every requires omega=1.0, with_stats=False")
+    if STEPS % k:
+        raise ValueError(f"STEPS={STEPS} not divisible by refresh_every={k}")
+    return k
+
+
+def _exact(normals: str) -> bool:
+    """Whether ``normals`` asks for the exact normal ("autodiff"); raises
+    ``ValueError`` for a value other than it and "central" (JAX's
+    megakernel takes any other value as "central")."""
+    if normals not in ("central", "autodiff"):
+        raise ValueError(f"normals must be 'central' or 'autodiff', not "
+                         f"{normals!r}")
+    return normals == "autodiff"
 
 
 def _check_accum(accum: torch.Tensor) -> None:
@@ -915,10 +971,17 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
                  omega: float = 1.0, grid: DistGrid = None,
                  grid_stats: torch.Tensor = None,
                  walk_stats: torch.Tensor = None, height: int = None,
-                 row_offset: int = 0) -> None:
+                 row_offset: int = 0, normals: str = "central",
+                 refresh_every: int = 1) -> None:
     """Launch K2 on a program's table (``program_table``) and a CUDA (H, W,
     3) float32 accumulator, on the current stream; counts the launch in
-    ``LAUNCHES["megakernel_march"]``.  With the frame's ``height`` and a
+    ``LAUNCHES["megakernel_march"]``.  ``normals="autodiff"`` takes each
+    normal as the exact gradient of the map (the EXACT instantiations:
+    csg_program.cuh:grad_exact_walk, with a program's caps folded in) in
+    place of the 6 taps, in every march (debug 0-4, RELAX, the grid march);
+    ``refresh_every`` != 1 (t_cull, debug 0 or 3, no grid, omega 1; a
+    divisor of STEPS) freezes the march's activation window
+    (csg_program.cuh:march_refresh_walk).  With the frame's ``height`` and a
     ``row_offset``, the accumulator holds the band of its rows from
     ``row_offset`` on (``height`` None: the accumulator is the frame).  A
     program with ``caps`` caps the march in closed form (t_cull, debug 0, 3
@@ -951,6 +1014,12 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
         raise ValueError("grid_stats needs a grid")
     if walk_stats is not None and debug not in (0, 3):
         raise ValueError("walk_stats needs debug 0 or 3")
+    exact = _exact(normals)
+    refresh = int(refresh_every)
+    if refresh != _march_refresh(refresh, t_cull, debug, grid is not None,
+                                 omega):
+        raise ValueError("refresh_every needs t_cull, debug 0 or 3 and no "
+                         "grid")
     smem = walk_smem_bytes(prog, WARPS)
     _check_accum(accum)
     device = accum.device
@@ -984,6 +1053,7 @@ def launch_march(prog: Program, table: torch.Tensor, accum: torch.Tensor, *,
             int(frame), int(last_clear), int(bounces), float(fov),
             float(aspect), int(debug), *gargs, smem,
             None if walk_stats is None else walk_stats.data_ptr(),
+            int(exact), refresh,
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"marching kernel launch failed: CUDA error {err}")

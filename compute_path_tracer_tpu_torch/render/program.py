@@ -33,14 +33,18 @@ and the plain interpreter read the same cos/sin and agree bit for bit.
 of the ``analytic_unboxed`` mode: the SHAPE ops of the guard-less shapes
 that ``analytic_eligible_ids`` names are left out, and the program's
 ``caps`` list them, as (kind, baked offset, shape id) in walk order, for the
-closed-form cap of the march (kernels/megakernel.py:make_analytic_unboxed).
+closed-form cap of the march (kernels/megakernel.py:make_analytic_unboxed);
+``cap_leave`` gives, per LEAVE in walk order, the caps listed before it,
+so a union's caps are those between its LEAVE and the one before it.
 A skipped first shape leaves the union's seed in the accumulator, and the
 next shape folds into it (JAX ``_eval_union_d``); the table is the full
 program's, since a skipped shape has no box.
 
 ``make_map_program`` / ``program_bounds`` / ``cast_tcull`` / ``cast_grid``
 are the plain torch versions of the kernel's map, guards, per-thread
-t-culled march and distance-grid march.
+t-culled march (with ``refresh_every``'s frozen window) and distance-grid
+march; ``make_grad_program`` is the plain version of the exact-gradient
+walk of ``normals="autodiff"``.
 
 The marching kernels (K2's plain march, K6, K3, K4) walk, at each map
 tap, not the whole op list but a list per warp of 32 lanes, built after
@@ -67,7 +71,7 @@ from ..ops.aabb import aabb_hit, intersect_aabb
 from ..ops.sdf import combine, rot3d_cs
 from ..scene.compile import OP_SMOOTH_UNION, OP_UNION, SceneSpec
 from ..scene.model import KIND_CUBE, KIND_PLANE, KIND_SPHERE
-from ..vecmath import Vec3, sqrt_rn
+from ..vecmath import Vec3, div_exact, sqrt_rn, vwhere
 from .baked import (
     GEOM_SLOTS,
     analytic_eligible_ids,
@@ -97,6 +101,7 @@ class Program:
     box_cull: np.ndarray   # (n_boxed,) int32: 1 where t-culling may drop it
     box_leaf: np.ndarray   # (n_boxed, 2): kind, baked slot offset
     caps: np.ndarray       # (n_cap, 3) int32: kind, baked offset, shape id
+    cap_leave: np.ndarray  # (n_leave,) int32: caps listed before each LEAVE
     depth: int             # deepest union nesting
     n_boxed: int
     f_box: int             # F offsets: boxes (n_boxed, 6), bounding spheres
@@ -127,8 +132,8 @@ def build_program(spec: SceneSpec, geometry: str,
         raise ValueError("skip_unboxed requires geometry='baked'")
     skip = analytic_eligible_ids(spec) if skip_unboxed else frozenset()
     zero, one = spec.n_params, spec.n_params + 1
-    ops, nodes, chains, sizes, gathers, culls, leaves, caps = (
-        [] for _ in range(8))
+    ops, nodes, chains, sizes, gathers, culls, leaves, caps, cap_leave = (
+        [] for _ in range(9))
     depth = [0]
 
     def node(t, size):
@@ -180,6 +185,9 @@ def build_program(spec: SceneSpec, geometry: str,
                         cull if box >= 0 else 0])
         ops.append([OPC_LEAVE, -1 if baked else rec, parent_fold, parent_k,
                     0, 0, 0, 0])
+        # The caps of this union are the last listed: its child unions'
+        # come before their own LEAVEs.
+        cap_leave.append(len(caps))
 
     for root, broot in zip(spec.roots, baked_layout(spec).roots):
         walk(root, broot, OP_UNION, -1, (), 1, True)
@@ -205,6 +213,7 @@ def build_program(spec: SceneSpec, geometry: str,
         box_cull=np.asarray(culls, np.int32),
         box_leaf=np.asarray(leaves, np.int64).reshape(-1, 2),
         caps=np.asarray(caps, np.int32).reshape(-1, 3),
+        cap_leave=np.asarray(cap_leave, np.int32),
         depth=depth[0], n_boxed=n_boxed, f_box=f_box, f_sph=f_sph, f_mat=f_mat,
         f_len=f_mat + MAT_SIZE * spec.n_shapes,
         node_slots=np.asarray(nodes, np.int64).reshape(-1, 10),
@@ -223,7 +232,7 @@ class _OnDevice(NamedTuple):
     size: torch.Tensor       # box_size
     gather: torch.Tensor     # box_gather
     mat_slots: torch.Tensor  # (n_shapes, 18) material slots
-    code: torch.Tensor       # int32: ops, flattened, then box_cull, caps
+    code: torch.Tensor       # int32: ops, flattened, box_cull, caps, cap_leave
     cull: torch.Tensor       # bool box_cull
     spheres: tuple           # (kind, rows, (n, slots) bv offsets) per kind
     consts: torch.Tensor     # float32 [0.0, 1.0], the slots past the params
@@ -237,7 +246,7 @@ def _on_device(prog: Program, device: torch.device) -> _OnDevice:
         return torch.as_tensor(a, dtype=torch.int64, device=device)
 
     code = np.concatenate([prog.ops.reshape(-1), prog.box_cull,
-                           prog.caps.reshape(-1)])
+                           prog.caps.reshape(-1), prog.cap_leave])
     spheres = []
     for kind in np.unique(prog.box_leaf[:, 0]):
         rows = np.nonzero((prog.box_leaf[:, 0] == kind) & (prog.box_cull != 0))[0]
@@ -321,8 +330,8 @@ def program_table(prog: Program, params: torch.Tensor, t_cull: bool = False,
 
 def program_code_on(prog: Program, device) -> torch.Tensor:
     """What the kernel reads as its program, on ``device`` (cached): the
-    op records, flattened, then ``box_cull``, then ``caps``, as one int32
-    vector."""
+    op records, flattened, then ``box_cull``, ``caps`` and ``cap_leave``,
+    as one int32 vector."""
     return _on_device(prog, torch.device(device)).code
 
 
@@ -471,6 +480,245 @@ def make_map_program(prog: Program, vals, count=None, records=None):
     return map_fn
 
 
+# -- the exact gradient of the map (normals="autodiff") ------------------------
+#
+# The plain version of csg_program.cuh:grad_exact_walk, operation for
+# operation: one forward-mode walk of the op list carrying (d, grad d).  At
+# the kinks it takes JAX's AD rules (jax/_src/lax/lax.py), as JAX's
+# reverse-mode normal of the same map does: |x| has slope +1 at x >= 0 and
+# -1 below (lax.abs); min and max give the winner's gradient and half each
+# on a tie (lax.min/max, _balanced_eq; jnp.clip is a max then a min);
+# length_safe has zero gradient at the zero vector; a select (a failed
+# guard, the subtraction, the octahedron's branches) takes the selected
+# operand's.
+
+
+def _ones(x, v=1.0):
+    return torch.full_like(x, v)
+
+
+def _max_slope(a, b):
+    """d max(a, b) / da: 1 where a wins, 1/2 on a tie, else 0."""
+    return torch.where(a > b, _ones(a), torch.where(a == b, _ones(a, 0.5),
+                                                    torch.zeros_like(a)))
+
+
+def _min_slope(a, b):
+    """d min(a, b) / da: 1 where a wins, 1/2 on a tie, else 0."""
+    return torch.where(a < b, _ones(a), torch.where(a == b, _ones(a, 0.5),
+                                                    torch.zeros_like(a)))
+
+
+def _abs_slope(x):
+    return torch.where(x >= 0.0, _ones(x), _ones(x, -1.0))
+
+
+# The gradients below are (3, n) tensors, a row a component: each operation
+# on them is the one the kernel does on each component, in one launch.
+
+
+def _length_grad(v):
+    """The gradient of length_safe(v) for a (3, n) ``v``: v / |v|, zero at
+    the zero vector."""
+    l2 = v[0] * v[0] + v[1] * v[1] + v[2] * v[2]
+    pos = l2 > 0.0
+    ln = sqrt_rn(torch.where(pos, l2, torch.ones_like(l2)))
+    return torch.where(pos, v / ln, torch.zeros_like(v))
+
+
+def _octa_branch_grad(qx, qy, qz, s):
+    u = 0.5 * (qz - qy + s)
+    mu = torch.clamp(u, min=0.0)
+    k = torch.minimum(mu, _ones(mu, s))
+    c = _min_slope(mu, _ones(mu, s)) * _max_slope(u, torch.zeros_like(u))
+    gv = _length_grad(torch.stack([qx, qy - s + k, qz - k]))
+    e = (gv[1] - gv[2]) * c * 0.5
+    return torch.stack([gv[0], gv[1] - e, gv[2] + e])
+
+
+def _leaf_sdf_grad(kind: int, q, sz, size):
+    """The gradient of the leaf SDF (ops/sdf.py) at the (3, n) point ``q``
+    in the leaf's frame, (3, n); ``sz`` holds the size slots as Python
+    floats, ``size`` a cube's as a (3, 1) float32 tensor on ``q``'s
+    device."""
+    if kind == KIND_SPHERE:
+        return _length_grad(q)
+    if kind == KIND_PLANE:
+        out = torch.zeros_like(q)
+        out[1] = 1.0
+        return out
+    if kind == KIND_CUBE:
+        a = torch.abs(q) - size
+        go = _length_grad(torch.clamp(a, min=0.0))
+        t = torch.maximum(a[1], a[2])
+        w = _min_slope(torch.maximum(a[0], t), torch.zeros_like(t))
+        wt = w * _max_slope(t, a[0])
+        wv = torch.stack([w * _max_slope(a[0], t), wt * _max_slope(a[1], a[2]),
+                          wt * _max_slope(a[2], a[1])])
+        return _abs_slope(q) * (go + wv)
+    s = sz[0]
+    p = torch.abs(q)
+    m = p[0] + p[1] + p[2] - s
+    gp = torch.full_like(q, 0.57735027)
+    b = _octa_branch_grad(p[2], p[0], p[1], s)
+    gp = torch.where(3.0 * p[2] < m, b[[1, 2, 0]], gp)
+    b = _octa_branch_grad(p[1], p[2], p[0], s)
+    gp = torch.where(3.0 * p[1] < m, b[[2, 0, 1]], gp)
+    gp = torch.where(3.0 * p[0] < m, _octa_branch_grad(p[0], p[1], p[2], s),
+                     gp)
+    return _abs_slope(q) * gp
+
+
+def _leaf_baked_grad(kind: int, p: Vec3, g, col):
+    """The world-space gradient of ``leaf_distance(kind, p, g)`` (render/
+    baked.py), (3, n): a cube's or an octahedron's leaf-frame gradient
+    through its affine rows, A^T grad.  ``col(i)`` is the column of slots
+    ``g[i:i + 3]`` as a (3, 1) float32 tensor on ``p``'s device."""
+    if kind == KIND_SPHERE:
+        return _length_grad(torch.stack(list(p)) - col(0))
+    if kind == KIND_PLANE:
+        return col(0).expand(3, p.x.shape[0]).clone()
+    q = torch.stack([g[0] * p.x + g[1] * p.y + g[2] * p.z + g[9],
+                     g[3] * p.x + g[4] * p.y + g[5] * p.z + g[10],
+                     g[6] * p.x + g[7] * p.y + g[8] * p.z + g[11]])
+    gl = _leaf_sdf_grad(kind, q, g[12:15], col(12))
+    return col(0) * gl[0] + col(3) * gl[1] + col(6) * gl[2]
+
+
+def _xform_t(gv, r):
+    """The transpose of ``_xform``'s Jacobian applied to a (3, n) gradient
+    in the transformed frame: the rotation transposed, then the inverse
+    scale."""
+    cx, sx, cy, sy, cz, sz = r[5:11]
+    gx2 = cz * gv[0] - sz * gv[1]
+    gy1 = sz * gv[0] + cz * gv[1]
+    gz1 = -sy * gx2 + cy * gv[2]
+    return torch.stack([cy * gx2 + sy * gv[2], cx * gy1 - sx * gz1,
+                        sx * gy1 + cx * gz1]) * r[1]
+
+
+def _fold_grad(op: int, k, acc_d, acc_g, d, gd):
+    """csg_program.cuh:fold with the (3, n) gradient: returns (d, grad)."""
+    if op == FOLD_ASSIGN:
+        return d, gd
+    if op == OP_UNION:
+        keep, tie = acc_d < d, acc_d == d
+        g = torch.where(keep, acc_g,
+                        torch.where(tie, 0.5 * acc_g + 0.5 * gd, gd))
+        return torch.where(keep, acc_d, d), g
+    if op == OP_SMOOTH_UNION:
+        u = 0.5 + div_exact(0.5 * (d - acc_d), k)
+        mu = torch.clamp(u, min=0.0)
+        h = torch.clamp(mu, max=1.0)
+        blended = d * (1.0 - h) + acc_d * h - k * h * (1.0 - h)
+        c = _min_slope(mu, _ones(mu)) * _max_slope(u, torch.zeros_like(u))
+        s = div_exact((acc_d - d - k * (1.0 - 2.0 * h)) * c * 0.5, k)
+        return blended, (1.0 - h) * gd + h * acc_g + s * (gd - acc_g)
+    nd = -acc_d  # subtraction
+    take = nd >= d
+    return torch.where(take, nd, d), torch.where(take, -acc_g, gd)
+
+
+def make_grad_program(prog: Program, vals, count=None):
+    """``grad(p, guard) -> (d, Vec3)``: the map of ``make_map_program`` and
+    its exact gradient at ``p`` under the (n, n_boxed) guard bits, the plain
+    version of csg_program.cuh:grad_exact_walk, in its operation order.  A
+    program with ``caps`` (``analytic_unboxed``) folds each capped leaf into
+    its own union by min just before the union's LEAVE (``cap_leave``): the
+    union is a plain UNION and its seed is MAX_DIST, so that is the map of
+    the whole program, the one JAX differentiates, also where an
+    ancestor's first shape clobbers the union.
+
+    ``count``, a dict, adds ``"grad_taps"`` (points) and, per leaf kind
+    ``k``, ``("grad", k)``: the leaf gradients whose guard passes, caps
+    included (device tensors, so counting does not synchronise)."""
+    ops = prog.ops.tolist()
+    caps = prog.caps.tolist()
+    cap_leave = prog.cap_leave.tolist()
+    baked = prog.geometry == "baked"
+    shapes = [op for op in ops if op[0] == OPC_SHAPE]
+    kinds = sorted({op[1] for op in shapes} | {c[0] for c in caps})
+
+    def tally(n, guard):
+        count["grad_taps"] = count.get("grad_taps", 0) + n
+        for k in kinds:
+            boxed = [op[3] for op in shapes if op[1] == k and op[3] >= 0]
+            free = sum(op[1] == k and op[3] < 0 for op in shapes)
+            free += sum(c[0] == k for c in caps)
+            done = guard[:, boxed].sum() if boxed else 0
+            count[("grad", k)] = count.get(("grad", k), 0) + done + n * free
+
+    table, cols = {}, {}
+
+    def col(device, off):
+        """F[off:off + 3] as a (3, 1) float32 tensor on ``device``, made
+        once (a view of the table's copy there)."""
+        key = (device, off)
+        if key not in cols:
+            if device not in table:
+                table[device] = torch.tensor(vals, dtype=torch.float32,
+                                             device=device)
+            cols[key] = table[device][off:off + 3, None]
+        return cols[key]
+
+    def baked_leaf(kind, off, p):
+        g = vals[off:off + GEOM_SLOTS[kind]]
+        return leaf_distance(kind, p, g), _leaf_baked_grad(
+            kind, p, g, lambda i: col(p.x.device, off + i))
+
+    def leaf(kind, geom, p):
+        if baked:
+            return baked_leaf(kind, geom, p)
+        r = vals[geom:geom + XFORM]
+        q = _xform(p, r)
+        gl = _xform_t(_leaf_sdf_grad(kind, torch.stack(list(q)), r[11:14],
+                                    col(p.x.device, geom + 11)), r)
+        return shape_distance(kind, q, r[11:14]) * r[0], gl * r[0]
+
+    def grad_fn(p: Vec3, guard):
+        if count is not None:
+            tally(p.x.shape[0], guard)
+        zero = torch.zeros((3,) + p.x.shape, dtype=p.x.dtype,
+                           device=p.x.device)
+        stack = []
+        acc_d, acc_g = torch.full_like(p.x, MAX_DIST), zero
+        n_leave = c = 0
+        for op in ops:
+            if op[0] == OPC_ENTER:
+                stack.append((acc_d, acc_g, p, op[1]))
+                if op[1] >= 0:
+                    p = _xform(p, vals[op[1]:op[1] + XFORM])
+                acc_d = torch.full_like(p.x, vals[op[2]] if op[2] >= 0
+                                        else MAX_DIST)
+                acc_g = zero
+            elif op[0] == OPC_SHAPE:
+                _, kind, geom, box, _, fold, k, _ = op
+                d, gd = leaf(kind, geom, p)
+                cd, cg = _fold_grad(fold, vals[k] if k >= 0 else None, acc_d,
+                                    acc_g, d, gd)
+                if box >= 0:
+                    g = guard[:, box]
+                    cd, cg = torch.where(g, cd, acc_d), torch.where(g, cg, acc_g)
+                acc_d, acc_g = cd, cg
+            else:
+                for kind, off, _ in caps[c:cap_leave[n_leave]]:
+                    acc_d, acc_g = _fold_grad(OP_UNION, None, acc_d, acc_g,
+                                              *baked_leaf(kind, off, p))
+                c = cap_leave[n_leave]
+                n_leave += 1
+                d, gd = acc_d, acc_g
+                acc_d, acc_g, p, rec = stack.pop()
+                if op[1] >= 0:
+                    scale = vals[op[1]]
+                    d = d * scale
+                    gd = _xform_t(gd, vals[rec:rec + XFORM]) * scale
+                acc_d, acc_g = _fold_grad(op[2], vals[op[3]] if op[3] >= 0
+                                          else None, acc_d, acc_g, d, gd)
+        return acc_d, Vec3(*acc_g)
+
+    return grad_fn
+
+
 def program_bounds(prog: Program, table, ro: Vec3, rd: Vec3, with_t: bool):
     """The kernel's per-bounce guards for (n,) rays: ``((check,), dbg)``,
     or for the t-culled march ``((check, t_lo, t_hi), dbg)`` with the ray's
@@ -499,7 +747,8 @@ def program_bounds(prog: Program, table, ro: Vec3, rd: Vec3, with_t: bool):
 
 
 def cast_tcull(prog: Program, map_fn, ro: Vec3, rd: Vec3, checks,
-               t_cap=None, omega: float = 1.0, record=None):
+               t_cap=None, omega: float = 1.0, record=None,
+               refresh_every: int = 1):
     """The kernel's t-culled march (JAX ``_march_while_tcull`` with the tile
     reduced to one ray, and the interval taken through a sphere that bounds
     the leaf, where the reference's box need not): a guarded shape with
@@ -521,9 +770,21 @@ def cast_tcull(prog: Program, map_fn, ro: Vec3, rd: Vec3, checks,
     ``record(live, active)``, when given, receives at each step the indices
     of the rays still marching and the (n, n_boxed) mask of the guarded
     shapes each of them evaluates (debug 4's statistics,
-    kernels/megakernel.py:MarchStats)."""
+    kernels/megakernel.py:MarchStats).
+
+    ``refresh_every = K`` freezes the activation window (JAX
+    ``_march_while_tcull`` :674-700, with the tile reduced to one ray): at
+    steps 0, K, 2K, ... a ray takes its refresh point t_r, and for the K
+    steps of the window a culled shape is in the map while its interval
+    holds t_r, and the nearest entry still ahead of t_r clamps the step.  A
+    box reached mid-window stays out of the map (the clamp still stops the
+    ray at its entry, creeping MHD a step, up to K MHD), a box left
+    mid-window stays in.  K must divide STEPS and needs ``omega`` 1, which
+    the caller checks (kernels/megakernel.py:_march_refresh); K = 1 is the
+    march above."""
     cull = _on_device(prog, ro.x.device).cull
     relax = float(omega) != 1.0
+    refresh = int(refresh_every)
     om = float(np.float32(omega))
     t = torch.zeros_like(ro.x)
     idx = torch.full_like(ro.x, -1, dtype=torch.int32)
@@ -531,11 +792,14 @@ def cast_tcull(prog: Program, map_fn, ro: Vec3, rd: Vec3, checks,
     lt = torch.zeros_like(t)  # not t itself: t is written in place
     cap = t_cap
     tp = dp = sp = fp = lt  # relax: t, d, step and exact step of the last sample
-    for _ in range(STEPS):
+    tr = lt  # the window's refresh point
+    for step in range(STEPS):
         if live.numel() == 0:
             break
         chk, lo, hi = checks
-        tt = lt[:, None]
+        if step % refresh == 0:
+            tr = lt
+        tt = tr[:, None]
         active = chk & (~cull | ((lo <= tt) & (hi >= tt)))
         if chk.shape[1]:
             m = torch.where(chk & cull & (lo > tt), lo,
@@ -570,7 +834,7 @@ def cast_tcull(prog: Program, map_fn, ro: Vec3, rd: Vec3, checks,
                               torch.where(over, dp, d)[keep],
                               torch.where(over, fp, step)[keep],
                               torch.where(over, fp, exact)[keep])
-        live, lt = live[keep], nt[keep]
+        live, lt, tr = live[keep], nt[keep], tr[keep]
         ro, rd = (Vec3(v.x[keep], v.y[keep], v.z[keep]) for v in (ro, rd))
         checks = take_lanes(checks, keep)
         if cap is not None:

@@ -437,11 +437,17 @@ def trace_pixels(bounds_fn, cast_fn, normal_fn, gather_mat, xs, ys, frame,
 
 def render_pixels(spec: SceneSpec, params, xs, ys, frame, bounces: int,
                   fov: float, aspect: float, *, width: int, height: int,
-                  debug: int, geometry: str = "faithful") -> Vec3:
+                  debug: int, geometry: str = "faithful",
+                  normals: str = "central") -> Vec3:
     """The oracle renderer over a block of pixels (JAX package:
     ``render_pixels``): the per-spec map closures of render/scenegen.py
     (``geometry="faithful"``) or over the baked coefficients
-    (``"baked"``), the exact march and the 6-tap normal."""
+    (``"baked"``), the exact march and the 6-tap normal, or with
+    ``normals="autodiff"`` the exact gradient of the same map at the hit
+    (``calc_normal_autodiff``, under an enabled autograd also where the
+    caller runs without one)."""
+    if normals not in ("central", "autodiff"):
+        raise ValueError("normals must be 'central' or 'autodiff'")
     if geometry == "baked":
         bv = bake(spec, params)
         bmap, bbounds = make_map_baked(spec), make_bounds_baked(spec)
@@ -463,10 +469,11 @@ def render_pixels(spec: SceneSpec, params, xs, ys, frame, bounces: int,
         raise ValueError("geometry must be 'faithful' or 'baked'")
     mats = params[torch.as_tensor(material_slot_matrix(spec),
                                   dtype=torch.int64, device=params.device)]
+    normal = calc_normal_autodiff if normals == "autodiff" else calc_normal
     return trace_pixels(
         bounds_fn,
         lambda ro, rd, c: cast_ray(map_fn, ro, rd, c),
-        lambda p, _idx, c: calc_normal(map_fn, p, c),
+        lambda p, _idx, c: normal(map_fn, p, c),
         lambda idx: gather_material(mats, idx),
         xs, ys, frame, bounces, fov, aspect, width=width, height=height,
         debug=debug)
@@ -483,11 +490,13 @@ def render_frame(spec: SceneSpec, params, accum=None, frame: int = 0,
                  last_clear: int = 0, *, width: int = 256, height: int = 256,
                  debug: int = 0, bounces: int = DEFAULT_BOUNCES,
                  fov: float = DEFAULT_FOV, aspect: float = None,
-                 geometry: str = "faithful") -> torch.Tensor:
+                 geometry: str = "faithful",
+                 normals: str = "central") -> torch.Tensor:
     """One oracle frame on ``params``' device (JAX package:
     ``render_frame``); returns the (H, W, 3) image, or the running mean
     with ``accum`` in debug 0.  ``debug``: 0 path trace, 1 normals + AABB,
-    2 albedo, 3 bounce heatmap (path_tracer.rs:159)."""
+    2 albedo, 3 bounce heatmap (path_tracer.rs:159); ``normals``:
+    "central" (the 6-tap difference) or "autodiff" (:func:`render_pixels`)."""
     if aspect is None:
         aspect = width / height
     device = params.device
@@ -497,7 +506,7 @@ def render_frame(spec: SceneSpec, params, accum=None, frame: int = 0,
     with torch.no_grad():
         img = render_pixels(spec, params, xs, ys, frame, bounces, fov, aspect,
                             width=width, height=height, debug=debug,
-                            geometry=geometry).stack()
+                            geometry=geometry, normals=normals).stack()
     if debug != 0:
         return img  # debug modes bypass accumulation (test_compute.glsl:240)
     if accum is None:

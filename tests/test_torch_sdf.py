@@ -253,4 +253,7 @@ def test_program_layout():
     assert shapes[:, 5].tolist()[:2] == [tp.FOLD_ASSIGN, 1]  # bite, block
     code = tp.program_code_on(prog, "cpu")
     assert code.dtype == torch.int32
-    assert code.numel() == ops.size + prog.n_boxed
+    # ops, box_cull, caps (none without skip_unboxed), a cap count a LEAVE
+    n_leave = int((ops[:, 0] == tp.OPC_LEAVE).sum())
+    assert prog.caps.size == 0 and prog.cap_leave.tolist() == [0] * n_leave
+    assert code.numel() == ops.size + prog.n_boxed + n_leave

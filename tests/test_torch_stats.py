@@ -60,8 +60,8 @@ def tile_cull_march(stats: mk.MarchStats, table):
     tap's id) and feeds ``record`` as ``cast_tcull`` does."""
 
     def cast(prog, map_fn, ro, rd, checks, t_cap=None, omega=1.0,
-             record=None):
-        assert t_cap is None and omega == 1.0
+             record=None, refresh_every=1):
+        assert t_cap is None and omega == 1.0 and refresh_every == 1
         chk = checks[0]
         n, nb = chk.shape
         boxes = table[prog.f_box:prog.f_sph].view(nb, 6)

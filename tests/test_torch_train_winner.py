@@ -14,6 +14,7 @@ their reasons (the JAX package's own, tests/test_train_fused.py:100-104):
 
 from functools import lru_cache
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -73,12 +74,17 @@ def target_of(height, width, seed=1, scale=0.3):
 
 @lru_cache(maxsize=None)
 def jax_step(name, width, height, target_key, items):
-    """The JAX fused step's (loss, grad, image), interpret mode."""
+    """The JAX fused step's (loss, grad, image), interpret mode, run op by
+    op (``jax.disable_jit``): the same function on the same inputs, in
+    about two thirds of the time that its one-off XLA compile and run take
+    on the CPU backend (benchmark_scene(8), 32x16, ``analytic_unboxed``:
+    45.8 s against 68.6 s, the same loss, gradient and image)."""
     jc, _ = scenes(name)
     target = TARGETS[target_key](name, width, height)
-    loss, grad, img = jt.make_fused_value_and_grad(
-        jc.spec, target, width=width, height=height, interpret=True,
-        with_image=True, **dict(items))(jnp.asarray(jc.params))
+    with jax.disable_jit():
+        loss, grad, img = jt.make_fused_value_and_grad(
+            jc.spec, target, width=width, height=height, interpret=True,
+            with_image=True, **dict(items))(jnp.asarray(jc.params))
     return float(loss), np.asarray(grad), np.asarray(img)
 
 
